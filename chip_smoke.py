@@ -6,14 +6,20 @@
 Phases, in order; any failure exits non-zero:
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report;
-  2. at the main path's shape (full-width tinygpt-15m packed: R = 125,128
-     rows in 43 blocks) hold each kernel against its plain PyTorch version
-     and time both with CUDA events (median of 30 runs after a warm-up);
-  3. run the slice through the user's entry points: full-width tinygpt-15m,
-     4 workers at paces (1, 2, 6, 15), H = 2, 12 outer steps, non-IID fixed
-     shards, HeLoCo, on cuda; the arrivals must equal the committed golden
-     trace of ``paper_hetero_severe`` exactly, every kernel must have run
-     once per arrival, and the eval losses must be finite;
+  2. at the slice's shape (full-width tinygpt-15m packed: R = 125,128 rows
+     in 43 blocks) hold each kernel against its plain PyTorch version
+     (plain, stats and in-place variants; the accumulator kernel under a
+     delayed-Nesterov boundary table and a FedBuff non-boundary one) and
+     time both with CUDA events (median of 30 runs after a warm-up);
+  3. run the slice's scenarios through ``repro_torch.scenarios`` at full
+     tinygpt-15m width, batch 4 x 128, on cuda: ``paper_hetero_severe``
+     (HeLoCo), then the outer-method baselines ``delayed_nesterov``,
+     ``fedbuff``, ``dcasgd``, ``poly_stale`` and ``sync_baseline``, each at
+     its golden's full depth. Before each run every launch count is set to
+     0 and read after it: the arrivals must equal the committed golden
+     trace's exactly, each applied arrival (barrier round) must launch the
+     method's kernels once and no other kernel, every tensor must stay on
+     the card, and the eval losses must be finite;
   4. print the card's name and power limit, the kernel summary line, and
      the ``{"ok": true, ...}`` line last.
 
@@ -22,6 +28,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -31,7 +38,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-GOLDEN = ROOT / "results" / "golden" / "paper_hetero_severe.json"
 
 # Datasheet peaks (NVIDIA H100 data sheet; dense, no sparsity): memory
 # bytes/s and fp32 (non-tensor-core) flop/s, by product name fragment.
@@ -42,6 +48,28 @@ ITERS = 30
 # TOL_SUM of its own scale, sqrt(uu*vv) for a dot product (Cauchy-Schwarz
 # bounds it) and the value itself for a sum of squares
 TOL_SUM = 1e-5
+
+# The slice: each scenario at full width, batch 4 x 128 (the launcher's
+# --full-width), and the kernels each applied arrival (barrier round)
+# launches once.
+SLICE = (
+    ("paper_hetero_severe", ("packed_row_stats", "packed_correct_outer")),
+    ("delayed_nesterov", ("packed_correct_outer_acc",)),
+    ("fedbuff", ("packed_correct_outer_acc",)),
+    ("dcasgd", ("packed_correct_outer_quad",)),
+    ("poly_stale", ("packed_correct_outer",)),
+    ("sync_baseline", ("packed_correct_outer",)),
+)
+REPLACES = {
+    "packed_row_stats": "src/repro/kernels/packed.py:59",
+    "packed_correct_outer": "src/repro/kernels/packed.py:175",
+    "packed_correct_outer_quad": "src/repro/kernels/packed.py:262",
+    "packed_correct_outer_acc": "src/repro/kernels/packed.py:355",
+}
+# (am, bm, ab, cg, cm, ca) of a delayed-Nesterov boundary arrival and of a
+# FedBuff non-boundary one (cg = 0: the parameters come back unchanged)
+ACC_TABLES = {"dn_boundary": (0.9, 0.025, 0.0, 1.0, 0.9, 0.0),
+              "fedbuff_hold": (1.0, 0.0, 1.0, 0.0, 0.0, 0.0)}
 
 
 def peaks_for(name: str):
@@ -83,14 +111,33 @@ def check_sums(name, got, want):
     return diff.max().item()
 
 
+def check_update(name, torch, fn, state, want, stats_want):
+    """``fn(*state, **kw)`` against the plain version's outputs ``want``:
+    plain and stats variants and the in-place update bit for bit, the stats
+    within TOL_SUM. Returns the largest stats difference."""
+    got = fn(*state)
+    with_stats = fn(*state, with_stats=True)
+    copies = tuple(t.clone() for t in state)
+    fn(*copies, out=copies)
+    torch.cuda.synchronize()
+    for label, outs in (("kernel", got), ("stats variant", with_stats),
+                        ("in-place", copies)):
+        for i, (g, w) in enumerate(zip(outs, want)):
+            assert torch.equal(g, w), (
+                f"{name} {label} output {i} differs from the plain version by "
+                f"{(g - w).abs().max().item()}")
+    return check_sums(f"{name} stats", with_stats[-1], stats_want)
+
+
 def kernel_phase(torch, pk, layout, dev, bw, flops):
     from repro_torch.configs.base import HeLoCoConfig
     R, B = layout.n_rows, layout.n_blocks
     gen = torch.Generator(device=dev).manual_seed(0)
-    d, m, p = (torch.randn((R, 128), generator=gen, device=dev)
-               for _ in range(3))
+    d, m, p, b = (torch.randn((R, 128), generator=gen, device=dev)
+                  for _ in range(4))
     cu = torch.rand(B, generator=gen, device=dev) + 0.5
     cv = torch.rand(B, generator=gen, device=dev) - 0.5
+    cq = -0.3 * torch.rand(B, generator=gen, device=dev)
     rb, _ = layout.device_tables(dev)
     eta, mu, rho = 0.7, 0.9, 0.5
     f4 = 4
@@ -107,86 +154,109 @@ def kernel_phase(torch, pk, layout, dev, bw, flops):
                                 for a, b in layout.block_row_ranges])
     err_ps = check_sums("packed_stats", blocks, plain_blocks)
 
-    # -- packed_correct_outer (plain and stats variants, in place)
-    outs = (torch.empty_like(p), torch.empty_like(m))
-    p1, m1 = pk.packed_correct_outer(p, m, d, cu, cv, rb, eta, mu, rho, out=outs)
-    pr, mr, sr = pk.packed_correct_outer_ref(p, m, d, cu, cv, rb, eta, mu, rho,
-                                             with_stats=True)
-    p2, m2, s2 = pk.packed_correct_outer(p, m, d, cu, cv, rb, eta, mu, rho,
-                                         with_stats=True)
-    pi, mi = p.clone(), m.clone()
-    pk.packed_correct_outer(pi, mi, d, cu, cv, rb, eta, mu, rho, out=(pi, mi))
-    torch.cuda.synchronize()
-    err_co = max((p1 - pr).abs().max().item(), (m1 - mr).abs().max().item())
-    assert torch.equal(p1, pr) and torch.equal(m1, mr), \
-        f"packed_correct_outer differs from its plain version by {err_co}"
-    assert torch.equal(p2, p1) and torch.equal(m2, m1), \
-        "stats variant changed p'/m' bits"
-    assert torch.equal(pi, p1) and torch.equal(mi, m1), "in-place differs"
-    err_st = check_sums("packed_correct_outer stats", s2, sr)
+    # -- the fused sweeps: plain, stats and in-place variants
+    def co(*s, **kw):
+        return pk.packed_correct_outer(*s, d, cu, cv, rb, eta, mu, rho, **kw)
+
+    def quad(*s, **kw):
+        return pk.packed_correct_outer_quad(*s, d, cu, cv, cq, rb, 0.07, mu,
+                                            rho, **kw)
+
+    def acc(table):
+        def call(*s, **kw):
+            return pk.packed_correct_outer_acc(*s, d, cu, cv, rb, eta, rho,
+                                               *ACC_TABLES[table], **kw)
+        return call
+
+    ref = pk.packed_correct_outer_ref(p, m, d, cu, cv, rb, eta, mu, rho,
+                                      with_stats=True)
+    err_st = check_update("packed_correct_outer", torch, co, (p, m), ref[:2],
+                          ref[2])
+    ref = pk.packed_correct_outer_quad_ref(p, m, d, cu, cv, cq, rb, 0.07, mu,
+                                           rho, with_stats=True)
+    err_q = check_update("packed_correct_outer_quad", torch, quad, (p, m),
+                         ref[:2], ref[2])
+    err_a = 0.0
+    for table in ACC_TABLES:
+        ref = pk.packed_correct_outer_acc_ref(p, m, b, d, cu, cv, rb, eta,
+                                              rho, *ACC_TABLES[table],
+                                              with_stats=True)
+        err_a = max(err_a, check_update(f"packed_correct_outer_acc[{table}]",
+                                        torch, acc(table), (p, m, b),
+                                        ref[:3], ref[3]))
+    assert torch.equal(acc("fedbuff_hold")(p, m, b)[0], p), \
+        "a FedBuff non-boundary arrival moved the parameters"
     print(f"kernels agree: row_stats err {err_rs:.3e}, block stats err "
-          f"{err_ps:.3e}, correct_outer bit-identical, stats err "
-          f"{err_st:.3e} (each sum within {TOL_SUM} of its own scale)")
+          f"{err_ps:.3e}; correct_outer, quad and acc (both tables) "
+          f"bit-identical to their plain versions in p'/m'/b', plain, stats "
+          f"and in place; stats err {max(err_st, err_q, err_a):.3e} (each "
+          f"sum within {TOL_SUM} of its own scale)")
 
     def bound(nbytes, nflops):
         t_b, t_f = nbytes / bw, nflops / flops
         return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
     n = R * 128
-    rs_bytes = 2 * n * f4 + R * 3 * f4
-    co_bytes = 5 * n * f4 + R * 4 + 2 * B * f4
+    plane, table_bytes = n * f4, R * 4
+    outs = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(b))
     rows = []
     for name, fn, plain, nbytes, nflops, err in (
             ("packed_row_stats", lambda: pk.packed_row_stats(d, m),
-             lambda: pk.packed_row_stats_ref(d, m), rs_bytes, 6 * n, err_rs),
-            ("packed_correct_outer",
-             lambda: pk.packed_correct_outer(p, m, d, cu, cv, rb, eta, mu, rho,
-                                             out=outs),
+             lambda: pk.packed_row_stats_ref(d, m),
+             2 * plane + R * 3 * f4, 6 * n, err_rs),
+            ("packed_correct_outer", lambda: co(p, m, out=outs[:2]),
              lambda: pk.packed_correct_outer_ref(p, m, d, cu, cv, rb, eta, mu,
                                                  rho),
-             co_bytes, 11 * n, err_co)):
+             5 * plane + table_bytes + 2 * B * f4, 11 * n, 0.0),
+            ("packed_correct_outer_quad", lambda: quad(p, m, out=outs[:2]),
+             lambda: pk.packed_correct_outer_quad_ref(p, m, d, cu, cv, cq, rb,
+                                                      0.07, mu, rho),
+             5 * plane + table_bytes + 3 * B * f4, 15 * n, 0.0),
+            ("packed_correct_outer_acc",
+             lambda: acc("dn_boundary")(p, m, b, out=outs),
+             lambda: pk.packed_correct_outer_acc_ref(
+                 p, m, b, d, cu, cv, rb, eta, rho, *ACC_TABLES["dn_boundary"]),
+             7 * plane + table_bytes + 2 * B * f4, 16 * n, 0.0)):
         ms, plain_ms = time_ms(fn), time_ms(plain)
         b_ms, by = bound(nbytes, nflops)
         rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
                      "bytes": nbytes, "flops": nflops, "R": R, "blocks": B})
     # off the main path or around the kernels: reported, not in the summary
-    st_bytes = co_bytes + R * 4 * f4
+    st_bytes = 5 * plane + table_bytes + 2 * B * f4 + R * 4 * f4
     print(json.dumps({
         "kernel": "packed_correct_outer(with_stats)",
-        "kernel_ms": time_ms(lambda: pk.packed_correct_outer(
-            p, m, d, cu, cv, rb, eta, mu, rho, with_stats=True, out=outs)),
+        "kernel_ms": time_ms(lambda: co(p, m, with_stats=True, out=outs[:2])),
         "plain_ms": time_ms(lambda: pk.packed_correct_outer_ref(
             p, m, d, cu, cv, rb, eta, mu, rho, with_stats=True)),
         "bound_ms": bound(st_bytes, 17 * n)[0], "bytes": st_bytes,
         "on_main_path": False}))
+    print(json.dumps({
+        "kernel": "packed_correct_outer_acc[fedbuff_hold]",
+        "kernel_ms": time_ms(lambda: acc("fedbuff_hold")(p, m, b, out=outs)),
+        "on_main_path": True}))
     parts = pk.packed_row_stats(d, m)
     seg = layout.device_tables(dev)[1]
-    rows_ = seg[:layout.n_blocks]
     print(json.dumps({
         "op": "packed_stats = row stats kernel + segment sum",
         "ms": time_ms(lambda: pk.packed_stats(d, m, layout)),
         "segment_sum_ms": time_ms(lambda: torch.segment_reduce(
             parts.t().reshape(-1), "sum", lengths=seg)),
-        # the same sums over the (R, 3) rows, axis 0: PyTorch's per-thread
-        # loop over each segment, kept to show why the flat form is used
-        "segment_sum_rows_ms": time_ms(lambda: torch.segment_reduce(
-            parts[:layout.data_rows], "sum", lengths=rows_, axis=0)),
         "branch_scalars_ms": time_ms(lambda: pk.branch_scalars(
             blocks, HeLoCoConfig())),
     }))
     return rows
 
 
-def slice_phase(torch, pk, golden):
-    from repro_torch.async_engine.engine import make_engine, make_eval_fn
-    from repro_torch.launch.train import parse_args, run_config_from_args
+def run_scenario(torch, pk, name, kernels):
+    """One slice scenario at full width on cuda, through the scenario layer.
+    Returns (launch counts of this run, applied arrivals)."""
+    from repro_torch.async_engine.engine import make_eval_fn
+    from repro_torch.launch.train import FULL_WIDTH
+    from repro_torch.scenarios import registry, run
 
-    args = parse_args(["--arch", "tinygpt-15m", "--workers", "4",
-                       "--paces", "1,2,6,15", "--outer", "12", "--inner", "2",
-                       "--batch", "4", "--seq", "128", "--eval-every", "3",
-                       "--device", "cuda"])
-    eng = make_engine(run_config_from_args(args), device="cuda")
+    scn = registry.get_scenario(name).overridden(**FULL_WIDTH)
+    eng = scn.build(device="cuda")
     spans = {"inner_round": [], "server_step": [], "eval": []}
 
     def timed(fn, bucket):
@@ -199,49 +269,62 @@ def slice_phase(torch, pk, golden):
             return out
         return wrapper
 
-    eng._obtain = timed(eng._obtain, "inner_round")
+    eng._execute = timed(eng._execute, "inner_round")
     eng.server.on_arrival = timed(eng.server.on_arrival, "server_step")
-    eval_fn = timed(make_eval_fn(eng, batch=8), "eval")
+    eng.server.on_sync_round = timed(eng.server.on_sync_round, "server_step")
+    eval_fn = timed(make_eval_fn(eng, batch=scn.eval_batch), "eval")
     torch.cuda.synchronize()
     pk.reset_launch_counts()
     t0 = time.perf_counter()
-    hist = eng.run(eval_every=args.eval_every, eval_fn=eval_fn)
+    hist = eng.run(eval_every=scn.eval_cadence, eval_fn=eval_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = pk.launch_counts()
 
-    rows = [[a["outer_step"], a["worker_id"],
-             a["outer_step"] - 1 - a["staleness"], a["staleness"], a["lang"],
-             a["rho"], a["sim_time"], bool(a["dropped"])]
-            for a in hist.arrivals]
-    assert json.loads(json.dumps(rows)) == golden["arrivals"], \
-        f"arrivals differ from the golden:\n{rows}\n{golden['arrivals']}"
-    n = len(rows)
-    assert n == 12 and all(c == n for c in counts.values()), \
-        f"launch counts {counts} after {n} arrivals"
-    tensors = [eng.server._pbuf, eng.server._mbuf,
-               *eng.server.state.params.values()]
+    bad = run.compare(scn, hist)
+    assert not bad, f"{name}: {bad}"
+    applied = sum(not a["dropped"] for a in hist.arrivals)
+    want = {k: (applied if k in kernels else 0) for k in counts}
+    assert counts == want, f"{name}: launch counts {counts}, want {want}"
+    srv = eng.server
+    tensors = [srv._pbuf, srv._mbuf, *srv.state.params.values()]
+    if srv._abuf is not None:
+        tensors.append(srv._abuf)
     for w in eng.workers.values():
         tensors += [*w.opt.mu.values(), *w.opt.nu.values()]
     for task in eng._pending.values():          # rounds still in flight
         tensors += [*task.params.values(), *task.opt.mu.values()]
-    assert all(t.device.type == "cuda" for t in tensors), "a tensor left the card"
+    assert all(t.device.type == "cuda" for t in tensors), \
+        f"{name}: a tensor left the card"
     means = [e["mean"] for e in hist.evals]
-    assert means and all(math.isfinite(x) for x in means), means
-    for e in hist.evals:
-        print(f"eval step {e['step']:3d}  t={e['time']:5.1f}s  "
-              f"loss={e['mean']:.4f}  per_lang={e['per_lang']}")
+    assert means and all(math.isfinite(x) for x in means), (name, means)
     print(json.dumps({
-        "slice": "tinygpt-15m full width, 4 workers (1,2,6,15), H=2, "
-                 "12 arrivals, batch 4 x 128, heloco",
-        "params": sum(t.numel() for t in eng.server.state.params.values()),
+        "scenario": name, "method": scn.method,
+        "config": f"tinygpt-15m full width, {scn.n_workers} workers "
+                  f"{scn.paces}, H={scn.inner_steps}, batch 4 x 128",
+        "params": sum(t.numel() for t in srv.state.params.values()),
+        "arrivals": len(hist.arrivals), "applied": applied,
         "arrivals_equal_golden": True, "launches": counts,
-        "wall_s": wall, "wall_ms_per_arrival": 1e3 * wall / n,
+        "wall_s": wall, "wall_ms_per_arrival": 1e3 * wall / len(hist.arrivals),
         "median_ms": {k: statistics.median(v) for k, v in spans.items()},
         "first_ms": {k: v[0] for k, v in spans.items()},
         "eval_means": means,
         "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
-    return counts, n
+    return counts, applied
+
+
+def slice_phase(torch, pk):
+    """Every slice scenario; returns per kernel (launches, arrivals of the
+    runs that use it)."""
+    totals = {k: [0, 0] for k in REPLACES}
+    for name, kernels in SLICE:
+        counts, applied = run_scenario(torch, pk, name, kernels)
+        for k in kernels:
+            totals[k][0] += counts[k]
+            totals[k][1] += applied
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
 
 
 def main() -> int:
@@ -255,7 +338,6 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import packed as pk
     from repro_torch.models import Model
-    golden = json.loads(GOLDEN.read_text())
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -275,27 +357,28 @@ def main() -> int:
     layout = build_layout(Model(get_config("tinygpt-15m")).param_specs())
     assert (layout.n_rows, layout.n_blocks) == (125_128, 43), layout.n_rows
     rows = kernel_phase(torch, pk, layout, torch.device("cuda"), bw, flops)
-    counts, n_arrivals = slice_phase(torch, pk, golden)
+    t0 = time.perf_counter()
+    totals = slice_phase(torch, pk)
+    print(f"slice phase: {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for r in rows:
+        launches, arrivals = totals[r["name"]]
         print(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"],
                           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                           "bound_by": r["bound_by"], "bytes": r["bytes"],
                           "bandwidth_Bps": bw, "fp32_flops": flops,
                           "library_ms": None,
-                          "launches_per_arrival": counts[r["name"]] / n_arrivals,
+                          "launches_per_arrival": launches / arrivals,
                           "R": r["R"], "blocks": r["blocks"]}))
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": "src/repro_torch/csrc/packed.cu",
-            "replaces": {"packed_row_stats": "src/repro/kernels/packed.py:59",
-                         "packed_correct_outer":
-                             "src/repro/kernels/packed.py:175"}[r["name"]],
-            "launches": counts[r["name"]], "max_abs_err": r["max_abs_err"],
+            "replaces": REPLACES[r["name"]],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "launches_per_arrival": launches / arrivals})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

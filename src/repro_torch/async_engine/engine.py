@@ -1,15 +1,16 @@
 """The virtual-clock training engine of the port.
 
-Port of the part of ``repro/async_engine/engine.py`` that an asynchronous
-run with one commit per arrival uses (the ``paper_hetero_severe``
-scenario): workers at fixed paces on fixed or flexible language shards, a
-virtual-clock event queue, the functional inner round (``execute_round``),
-the server-side commit through the packed ``Synchronizer``, and the
+Port of the part of ``repro/async_engine/engine.py`` that a run with one
+commit per arrival uses: workers at fixed paces on fixed or flexible
+language shards, a virtual-clock event queue, the functional inner round
+(``execute_round``), the server-side commit through the packed
+``Synchronizer``, the barrier rounds of a synchronous method, and the
 per-language eval protocol. Only *time* is simulated; the inner rounds run
 for real on the engine's device.
 
 The arrival sequence depends only on paces, H and the schedule, so it
-equals the reference's exactly.
+equals the reference's exactly. A ``RunConfig`` axis the port does not run
+yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,6 +33,29 @@ from repro_torch.optim.adamw import AdamState, init_adam
 from repro_torch.train.inner import eval_loss, pseudo_gradient, run_inner
 
 Params = Dict[str, torch.Tensor]
+
+# RunConfig axes the port's engine does not run yet: (field, default,
+# ROADMAP item); compression is the outer config's.
+UNPORTED_AXES = (
+    ("mixture_alpha", None, "A7, engine axes"),
+    ("dylu", False, "A7, engine axes"),
+    ("topology", "hub", "A14"),
+    ("commit_batch", 1, "A11"),
+    ("batch_rampup", None, "A11"),
+    ("compression", "none", "A9"),
+)
+
+
+def unported_axes(run_cfg: RunConfig) -> List[str]:
+    """The axes of ``run_cfg`` set away from their defaults that the port
+    cannot run yet, each with its ROADMAP item."""
+    out = []
+    for name, default, item in UNPORTED_AXES:
+        value = getattr(run_cfg.outer if name == "compression" else run_cfg,
+                        name)
+        if value != default:
+            out.append(f"{name}={value!r} (ROADMAP {item})")
+    return out
 
 
 @dataclass
@@ -123,6 +147,10 @@ class EngineBase:
         by path, see ``bridge``) instead of a fresh draw from ``run_cfg.seed``;
         the port's counterpart of the reference's ``restore``, used to start
         both packages from the same bits."""
+        missing = unported_axes(run_cfg)
+        if missing:
+            raise NotImplementedError(
+                "the port's engine does not run " + "; ".join(missing))
         self.cfg = run_cfg
         self.device = resolve_device(device)
         self.model = build_model(run_cfg.model)
@@ -136,7 +164,8 @@ class EngineBase:
             params = bridge.to_torch(init_params, self.device)
             if set(params) != set(self.model.param_specs()):
                 raise ValueError("init_params do not match the model's leaves")
-        self.server = Synchronizer(params, run_cfg.outer, run_cfg.n_workers)
+        self.server = Synchronizer(params, run_cfg.outer, run_cfg.n_workers,
+                                   commit_batch=run_cfg.commit_batch)
         self.workers: Dict[int, Worker] = {}
         for wid in range(run_cfg.n_workers):
             pace = run_cfg.worker_paces[wid % len(run_cfg.worker_paces)]
@@ -189,7 +218,9 @@ class EngineBase:
                              specs=self.specs)
 
     # ----------------------------------------------------------------- commit
-    def _commit(self, w: Worker, res: RoundResult):
+    def _commit_worker(self, w: Worker, res: RoundResult):
+        """Fold a completed round back into the worker and the shared token
+        and communication accounting (the order of commits is the history)."""
         w.opt = res.opt
         w.inner_step_count += res.h_steps
         w.pending_task_id = None
@@ -198,6 +229,9 @@ class EngineBase:
         if res.lang is not None:
             self.lang_tokens[res.lang] += toks
         self.history.comm_bytes += res.nbytes
+
+    def _commit(self, w: Worker, res: RoundResult):
+        self._commit_worker(w, res)
         rec = self.server.on_arrival(
             res.delta, res.s_i, res.wid, sim_time=self.time,
             lang=(self.specs[res.lang].lang if res.lang is not None
@@ -213,6 +247,26 @@ class EngineBase:
     def run(self, eval_every: int = 0,
             eval_fn: Optional[Callable[[Params, int, float], Dict]] = None
             ) -> History:
+        """Run to ``outer_steps`` commits: barrier rounds for a synchronous
+        method, else the asynchronous event loop."""
+        if self.server.method.sync:
+            self._run_sync(eval_every, eval_fn)
+        else:
+            self._run_async(eval_every, eval_fn)
+        return self._finalize(eval_fn)
+
+    def _post_commit(self, eval_every, eval_fn):
+        if eval_every and eval_fn and self.server.t % eval_every == 0:
+            self._eval(eval_fn)
+
+    def _finalize(self, eval_fn) -> History:
+        self.history.final_time = self.time
+        if eval_fn and (not self.history.evals
+                        or self.history.evals[-1]["step"] != self.server.t):
+            self._eval(eval_fn)
+        return self.history
+
+    def _run_async(self, eval_every, eval_fn):
         """Virtual-clock event loop: every pop commits one arrival and
         re-dispatches its worker until ``outer_steps`` commits."""
         for w in self.workers.values():
@@ -222,15 +276,26 @@ class EngineBase:
             self.time, wid = self._events.pop()
             w = self.workers[wid]
             self._commit(w, self._obtain(w))
-            if eval_every and eval_fn and self.server.t % eval_every == 0:
-                self._eval(eval_fn)
+            self._post_commit(eval_every, eval_fn)
             if self.server.t < target:
                 self._dispatch(w)
-        self.history.final_time = self.time
-        if eval_fn and (not self.history.evals
-                        or self.history.evals[-1]["step"] != self.server.t):
-            self._eval(eval_fn)
-        return self.history
+
+    def _run_sync(self, eval_every, eval_fn):
+        """Barrier rounds: every worker runs one round from the same outer
+        state, the slowest gates the clock, and the server takes one step
+        on the workers' average pseudo-gradient."""
+        while self.server.t < self.cfg.outer_steps:
+            workers = list(self.workers.values())
+            round_time = max(self._h_steps(w) * w.pace for w in workers)
+            tasks = [self._make_task(w) for w in workers]
+            results = [self._execute(t) for t in tasks]
+            for w, res in zip(workers, results):
+                self._commit_worker(w, res)
+            self.time += round_time
+            rec = self.server.on_sync_round([r.delta for r in results],
+                                            sim_time=self.time)
+            self.history.arrivals.append(dict(rec.__dict__))
+            self._post_commit(eval_every, eval_fn)
 
 
 ENGINES = ("sim",)

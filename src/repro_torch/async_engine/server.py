@@ -2,10 +2,11 @@
 low-communication training.
 
 Port of ``repro/async_engine/server.py:Synchronizer`` on its packed path
-with one commit per arrival and no telemetry. The outer state lives packed:
-params and momentum are flattened once into fp32 (R, 128) buffers on the
-device, every arrival rewrites them with the two packed kernels, and the
-dict view is unpacked only on demand (``state``, ``worker_init``).
+with one commit per arrival, no compression and no telemetry. The outer
+state lives packed: params, momentum and, for buffered methods, the
+gradient accumulator are flattened once into fp32 (R, 128) buffers on the
+device, every arrival rewrites them in place with the packed kernels, and
+the dict view is unpacked only on demand (``state``, ``worker_init``).
 """
 from __future__ import annotations
 
@@ -26,10 +27,12 @@ Params = Dict[str, torch.Tensor]
 
 
 class OuterState(NamedTuple):
-    """Outer params + Nesterov momentum + outer step t."""
+    """Outer params + Nesterov momentum + outer step t (+ the method's
+    gradient accumulator, buffered methods only)."""
     params: Params
     momentum: Params
     step: int
+    aux: Optional[Params] = None
 
 
 @dataclass
@@ -45,7 +48,15 @@ class ArrivalRecord:
 
 class Synchronizer:
     def __init__(self, init_params: Mapping[str, torch.Tensor],
-                 cfg: OuterOptConfig, n_workers: int):
+                 cfg: OuterOptConfig, n_workers: int, commit_batch: int = 1):
+        if cfg.compression != "none":
+            raise NotImplementedError(
+                f"compression={cfg.compression!r}: the port's server takes "
+                "uncompressed pseudo-gradients only (ROADMAP A9)")
+        if commit_batch != 1:
+            raise NotImplementedError(
+                f"commit_batch={commit_batch}: the port commits one arrival "
+                "at a time (batched commits are ROADMAP A11)")
         self.cfg = cfg
         self.method = outer_methods.resolve(cfg.method)
         self.n_workers = n_workers
@@ -56,6 +67,10 @@ class Synchronizer:
         self.layout = packing.build_layout(init_params)
         self._pbuf = packing.pack(self.layout, init_params)
         self._mbuf = packing.zeros(self.layout, self._pbuf.device)
+        self._abuf = (packing.zeros(self.layout, self._pbuf.device)
+                      if self.method.uses_buffer else None)
+        # the schedule hooks read only (phase + 1) % buffer_period
+        self._phase_period = self.method.buffer_period or 1
         self._step = 0
         self._state_cache: Optional[OuterState] = None
 
@@ -68,7 +83,10 @@ class Synchronizer:
                 params=packing.unpack(self.layout, self._pbuf),
                 momentum=packing.unpack(self.layout, self._mbuf,
                                         dtype=torch.float32),
-                step=self._step)
+                step=self._step,
+                aux=(packing.unpack(self.layout, self._abuf,
+                                    dtype=torch.float32)
+                     if self._abuf is not None else None))
         return self._state_cache
 
     @property
@@ -102,23 +120,29 @@ class Synchronizer:
     # -- outer-step drivers ---------------------------------------------------
     def _step_update(self, delta: Mapping[str, torch.Tensor], rho: float,
                      tau: float):
-        # The reference donates p/m to its jitted step; here the fused
-        # sweep writes p' and m' over p and m. Each element is read and
-        # written at the same index by the same thread, so the in-place
-        # update is safe, and it saves two (R, 128) allocations per arrival.
+        # The reference donates p/m(/b) to its jitted step; here the fused
+        # sweep writes p', m' (and b') over p, m (and b). Each element is
+        # read and written at the same index by the same thread, so the
+        # in-place update is safe, and it saves the (R, 128) allocations.
         apply_arrival_packed(
             self._pbuf, self._mbuf, delta, self.layout, method=self.method,
             outer_lr=self.cfg.outer_lr, mu=self.cfg.momentum,
-            h=self.cfg.heloco, rho=rho, tau=tau,
-            out=(self._pbuf, self._mbuf))
+            h=self.cfg.heloco, rho=rho, tau=tau, abuf=self._abuf,
+            phase=self.t % self._phase_period,
+            out=(self._pbuf, self._mbuf, self._abuf)[
+                :2 if self._abuf is None else 3])
         self._step += 1
         self._state_cache = None
 
     def _step_decay(self, rho: float, tau: float):
         """Dropped arrival (App. A.6): momentum-decay-only outer step."""
-        self._pbuf, self._mbuf = momentum_decay_packed(
+        out = momentum_decay_packed(
             self._pbuf, self._mbuf, self.cfg.outer_lr, self.cfg.momentum,
-            method=self.method, rho=rho, tau=tau)
+            method=self.method, rho=rho, tau=tau, abuf=self._abuf,
+            phase=self.t % self._phase_period)
+        self._pbuf, self._mbuf = out[:2]
+        if self._abuf is not None:
+            self._abuf = out[2]
         self._step += 1
         self._state_cache = None
 
@@ -146,4 +170,19 @@ class Synchronizer:
         self.records.append(rec)
         if commit_key is not None:
             self._committed[commit_key] = rec
+        return rec
+
+    # -- sync round (barrier) -------------------------------------------------
+    def on_sync_round(self, deltas: List[Mapping[str, torch.Tensor]],
+                      sim_time: float = 0.0) -> ArrivalRecord:
+        """Synchronous DiLoCo: average the workers' pseudo-gradients, one
+        outer step. The average adds the workers in order and then divides,
+        as the reference does (another summation order changes the bits)."""
+        k = len(deltas)
+        avg = {p: sum(d[p].float() for d in deltas) / k for p in deltas[0]}
+        # sync-nesterov in the paper uses average weighting: G = mean(Delta)
+        self._step_update(avg, 1.0, 0.0)
+        rec = ArrivalRecord(outer_step=self.t, worker_id=-1, staleness=0,
+                            rho=1.0, sim_time=sim_time)
+        self.records.append(rec)
         return rec

@@ -1,8 +1,9 @@
 """Configs read by the port's training slice.
 
-A copy of the subset of ``repro/configs/base.py`` that the asynchronous
-HeLoCo run on the dense family reads; field names and defaults are the
-reference's so a config means the same thing on both sides.
+A copy of the subset of ``repro/configs/base.py`` that the sim engine on
+the dense family reads, plus the run-level axes a scenario writes; field
+names and defaults are the reference's so a config means the same thing on
+both sides.
 """
 from __future__ import annotations
 
@@ -58,6 +59,10 @@ class OuterOptConfig:
     heloco: HeLoCoConfig = field(default_factory=HeLoCoConfig)
     drop_stale_after: Optional[int] = None   # discard if tau > this
     delay_weighting: bool = False            # rho_t = 1/sqrt(1+tau)
+    # pseudo-gradient compression: the port runs "none" only (ROADMAP A9)
+    compression: str = "none"        # none | int8 | topk
+    topk_ratio: float = 0.1
+    error_feedback: bool = True
 
 
 @dataclass(frozen=True)
@@ -86,7 +91,14 @@ class RunConfig:
     seed: int = 0
     worker_paces: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0)  # sec/step
     non_iid: bool = True
+    # The axes below are the reference's; the port's engine raises on a
+    # value other than the default (see ``async_engine/engine.py``).
+    mixture_alpha: Optional[float] = None    # Dirichlet language mixtures
     shard_assignment: str = "fixed"  # "fixed" | "flexible" (App. A.6)
+    dylu: bool = False               # Dynamic Local Updates
+    topology: str = "hub"            # "hub" | "ring" | "gossip"
+    commit_batch: int = 1            # arrivals coalesced per commit
+    batch_rampup: Optional[int] = None       # per-round batch ramp target
 
 
 def reduced(model: ModelConfig) -> ModelConfig:

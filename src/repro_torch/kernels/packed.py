@@ -1,6 +1,6 @@
 """Kernels over the packed (R, 128) arrival buffer.
 
-Port of the two ``repro/kernels/packed.py`` sweeps an arrival runs:
+Port of the ``repro/kernels/packed.py`` sweeps an arrival runs:
 
   packed_row_stats      one read of (delta, momentum) -> per-row partial
                         (dot, uu, vv); ``packed_stats`` reduces them per
@@ -9,6 +9,13 @@ Port of the two ``repro/kernels/packed.py`` sweeps an arrival runs:
                         Alg. 2 correction with per-block (cu, cv) and the
                         Eqs. 17-19 Nesterov outer update, optionally with
                         the per-row telemetry moments in the same launch.
+  packed_correct_outer_quad
+                        the same sweep with DC-ASGD's per-block quadratic
+                        term cq*delta^2*m in the correction.
+  packed_correct_outer_acc
+                        the sweep of the accumulator schedule (delayed
+                        Nesterov, FedBuff): reads (p, m, b, delta), writes
+                        (p', m', b') under eight schedule scalars.
 
 Each wrapper launches the CUDA kernel of ``csrc/packed.cu`` for a CUDA
 tensor and raises if it cannot; it runs the plain PyTorch version beside it
@@ -37,6 +44,12 @@ _SIGNATURES = {
                              ctypes.c_int, _ptr],
     "packed_correct_outer_f32": [_ptr] * 9 + [ctypes.c_longlong] +
                                 [ctypes.c_float] * 3 + [ctypes.c_int, _ptr],
+    "packed_correct_outer_quad_f32": [_ptr] * 10 + [ctypes.c_longlong] +
+                                     [ctypes.c_float] * 3 +
+                                     [ctypes.c_int, _ptr],
+    "packed_correct_outer_acc_f32": [_ptr] * 11 + [ctypes.c_longlong] +
+                                    [ctypes.c_float] * 8 +
+                                    [ctypes.c_int, _ptr],
 }
 
 
@@ -88,6 +101,15 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def _launch(name: str, fn, device, *args):
+    """Call the C launcher ``fn`` on ``device``'s current stream; raise if
+    the launch failed."""
+    with torch.cuda.device(device):
+        err = fn(*args, _sm_count(device.index),
+                 torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, name)
+
+
 # ---------------------------------------------------------------------------
 # Sweep 1: per-row correction statistics
 # ---------------------------------------------------------------------------
@@ -108,12 +130,8 @@ def packed_row_stats(u2d: torch.Tensor, v2d: torch.Tensor) -> torch.Tensor:
     _check_cuda(u2d, v2d)
     r = u2d.shape[0]
     out = torch.empty((3, r), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = _lib().packed_row_stats_f32(
-            u2d.data_ptr(), v2d.data_ptr(), out.data_ptr(), r,
-            _sm_count(device.index),
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, "packed_row_stats")
+    _launch("packed_row_stats", _lib().packed_row_stats_f32, device,
+            u2d.data_ptr(), v2d.data_ptr(), out.data_ptr(), r)
     packed_row_stats.launches += 1
     return out.t()
 
@@ -176,6 +194,43 @@ def branch_scalars(stats: torch.Tensor, h: HeLoCoConfig
 # Sweep 2: fused correct + Nesterov outer update
 # ---------------------------------------------------------------------------
 
+def _rows(vec: torch.Tensor, row_block: torch.Tensor) -> torch.Tensor:
+    """(B,) per-block scalars -> (R, 1) per-row scalars."""
+    return vec[row_block.long()][:, None]
+
+
+def _moments(d2d, m2d, corr):
+    """Per-row ``[d.m, d.d, m.m, |corr - d|^2]``, (R, 4)."""
+    e = corr - d2d
+    return torch.stack([(d2d * m2d).sum(1), (d2d * d2d).sum(1),
+                        (m2d * m2d).sum(1), (e * e).sum(1)], dim=1)
+
+
+def _check_coeffs(r: int, device, row_block, *vecs):
+    if row_block.shape != (r,) or row_block.dtype != torch.int32:
+        raise ValueError("row_block must be (R,) int32")
+    if any(v.dtype != torch.float32 or v.dim() != 1 or v.shape != vecs[0].shape
+           for v in vecs):
+        raise ValueError("per-block coefficients must be matching (B,) "
+                         "float32 vectors")
+    if any(t.device != device for t in (*vecs, row_block)):
+        raise ValueError("coefficients/row_block must be on the buffers' device")
+
+
+def _cpu_result(res, out):
+    """Copy a plain-version result into the named ``out`` buffers."""
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return (*out, *res[len(out):])
+
+
+def _outputs(out, like, n: int):
+    return out if out is not None else tuple(torch.empty_like(like)
+                                             for _ in range(n))
+
+
 def packed_correct_outer_ref(p2d, m2d, d2d, cu, cv, row_block, eta, mu, rho,
                              with_stats: bool = False):
     """Plain version of ``packed_correct_outer`` (same arguments, no ``out``).
@@ -183,19 +238,13 @@ def packed_correct_outer_ref(p2d, m2d, d2d, cu, cv, row_block, eta, mu, rho,
     on its own, the arithmetic the kernel performs."""
     eta, mu, rho = _f32(eta), _f32(mu), _f32(rho)
     one_minus_mu = float(np.float32(1.0) - np.float32(mu))
-    rb = row_block.long()
-    cu_rows = cu[rb][:, None]
-    cv_rows = cv[rb][:, None]
-    corr = cu_rows * d2d + cv_rows * m2d
+    corr = _rows(cu, row_block) * d2d + _rows(cv, row_block) * m2d
     g = corr * rho
     m_new = mu * m2d + one_minus_mu * g
     p_new = p2d - eta * (g + mu * m_new)
     if not with_stats:
         return p_new, m_new
-    e = corr - d2d
-    stats = torch.stack([(d2d * m2d).sum(1), (d2d * d2d).sum(1),
-                         (m2d * m2d).sum(1), (e * e).sum(1)], dim=1)
-    return p_new, m_new, stats
+    return p_new, m_new, _moments(d2d, m2d, corr)
 
 
 def packed_correct_outer(p2d: torch.Tensor, m2d: torch.Tensor,
@@ -215,42 +264,151 @@ def packed_correct_outer(p2d: torch.Tensor, m2d: torch.Tensor,
     """
     device = _check_buffers(p2d, m2d, d2d)
     r = p2d.shape[0]
-    if row_block.shape != (r,) or row_block.dtype != torch.int32:
-        raise ValueError("row_block must be (R,) int32")
-    if cu.dtype != torch.float32 or cv.dtype != torch.float32 or \
-            cu.dim() != 1 or cu.shape != cv.shape:
-        raise ValueError("cu/cv must be matching (B,) float32 vectors")
-    if any(t.device != device for t in (cu, cv, row_block)):
-        raise ValueError("cu/cv/row_block must be on the buffers' device")
+    _check_coeffs(r, device, row_block, cu, cv)
     if device.type == "cpu":
-        res = packed_correct_outer_ref(p2d, m2d, d2d, cu, cv, row_block,
-                                       eta, mu, rho, with_stats=with_stats)
-        if out is not None:
-            out[0].copy_(res[0])
-            out[1].copy_(res[1])
-            res = (out[0], out[1], *res[2:])
-        return res
-    p_out, m_out = out if out is not None else (torch.empty_like(p2d),
-                                                torch.empty_like(m2d))
+        return _cpu_result(packed_correct_outer_ref(
+            p2d, m2d, d2d, cu, cv, row_block, eta, mu, rho,
+            with_stats=with_stats), out)
+    p_out, m_out = _outputs(out, p2d, 2)
     _check_buffers(p2d, p_out, m_out)
     stats = (torch.empty((r, N_MOMENTS), dtype=torch.float32, device=device)
              if with_stats else None)
     _check_cuda(p2d, m2d, d2d, cu, cv, row_block, p_out, m_out)
-    with torch.cuda.device(device):
-        err = _lib().packed_correct_outer_f32(
+    _launch("packed_correct_outer", _lib().packed_correct_outer_f32, device,
             p2d.data_ptr(), m2d.data_ptr(), d2d.data_ptr(), cu.data_ptr(),
             cv.data_ptr(), row_block.data_ptr(), p_out.data_ptr(),
             m_out.data_ptr(), None if stats is None else stats.data_ptr(),
-            r, _f32(eta), _f32(mu), _f32(rho), _sm_count(device.index),
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, "packed_correct_outer")
+            r, _f32(eta), _f32(mu), _f32(rho))
     packed_correct_outer.launches += 1
     return (p_out, m_out) if stats is None else (p_out, m_out, stats)
 
 
 packed_correct_outer.launches = 0
 
-KERNEL_WRAPPERS = (packed_row_stats, packed_correct_outer)
+
+# ---------------------------------------------------------------------------
+# Sweep 2 variants of the method layer: DC-ASGD's quadratic term, and the
+# accumulator schedule of the buffered methods
+# ---------------------------------------------------------------------------
+
+def packed_correct_outer_quad_ref(p2d, m2d, d2d, cu, cv, cq, row_block, eta,
+                                  mu, rho, with_stats: bool = False):
+    """Plain version of ``packed_correct_outer_quad``. The correction sums
+    left to right as the reference writes it: ``(cu*d + cv*m) +
+    ((cq*d)*d)*m``."""
+    eta, mu, rho = _f32(eta), _f32(mu), _f32(rho)
+    one_minus_mu = float(np.float32(1.0) - np.float32(mu))
+    corr = (_rows(cu, row_block) * d2d + _rows(cv, row_block) * m2d
+            + _rows(cq, row_block) * d2d * d2d * m2d)
+    g = corr * rho
+    m_new = mu * m2d + one_minus_mu * g
+    p_new = p2d - eta * (g + mu * m_new)
+    if not with_stats:
+        return p_new, m_new
+    return p_new, m_new, _moments(d2d, m2d, corr)
+
+
+def packed_correct_outer_quad(p2d: torch.Tensor, m2d: torch.Tensor,
+                              d2d: torch.Tensor, cu: torch.Tensor,
+                              cv: torch.Tensor, cq: torch.Tensor,
+                              row_block: torch.Tensor, eta: float, mu: float,
+                              rho: float, *, with_stats: bool = False,
+                              out: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None):
+    """``packed_correct_outer`` with a per-block quadratic compensation term:
+    g = (cu*delta + cv*m + cq*delta^2*m)*rho, then Eqs. 17-19. Arguments,
+    outputs and aliasing as ``packed_correct_outer``; cq is (B,) fp32."""
+    device = _check_buffers(p2d, m2d, d2d)
+    r = p2d.shape[0]
+    _check_coeffs(r, device, row_block, cu, cv, cq)
+    if device.type == "cpu":
+        return _cpu_result(packed_correct_outer_quad_ref(
+            p2d, m2d, d2d, cu, cv, cq, row_block, eta, mu, rho,
+            with_stats=with_stats), out)
+    p_out, m_out = _outputs(out, p2d, 2)
+    _check_buffers(p2d, p_out, m_out)
+    stats = (torch.empty((r, N_MOMENTS), dtype=torch.float32, device=device)
+             if with_stats else None)
+    _check_cuda(p2d, m2d, d2d, cu, cv, cq, row_block, p_out, m_out)
+    _launch("packed_correct_outer_quad", _lib().packed_correct_outer_quad_f32,
+            device, p2d.data_ptr(), m2d.data_ptr(), d2d.data_ptr(),
+            cu.data_ptr(), cv.data_ptr(), cq.data_ptr(), row_block.data_ptr(),
+            p_out.data_ptr(), m_out.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            r, _f32(eta), _f32(mu), _f32(rho))
+    packed_correct_outer_quad.launches += 1
+    return (p_out, m_out) if stats is None else (p_out, m_out, stats)
+
+
+packed_correct_outer_quad.launches = 0
+
+
+def packed_correct_outer_acc_ref(p2d, m2d, b2d, d2d, cu, cv, row_block, eta,
+                                 rho, am, bm, ab, cg, cm, ca=0.0,
+                                 with_stats: bool = False):
+    """Plain version of ``packed_correct_outer_acc``: every scalar rounded
+    to fp32 first, each product and sum rounding on its own, and the
+    parameter step summed as ``(cg*g + ca*acc) + cm*m'``."""
+    eta, rho, am, bm, ab, cg, cm, ca = (_f32(x) for x in
+                                        (eta, rho, am, bm, ab, cg, cm, ca))
+    corr = _rows(cu, row_block) * d2d + _rows(cv, row_block) * m2d
+    g = corr * rho
+    acc = b2d + g
+    m_new = am * m2d + bm * acc
+    p_new = p2d - eta * (cg * g + ca * acc + cm * m_new)
+    b_new = ab * acc
+    if not with_stats:
+        return p_new, m_new, b_new
+    return p_new, m_new, b_new, _moments(d2d, m2d, corr)
+
+
+def packed_correct_outer_acc(p2d: torch.Tensor, m2d: torch.Tensor,
+                             b2d: torch.Tensor, d2d: torch.Tensor,
+                             cu: torch.Tensor, cv: torch.Tensor,
+                             row_block: torch.Tensor, eta: float, rho: float,
+                             am: float, bm: float, ab: float, cg: float,
+                             cm: float, ca: float = 0.0, *,
+                             with_stats: bool = False,
+                             out: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]] = None):
+    """One fused sweep of the generalized schedule with a gradient
+    accumulator b (delayed Nesterov / FedBuff):
+
+      g = (cu*delta + cv*m)*rho;  acc = b + g
+      m' = am*m + bm*acc;  b' = ab*acc
+      p' = p - eta*(cg*g + ca*acc + cm*m')
+
+    Returns (p', m', b'), plus the (R, 4) per-row moments of the unweighted
+    correction when ``with_stats`` (same launch, same bits).
+    ``out=(p_out, m_out, b_out)`` may name ``p2d``/``m2d``/``b2d``
+    themselves for an in-place update."""
+    device = _check_buffers(p2d, m2d, b2d, d2d)
+    r = p2d.shape[0]
+    _check_coeffs(r, device, row_block, cu, cv)
+    if device.type == "cpu":
+        return _cpu_result(packed_correct_outer_acc_ref(
+            p2d, m2d, b2d, d2d, cu, cv, row_block, eta, rho, am, bm, ab, cg,
+            cm, ca, with_stats=with_stats), out)
+    p_out, m_out, b_out = _outputs(out, p2d, 3)
+    _check_buffers(p2d, p_out, m_out, b_out)
+    stats = (torch.empty((r, N_MOMENTS), dtype=torch.float32, device=device)
+             if with_stats else None)
+    _check_cuda(p2d, m2d, b2d, d2d, cu, cv, row_block, p_out, m_out, b_out)
+    _launch("packed_correct_outer_acc", _lib().packed_correct_outer_acc_f32,
+            device, p2d.data_ptr(), m2d.data_ptr(), b2d.data_ptr(),
+            d2d.data_ptr(), cu.data_ptr(), cv.data_ptr(),
+            row_block.data_ptr(), p_out.data_ptr(), m_out.data_ptr(),
+            b_out.data_ptr(), None if stats is None else stats.data_ptr(),
+            r, *(_f32(x) for x in (eta, rho, am, bm, ab, cg, cm, ca)))
+    packed_correct_outer_acc.launches += 1
+    res = (p_out, m_out, b_out)
+    return res if stats is None else (*res, stats)
+
+
+packed_correct_outer_acc.launches = 0
+
+KERNEL_WRAPPERS = (packed_row_stats, packed_correct_outer,
+                   packed_correct_outer_quad, packed_correct_outer_acc)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -6,15 +6,12 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: p'/m' of the fused update bit for bit (the source is built
-with --fmad=false, so each product and sum rounds as in PyTorch); per-row
-and per-block sums, which the kernel adds in a shuffle tree, each within
-1e-5 of its own scale: sqrt(uu*vv) for a dot product, the value itself for
-a sum of squares.
+Tolerances: p'/m'(/b') of the fused updates bit for bit (the source is
+built with --fmad=false, so each product and sum rounds as in PyTorch);
+per-row and per-block sums, which the kernel adds in a shuffle tree, each
+within 1e-5 of its own scale: sqrt(uu*vv) for a dot product, the value
+itself for a sum of squares.
 """
-import json
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -23,7 +20,6 @@ from repro_torch.configs.base import HeLoCoConfig
 from repro_torch.core import packing
 from repro_torch.kernels import packed as pk
 
-ROOT = Path(__file__).resolve().parents[1]
 H = HeLoCoConfig()
 
 
@@ -95,6 +91,67 @@ def test_correct_outer_bit_identical_to_plain(cuda, rows):
     assert torch.equal(p, p1) and torch.equal(m, m1)
 
 
+# (am, bm, ab, cg, cm, ca): a delayed-Nesterov boundary and a FedBuff
+# non-boundary arrival (cg = 0: the parameters come back unchanged)
+ACC_TABLES = {"dn_boundary": (0.9, 0.025, 0.0, 1.0, 0.9, 0.0),
+              "fedbuff_hold": (1.0, 0.0, 1.0, 0.0, 0.0, 0.0)}
+
+
+def _coeffs(layout, dev, seed=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = layout.n_blocks
+    return (torch.rand(n, generator=gen, device=dev) + 0.5,
+            torch.rand(n, generator=gen, device=dev) - 0.5,
+            -0.3 * torch.rand(n, generator=gen, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(1,), (3, 1, 33), (2048, 5, 2049)])
+def test_correct_outer_quad_bit_identical_to_plain(cuda, rows):
+    layout = _layout(rows)
+    p, m, d = _buffers(layout, cuda, 3, seed=3)
+    cu, cv, cq = _coeffs(layout, cuda)
+    rb, _ = layout.device_tables(cuda)
+    args = (cu, cv, cq, rb, 0.07, 0.9, 0.5)
+    want = pk.packed_correct_outer_quad_ref(p, m, d, *args, with_stats=True)
+    n0 = pk.packed_correct_outer_quad.launches
+    p1, m1 = pk.packed_correct_outer_quad(p, m, d, *args)
+    p2, m2, s = pk.packed_correct_outer_quad(p, m, d, *args, with_stats=True)
+    torch.cuda.synchronize()
+    assert pk.packed_correct_outer_quad.launches == n0 + 2
+    assert torch.equal(p1, want[0]) and torch.equal(m1, want[1])
+    assert torch.equal(p2, p1) and torch.equal(m2, m1)
+    _close_sums(s, want[2])
+    pk.packed_correct_outer_quad(p, m, d, *args, out=(p, m))
+    torch.cuda.synchronize()
+    assert torch.equal(p, p1) and torch.equal(m, m1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", sorted(ACC_TABLES))
+@pytest.mark.parametrize("rows", [(1,), (3, 1, 33), (2048, 5, 2049)])
+def test_correct_outer_acc_bit_identical_to_plain(cuda, rows, table):
+    layout = _layout(rows)
+    p, m, b, d = _buffers(layout, cuda, 4, seed=4)
+    cu, cv, _ = _coeffs(layout, cuda)
+    rb, _ = layout.device_tables(cuda)
+    args = (cu, cv, rb, 0.7, 0.5, *ACC_TABLES[table])
+    want = pk.packed_correct_outer_acc_ref(p, m, b, d, *args, with_stats=True)
+    n0 = pk.packed_correct_outer_acc.launches
+    got = pk.packed_correct_outer_acc(p, m, b, d, *args)
+    stats = pk.packed_correct_outer_acc(p, m, b, d, *args, with_stats=True)
+    torch.cuda.synchronize()
+    assert pk.packed_correct_outer_acc.launches == n0 + 2
+    assert all(torch.equal(g, w) for g, w in zip(got, want[:3]))
+    assert all(torch.equal(g, w) for g, w in zip(stats[:3], got))
+    _close_sums(stats[3], want[3])
+    if table == "fedbuff_hold":
+        assert torch.equal(got[0], p)
+    pk.packed_correct_outer_acc(p, m, b, d, *args, out=(p, m, b))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, g) for x, g in zip((p, m, b), got))
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_mixed_devices(cuda):
     layout = _layout((2,))
@@ -105,25 +162,36 @@ def test_kernels_refuse_mixed_devices(cuda):
     rb = torch.from_numpy(layout.row_block)        # on the CPU
     with pytest.raises(ValueError):
         pk.packed_correct_outer(d, m, d, cu, cu, rb, 0.7, 0.9, 1.0)
+    with pytest.raises(ValueError):
+        pk.packed_correct_outer_quad(d, m, d, cu, cu, cu, rb, 0.07, 0.9, 1.0)
+    with pytest.raises(ValueError):
+        pk.packed_correct_outer_acc(d, m, d.cpu(), d, cu, cu,
+                                    layout.device_tables(cuda)[0], 0.7, 1.0,
+                                    *ACC_TABLES["dn_boundary"])
+
+
+# kernel launches per arrival (per barrier round for sync_baseline)
+LAUNCHES = {
+    "paper_hetero_severe": {"packed_row_stats": 1, "packed_correct_outer": 1},
+    "drop_stale": {"packed_row_stats": 1, "packed_correct_outer": 1},
+    "dcasgd": {"packed_correct_outer_quad": 1},
+    "delayed_nesterov": {"packed_correct_outer_acc": 1},
+    "fedbuff": {"packed_correct_outer_acc": 1},
+    "poly_stale": {"packed_correct_outer": 1},
+    "sync_baseline": {"packed_correct_outer": 1},
+}
 
 
 @pytest.mark.cuda
-def test_smoke_slice_on_the_card_matches_golden_arrivals(cuda):
-    from repro_torch.async_engine.engine import make_engine, make_eval_fn
-    from repro_torch.launch.train import parse_args, run_config_from_args
-    args = parse_args(["--smoke", "--workers", "4", "--paces", "1,2,6,15",
-                       "--outer", "12", "--inner", "2", "--batch", "2",
-                       "--seq", "16", "--device", "cuda"])
-    eng = make_engine(run_config_from_args(args), device="cuda")
+@pytest.mark.parametrize("name", sorted(LAUNCHES))
+def test_smoke_scenario_on_the_card_matches_golden(cuda, name):
+    from repro_torch.scenarios import registry, run
+    scn = registry.get_scenario(name)
     pk.reset_launch_counts()
-    hist = eng.run(eval_every=3, eval_fn=make_eval_fn(eng, batch=8))
-    rows = [[a["outer_step"], a["worker_id"],
-             a["outer_step"] - 1 - a["staleness"], a["staleness"], a["lang"],
-             a["rho"], a["sim_time"], bool(a["dropped"])]
-            for a in hist.arrivals]
-    golden = json.loads(
-        (ROOT / "results/golden/paper_hetero_severe.json").read_text())
-    assert rows == golden["arrivals"]
-    assert pk.launch_counts() == {"packed_row_stats": 12,
-                                  "packed_correct_outer": 12}
+    eng, hist = run.run(scn, "cuda")
+    assert run.compare(scn, hist) == []
+    applied = sum(not a["dropped"] for a in hist.arrivals)
+    want = {k: LAUNCHES[name].get(k, 0) * applied for k in pk.launch_counts()}
+    assert pk.launch_counts() == want
+    assert eng.server._pbuf.device.type == "cuda"
     assert all(np.isfinite(e["mean"]) for e in hist.evals)

@@ -15,6 +15,7 @@ from repro_torch.async_engine import engine as engine_lib
 from repro_torch.configs.base import RunConfig
 from repro_torch.configs import get_config
 from repro_torch.launch import train
+from repro_torch.scenarios.spec import Scenario
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
@@ -52,8 +53,10 @@ def test_launcher_without_gpu_raises_instead_of_using_the_cpu(monkeypatch):
 
     def never(*a, **k):
         raise AssertionError("the launcher built an engine without a GPU")
-    monkeypatch.setattr(train, "make_engine", never)
-    with pytest.raises(RuntimeError, match="cuda"):
-        train.main(["--smoke", "--outer", "1", "--inner", "1"])
+    monkeypatch.setattr(Scenario, "build", never)
+    for argv in (["--smoke", "--outer", "1", "--inner", "1"],
+                 ["--scenario", "dcasgd"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(argv)
     with pytest.raises(RuntimeError, match="cuda"):
         engine_lib.make_engine(RunConfig(model=get_config("tinygpt-15m-smoke")))
