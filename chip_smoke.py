@@ -9,17 +9,25 @@ Phases, in order; any failure exits non-zero:
   2. at the slice's shape (full-width tinygpt-15m packed: R = 125,128 rows
      in 43 blocks) hold each kernel against its plain PyTorch version
      (plain, stats and in-place variants; the accumulator kernel under a
-     delayed-Nesterov boundary table and a FedBuff non-boundary one) and
-     time both with CUDA events (median of 30 runs after a warm-up);
+     delayed-Nesterov boundary table and a FedBuff non-boundary one; the
+     int8 sweeps on per-block scales with a block on exact .5 ties, an
+     all-zero block and a clipped one) and time both with CUDA events
+     (median of 30 runs after a warm-up), beside one PyTorch library call
+     where there is one (and one fake-quantize call against the int8 quant
+     + dequant pair's sum);
   3. run the slice's scenarios through ``repro_torch.scenarios`` at full
      tinygpt-15m width, batch 4 x 128, on cuda: ``paper_hetero_severe``
-     (HeLoCo), then the outer-method baselines ``delayed_nesterov``,
-     ``fedbuff``, ``dcasgd``, ``poly_stale`` and ``sync_baseline``, each at
-     its golden's full depth. Before each run every launch count is set to
-     0 and read after it: the arrivals must equal the committed golden
-     trace's exactly, each applied arrival (barrier round) must launch the
-     method's kernels once and no other kernel, every tensor must stay on
-     the card, and the eval losses must be finite;
+     (HeLoCo), the outer-method baselines ``delayed_nesterov``,
+     ``fedbuff``, ``dcasgd``, ``poly_stale`` and ``sync_baseline``, then
+     the engine axes ``noniid_dirichlet`` (Dirichlet mixtures),
+     ``crash_rejoin``, ``elastic_membership`` and ``int8_dylu`` (DyLU with
+     packed int8 compression and error feedback), each at its golden's
+     full depth. Before each run every launch count is set to 0 and read
+     after it: the arrivals must equal the committed golden trace's
+     exactly, each applied arrival (barrier round) must launch the run's
+     kernels once and no other kernel (a crashed worker's lost round
+     launches nothing), every tensor must stay on the card, and the eval
+     losses must be finite;
   4. print the card's name and power limit, the kernel summary line, and
      the ``{"ok": true, ...}`` line last.
 
@@ -51,20 +59,30 @@ TOL_SUM = 1e-5
 
 # The slice: each scenario at full width, batch 4 x 128 (the launcher's
 # --full-width), and the kernels each applied arrival (barrier round)
-# launches once.
+# launches once. None of these runs drops an arrival, so int8_dylu's worker
+# rounds (three compression sweeps each) are its applied arrivals too.
+HELOCO = ("packed_row_stats", "packed_correct_outer")
+INT8 = ("packed_rowabs", "packed_quant", "packed_dequant")
 SLICE = (
-    ("paper_hetero_severe", ("packed_row_stats", "packed_correct_outer")),
+    ("paper_hetero_severe", HELOCO),
     ("delayed_nesterov", ("packed_correct_outer_acc",)),
     ("fedbuff", ("packed_correct_outer_acc",)),
     ("dcasgd", ("packed_correct_outer_quad",)),
     ("poly_stale", ("packed_correct_outer",)),
     ("sync_baseline", ("packed_correct_outer",)),
+    ("noniid_dirichlet", HELOCO),
+    ("crash_rejoin", HELOCO),
+    ("elastic_membership", HELOCO),
+    ("int8_dylu", HELOCO + INT8),
 )
 REPLACES = {
     "packed_row_stats": "src/repro/kernels/packed.py:59",
     "packed_correct_outer": "src/repro/kernels/packed.py:175",
     "packed_correct_outer_quad": "src/repro/kernels/packed.py:262",
     "packed_correct_outer_acc": "src/repro/kernels/packed.py:355",
+    "packed_rowabs": "src/repro/kernels/packed.py:710",
+    "packed_quant": "src/repro/kernels/packed.py:731",
+    "packed_dequant": "src/repro/kernels/packed.py:753",
 }
 # (am, bm, ab, cg, cm, ca) of a delayed-Nesterov boundary arrival and of a
 # FedBuff non-boundary one (cg = 0: the parameters come back unchanged)
@@ -129,7 +147,7 @@ def check_update(name, torch, fn, state, want, stats_want):
     return check_sums(f"{name} stats", with_stats[-1], stats_want)
 
 
-def kernel_phase(torch, pk, layout, dev, bw, flops):
+def kernel_phase(torch, pk, compression, layout, dev, bw, flops):
     from repro_torch.configs.base import HeLoCoConfig
     R, B = layout.n_rows, layout.n_blocks
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -192,6 +210,29 @@ def kernel_phase(torch, pk, layout, dev, bw, flops):
           f"and in place; stats err {max(err_st, err_q, err_a):.3e} (each "
           f"sum within {TOL_SUM} of its own scale)")
 
+    # -- the int8 sweeps, on the scales the compression path computes
+    x, scale = int8_inputs(torch, compression, d, layout, dev)
+    absmax = pk.packed_rowabs(x)
+    q = pk.packed_quant(x, scale, rb)
+    dec = pk.packed_dequant(q, scale, rb)
+    torch.cuda.synchronize()
+    for name, got, want in (
+            ("packed_rowabs", absmax, pk.packed_rowabs_ref(x)),
+            ("packed_quant", q, pk.packed_quant_ref(x, scale, rb)),
+            ("packed_dequant", dec, pk.packed_dequant_ref(q, scale, rb))):
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            f"{name} differs from the plain version in "
+            f"{(got != want).sum().item()} entries")
+    ties = layout.block_row_ranges[0]
+    assert scale[0].item() == 0.5 and torch.equal(
+        q[ties[0], 1:5].cpu(), torch.tensor([-62, -62, -60, -60],
+                                            dtype=torch.int8)), \
+        "packed_quant does not round half to even"
+    assert (q[slice(*layout.block_row_ranges[-1])].abs() == 127).any(), \
+        "the clipped block has no clipped value"
+    print("int8 sweeps agree: rowabs, quant and dequant bit-identical to "
+          "their plain versions (ties to even, zero block, clip)")
+
     def bound(nbytes, nflops):
         t_b, t_f = nbytes / bw, nflops / flops
         return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
@@ -199,6 +240,30 @@ def kernel_phase(torch, pk, layout, dev, bw, flops):
     n = R * 128
     plane, table_bytes = n * f4, R * 4
     outs = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(b))
+    # the library yardsticks of the int8 sweeps, timed only: one call each
+    # for rowabs and dequant (int8 times fp32 promotes to fp32), and one
+    # fake-quantize call for the quant + dequant pair, set against the
+    # pair's sum; PyTorch has no call for the int8 quant alone
+    s_rows = scale[rb.long()].contiguous()
+    zeros = torch.zeros(R, dtype=torch.int32, device=dev)
+    library = {
+        "packed_rowabs": lambda: torch.linalg.vector_norm(
+            x, float("inf"), dim=1),
+        "packed_dequant": lambda: torch.mul(q, s_rows[:, None]),
+    }
+    library_call = {
+        "packed_rowabs": "torch.linalg.vector_norm(x, inf, dim=1)",
+        "packed_dequant": "torch.mul(q, s[:, None])"}
+    assert torch.equal(library["packed_dequant"](),
+                       pk.packed_dequant_ref(q, scale, rb)), \
+        "the dequant yardstick computes another function"
+    pair = {"pair_ms": time_ms(lambda: pk.packed_dequant(
+                pk.packed_quant(x, scale, rb), scale, rb)),
+            "library_pair_ms": time_ms(
+                lambda: torch.fake_quantize_per_channel_affine(
+                    x, s_rows, zeros, 0, -127, 127)),
+            "library_pair_call": "torch.fake_quantize_per_channel_affine"}
+    int8_bytes = plane + n + table_bytes + B * f4   # fp32 + int8 + map/scales
     rows = []
     for name, fn, plain, nbytes, nflops, err in (
             ("packed_row_stats", lambda: pk.packed_row_stats(d, m),
@@ -216,11 +281,24 @@ def kernel_phase(torch, pk, layout, dev, bw, flops):
              lambda: acc("dn_boundary")(p, m, b, out=outs),
              lambda: pk.packed_correct_outer_acc_ref(
                  p, m, b, d, cu, cv, rb, eta, rho, *ACC_TABLES["dn_boundary"]),
-             7 * plane + table_bytes + 2 * B * f4, 16 * n, 0.0)):
+             7 * plane + table_bytes + 2 * B * f4, 16 * n, 0.0),
+            ("packed_rowabs", lambda: pk.packed_rowabs(x),
+             lambda: pk.packed_rowabs_ref(x), plane + R * f4, 2 * n, 0.0),
+            ("packed_quant", lambda: pk.packed_quant(x, scale, rb),
+             lambda: pk.packed_quant_ref(x, scale, rb), int8_bytes, 5 * n,
+             0.0),
+            ("packed_dequant", lambda: pk.packed_dequant(q, scale, rb),
+             lambda: pk.packed_dequant_ref(q, scale, rb), int8_bytes, 2 * n,
+             0.0)):
         ms, plain_ms = time_ms(fn), time_ms(plain)
         b_ms, by = bound(nbytes, nflops)
+        lib = library.get(name)
         rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
+                     "library_ms": time_ms(lib) if lib else None,
+                     "library_call": library_call.get(name),
+                     **(pair if name in ("packed_quant", "packed_dequant")
+                        else {}),
                      "bytes": nbytes, "flops": nflops, "R": R, "blocks": B})
     # off the main path or around the kernels: reported, not in the summary
     st_bytes = 5 * plane + table_bytes + 2 * B * f4 + R * 4 * f4
@@ -238,6 +316,11 @@ def kernel_phase(torch, pk, layout, dev, bw, flops):
     parts = pk.packed_row_stats(d, m)
     seg = layout.device_tables(dev)[1]
     print(json.dumps({
+        "op": "packed_int8_roundtrip = rowabs + block max + scale + quant + "
+              "dequant",
+        "ms": time_ms(lambda: compression.packed_int8_roundtrip(x, layout)),
+        **pair}))
+    print(json.dumps({
         "op": "packed_stats = row stats kernel + segment sum",
         "ms": time_ms(lambda: pk.packed_stats(d, m, layout)),
         "segment_sum_ms": time_ms(lambda: torch.segment_reduce(
@@ -246,6 +329,23 @@ def kernel_phase(torch, pk, layout, dev, bw, flops):
             blocks, HeLoCoConfig())),
     }))
     return rows
+
+
+def int8_inputs(torch, compression, d, layout, dev):
+    """A buffer and per-block scales for the int8 sweeps: ``d`` with block 0
+    on exact .5 ties at scale 0.5 ((n + 0.5) * 0.5 with |max| 63.5) and
+    block 1 all zero (the 1e-12 scale floor), the scales of the compression
+    path, and the last block's cut to a quarter so that x / s leaves
+    [-127, 127] (the clip)."""
+    x = d.clone()
+    (s0, e0), (s1, e1) = layout.block_row_ranges[:2]
+    x[s0:e0] = (torch.arange(-64, 64, device=dev, dtype=torch.float32)
+                + 0.5) * 0.5
+    x[s0, 0] = 63.5
+    x[s1:e1] = 0.0
+    scale = compression.block_scales(x, layout)
+    scale[-1] *= 0.25
+    return x, scale
 
 
 def run_scenario(torch, pk, name, kernels):
@@ -292,6 +392,8 @@ def run_scenario(torch, pk, name, kernels):
         tensors.append(srv._abuf)
     for w in eng.workers.values():
         tensors += [*w.opt.mu.values(), *w.opt.nu.values()]
+        if w.ef is not None:                    # packed int8 error feedback
+            tensors.append(w.ef)
     for task in eng._pending.values():          # rounds still in flight
         tensors += [*task.params.values(), *task.opt.mu.values()]
     assert all(t.device.type == "cuda" for t in tensors), \
@@ -334,6 +436,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core import compression
     from repro_torch.core.packing import build_layout
     from repro_torch.kernels import _build
     from repro_torch.kernels import packed as pk
@@ -356,7 +459,8 @@ def main() -> int:
 
     layout = build_layout(Model(get_config("tinygpt-15m")).param_specs())
     assert (layout.n_rows, layout.n_blocks) == (125_128, 43), layout.n_rows
-    rows = kernel_phase(torch, pk, layout, torch.device("cuda"), bw, flops)
+    rows = kernel_phase(torch, pk, compression, layout, torch.device("cuda"),
+                        bw, flops)
     t0 = time.perf_counter()
     totals = slice_phase(torch, pk)
     print(f"slice phase: {time.perf_counter() - t0:.1f}s")
@@ -368,9 +472,12 @@ def main() -> int:
                           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                           "bound_by": r["bound_by"], "bytes": r["bytes"],
                           "bandwidth_Bps": bw, "fp32_flops": flops,
-                          "library_ms": None,
+                          "library_ms": r["library_ms"],
+                          "library_call": r["library_call"],
                           "launches_per_arrival": launches / arrivals,
                           "R": r["R"], "blocks": r["blocks"]}))
+        pair = {k: r[k] for k in ("pair_ms", "library_pair_ms",
+                                  "library_pair_call") if k in r}
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": "src/repro_torch/csrc/packed.cu",
@@ -378,7 +485,9 @@ def main() -> int:
             "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "launches_per_arrival": launches / arrivals})
+            "library_ms": r["library_ms"],
+            "library_call": r["library_call"],
+            "launches_per_arrival": launches / arrivals, **pair})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,21 +2,25 @@
 
 Port of the part of ``repro/async_engine/engine.py`` that a run with one
 commit per arrival uses: workers at fixed paces on fixed or flexible
-language shards, a virtual-clock event queue, the functional inner round
-(``execute_round``), the server-side commit through the packed
-``Synchronizer``, the barrier rounds of a synchronous method, and the
-per-language eval protocol. Only *time* is simulated; the inner rounds run
-for real on the engine's device.
+language shards or on Dirichlet language mixtures, DyLU's pace-scaled local
+steps, a virtual-clock event queue of worker returns and restarts, crashes
+with a scheduled rejoin, elastic joins and leaves, the functional inner
+round (``execute_round``) with pseudo-gradient compression and error
+feedback, the server-side commit through the packed ``Synchronizer``, the
+barrier rounds of a synchronous method, and the per-language eval
+protocol. Only *time* is simulated; the inner rounds run for real on the
+engine's device.
 
-The arrival sequence depends only on paces, H and the schedule, so it
-equals the reference's exactly. A ``RunConfig`` axis the port does not run
-yet raises ``NotImplementedError`` naming its ROADMAP item.
+The arrival sequence depends only on paces, H, the schedule and the
+failure and membership events, so it equals the reference's exactly. A
+``RunConfig`` axis the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import heapq
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +28,9 @@ import torch
 from repro_torch import bridge
 from repro_torch.async_engine.server import Synchronizer
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.compression import roundtrip_with_error_feedback
 from repro_torch.data.synthetic import (
-    ShardSampler, eval_batches, make_language_specs,
+    ShardSampler, eval_batches, make_language_specs, mixture_weights,
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import build_model
@@ -35,57 +40,79 @@ from repro_torch.train.inner import eval_loss, pseudo_gradient, run_inner
 Params = Dict[str, torch.Tensor]
 
 # RunConfig axes the port's engine does not run yet: (field, default,
-# ROADMAP item); compression is the outer config's.
+# ROADMAP item).
 UNPORTED_AXES = (
-    ("mixture_alpha", None, "A7, engine axes"),
-    ("dylu", False, "A7, engine axes"),
     ("topology", "hub", "A14"),
     ("commit_batch", 1, "A11"),
     ("batch_rampup", None, "A11"),
-    ("compression", "none", "A9"),
 )
 
 
 def unported_axes(run_cfg: RunConfig) -> List[str]:
     """The axes of ``run_cfg`` set away from their defaults that the port
     cannot run yet, each with its ROADMAP item."""
-    out = []
-    for name, default, item in UNPORTED_AXES:
-        value = getattr(run_cfg.outer if name == "compression" else run_cfg,
-                        name)
-        if value != default:
-            out.append(f"{name}={value!r} (ROADMAP {item})")
-    return out
+    return [f"{name}={getattr(run_cfg, name)!r} (ROADMAP {item})"
+            for name, default, item in UNPORTED_AXES
+            if getattr(run_cfg, name) != default]
 
 
 @dataclass
 class Worker:
     wid: int
     pace: float = 1.0                # seconds per inner step (virtual)
-    lang: Optional[int] = None       # fixed shard (non-IID)
+    lang: Optional[int] = None       # fixed shard, or the mixture's dominant
+    mixture: Optional[Tuple[float, ...]] = None  # Dirichlet language mixture
     opt: Optional[AdamState] = None  # carried across rounds
-    inner_step_count: int = 0        # lifetime steps (data stream offset)
-    pending_task_id: Optional[int] = None
+    ef: Any = None                   # error feedback of the compression
+    inner_step_count: int = 0        # lifetime steps (LR schedule offset)
+    alive: bool = True
+    generation: int = 0              # bumped on a crash: its return is stale
+    pending_task_id: Optional[int] = None  # the round in flight
+
+    @property
+    def in_flight(self) -> bool:
+        return self.pending_task_id is not None
+
+
+@dataclass
+class FailureEvent:
+    """A worker crash at ``time`` (its round in flight is lost) and its
+    rejoin ``restart_delay`` simulated seconds later."""
+    time: float
+    wid: int
+    restart_delay: float = 60.0
+
+
+@dataclass
+class ElasticEvent:
+    """A worker joins (at ``pace``, on shard ``lang``) or leaves at ``time``."""
+    time: float
+    action: str                      # "join" | "leave"
+    wid: int
+    pace: float = 1.0
+    lang: Optional[int] = None
 
 
 class EventQueue:
-    """Virtual-clock worker-return events ordered by (time, push order), the
-    order of the reference's vectorized queue."""
+    """Virtual-clock events ``(time, kind, wid, generation)``, kind "return"
+    or "restart", popped in (time, push order), the order of the
+    reference's vectorized queue."""
 
     def __init__(self):
-        self._heap: List[Tuple[float, int, int]] = []
+        self._heap: List[Tuple[float, int, str, int, int]] = []
         self._seq = 0
 
     def __len__(self) -> int:
         return len(self._heap)
 
-    def push(self, time: float, wid: int):
-        heapq.heappush(self._heap, (float(time), self._seq, int(wid)))
+    def push(self, time: float, kind: str, wid: int, gen: int):
+        heapq.heappush(self._heap,
+                       (float(time), self._seq, kind, int(wid), int(gen)))
         self._seq += 1
 
-    def pop(self) -> Tuple[float, int]:
-        time, _seq, wid = heapq.heappop(self._heap)
-        return time, wid
+    def pop(self) -> Tuple[float, str, int, int]:
+        time, _seq, kind, wid, gen = heapq.heappop(self._heap)
+        return time, kind, wid, gen
 
 
 @dataclass
@@ -103,36 +130,49 @@ class RoundTask:
     this, never the live ``Worker``."""
     task_id: int
     wid: int
+    generation: int
     params: Params
     opt: AdamState
+    ef: Any
     s_i: int
     h_steps: int
     lang: Optional[int]
     inner_step_offset: int
+    mixture: Optional[Tuple[float, ...]] = None
 
 
 @dataclass
 class RoundResult:
     wid: int
-    delta: Params
+    generation: int
+    delta: Any                       # Params, or packing.Packed under int8
     opt: AdamState
+    ef: Any
     nbytes: int
     s_i: int
     h_steps: int
     lang: Optional[int]
 
 
-def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs) -> RoundResult:
+def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs,
+                  layout=None) -> RoundResult:
     """The functional inner round: H AdamW steps from the task's params on
-    the worker's shard, then the uncompressed pseudo-gradient."""
+    the worker's shard or mixture, then the pseudo-gradient, compressed
+    with error feedback when the run asks for it (int8 through the packed
+    ``layout``, the server's, when one is given)."""
     sampler = ShardSampler(specs, task.lang, cfg.batch_size, cfg.seq_len,
-                           seed=cfg.seed * 977 + task.wid)
+                           seed=cfg.seed * 977 + task.wid,
+                           mixture=task.mixture)
     result = run_inner(model, cfg.inner, task.params, task.opt, sampler,
                        task.h_steps, step_offset=task.inner_step_offset)
     delta = pseudo_gradient(task.params, result.params)
-    nbytes = sum(x.numel() * 4 for x in delta.values())
-    return RoundResult(wid=task.wid, delta=delta,
-                       opt=result.opt, nbytes=nbytes, s_i=task.s_i,
+    delta, ef, nbytes = roundtrip_with_error_feedback(
+        delta, task.ef, cfg.outer.compression, cfg.outer.topk_ratio,
+        layout=layout)
+    if not cfg.outer.error_feedback:
+        ef = None
+    return RoundResult(wid=task.wid, generation=task.generation, delta=delta,
+                       opt=result.opt, ef=ef, nbytes=nbytes, s_i=task.s_i,
                        h_steps=task.h_steps, lang=task.lang)
 
 
@@ -142,11 +182,14 @@ class EngineBase:
     result comes back (``_obtain``)."""
 
     def __init__(self, run_cfg: RunConfig, *, device="cuda",
-                 init_params: Optional[Mapping[str, np.ndarray]] = None):
+                 init_params: Optional[Mapping[str, np.ndarray]] = None,
+                 failures: Optional[List[FailureEvent]] = None,
+                 elastic: Optional[List[ElasticEvent]] = None):
         """``init_params``: start from these parameters (numpy arrays keyed
         by path, see ``bridge``) instead of a fresh draw from ``run_cfg.seed``;
         the port's counterpart of the reference's ``restore``, used to start
-        both packages from the same bits."""
+        both packages from the same bits. ``failures``/``elastic``: crash and
+        membership events, applied in time order."""
         missing = unported_axes(run_cfg)
         if missing:
             raise NotImplementedError(
@@ -169,14 +212,23 @@ class EngineBase:
         self.workers: Dict[int, Worker] = {}
         for wid in range(run_cfg.n_workers):
             pace = run_cfg.worker_paces[wid % len(run_cfg.worker_paces)]
-            lang = (wid % len(self.specs)) if run_cfg.non_iid else None
+            mixture = self._mixture_for(wid)
+            if mixture is not None:
+                lang = int(np.argmax(mixture))   # dominant shard (accounting)
+            else:
+                lang = (wid % len(self.specs)) if run_cfg.non_iid else None
             self.workers[wid] = Worker(wid=wid, pace=pace, lang=lang,
-                                       opt=init_adam(params))
+                                       mixture=mixture, opt=init_adam(params))
+        self.failures = sorted(failures or [], key=lambda f: f.time)
+        self.elastic = sorted(elastic or [], key=lambda e: e.time)
         self.lang_tokens = np.zeros(len(self.specs), np.int64)
         self.history = History()
         self.time = 0.0
         self._events = EventQueue()
         self._task_counter = 0
+        # DyLU's reference pace: set here and on membership changes only,
+        # never on a crash or a restart (as the reference does)
+        self._min_pace = self._min_alive_pace()
 
     # -------------------------------------------------------- engine hooks
     def _submit(self, task: RoundTask) -> None:
@@ -185,13 +237,37 @@ class EngineBase:
     def _obtain(self, w: Worker) -> RoundResult:
         raise NotImplementedError
 
+    def _drop_round(self, w: Worker) -> None:
+        """The worker's round in flight is lost (crash or leave)."""
+
     # ------------------------------------------------------------------ utils
+    def _alive(self) -> List[Worker]:
+        return [w for w in self.workers.values() if w.alive]
+
+    def _min_alive_pace(self) -> float:
+        return min((w.pace for w in self._alive()), default=1.0)
+
+    def _mixture_for(self, wid: int) -> Optional[Tuple[float, ...]]:
+        """Per-worker Dirichlet language mixture, deterministic in (seed,
+        wid), so the same across a crash and for a joining worker."""
+        if not (self.cfg.non_iid and self.cfg.mixture_alpha):
+            return None
+        return tuple(mixture_weights(len(self.specs), self.cfg.mixture_alpha,
+                                     wid, seed=self.cfg.seed))
+
     def _h_steps(self, w: Worker) -> int:
+        """H, or under DyLU H scaled by the fastest live pace over this
+        worker's, at least 1."""
+        if self.cfg.dylu:
+            return max(1, int(round(self.cfg.inner_steps *
+                                    self._min_pace / w.pace)))
         return self.cfg.inner_steps
 
     def _pick_lang(self, w: Worker) -> Optional[int]:
         if not self.cfg.non_iid:
             return None
+        if w.mixture is not None:        # the mixture samples; lang is
+            return w.lang                # its dominant shard, for accounting
         if self.cfg.shard_assignment == "flexible":
             return int(np.argmin(self.lang_tokens))
         return w.lang
@@ -202,26 +278,31 @@ class EngineBase:
         self._task_counter += 1
         w.pending_task_id = self._task_counter
         return RoundTask(task_id=self._task_counter, wid=w.wid,
+                         generation=w.generation,
                          params=self.server.worker_init(w.wid), opt=w.opt,
-                         s_i=self.server.t, h_steps=self._h_steps(w),
-                         lang=self._pick_lang(w),
+                         ef=w.ef, s_i=self.server.t, h_steps=self._h_steps(w),
+                         lang=self._pick_lang(w), mixture=w.mixture,
                          inner_step_offset=w.inner_step_count)
 
     def _dispatch(self, w: Worker):
         """Capture the round, schedule its virtual return, submit it."""
         task = self._make_task(w)
-        self._events.push(self.time + task.h_steps * w.pace, w.wid)
+        self._events.push(self.time + task.h_steps * w.pace, "return", w.wid,
+                          w.generation)
         self._submit(task)
 
     def _execute(self, task: RoundTask) -> RoundResult:
+        layout = (self.server.layout
+                  if self.cfg.outer.compression == "int8" else None)
         return execute_round(task, model=self.model, cfg=self.cfg,
-                             specs=self.specs)
+                             specs=self.specs, layout=layout)
 
     # ----------------------------------------------------------------- commit
     def _commit_worker(self, w: Worker, res: RoundResult):
         """Fold a completed round back into the worker and the shared token
         and communication accounting (the order of commits is the history)."""
         w.opt = res.opt
+        w.ef = res.ef
         w.inner_step_count += res.h_steps
         w.pending_task_id = None
         toks = res.h_steps * self.cfg.batch_size * self.cfg.seq_len
@@ -267,14 +348,36 @@ class EngineBase:
         return self.history
 
     def _run_async(self, eval_every, eval_fn):
-        """Virtual-clock event loop: every pop commits one arrival and
-        re-dispatches its worker until ``outer_steps`` commits."""
+        """Virtual-clock event loop until ``outer_steps`` commits. Before an
+        event takes effect, the failure and membership events due by its
+        time are applied (still at the previous event's clock, so a joining
+        worker's first return is scheduled from there). A return commits
+        one arrival and re-dispatches its worker; a restart revives a
+        crashed worker and dispatches it; the return of a lost round is
+        skipped."""
         for w in self.workers.values():
             self._dispatch(w)
+        fail_idx = el_idx = 0
         target = self.cfg.outer_steps
         while self.server.t < target and len(self._events):
-            self.time, wid = self._events.pop()
-            w = self.workers[wid]
+            time, kind, wid, gen = self._events.pop()
+            while (fail_idx < len(self.failures)
+                   and self.failures[fail_idx].time <= time):
+                self._handle_failure(self.failures[fail_idx])
+                fail_idx += 1
+            while (el_idx < len(self.elastic)
+                   and self.elastic[el_idx].time <= time):
+                self._handle_elastic(self.elastic[el_idx])
+                el_idx += 1
+            self.time = time
+            w = self.workers.get(wid)
+            if kind == "restart":
+                if w is not None:
+                    w.alive = True
+                    self._dispatch(w)
+                continue
+            if w is None or not w.alive or gen != w.generation:
+                continue                 # the lost round's stale return
             self._commit(w, self._obtain(w))
             self._post_commit(eval_every, eval_fn)
             if self.server.t < target:
@@ -285,7 +388,7 @@ class EngineBase:
         state, the slowest gates the clock, and the server takes one step
         on the workers' average pseudo-gradient."""
         while self.server.t < self.cfg.outer_steps:
-            workers = list(self.workers.values())
+            workers = self._alive()
             round_time = max(self._h_steps(w) * w.pace for w in workers)
             tasks = [self._make_task(w) for w in workers]
             results = [self._execute(t) for t in tasks]
@@ -297,17 +400,63 @@ class EngineBase:
             self.history.arrivals.append(dict(rec.__dict__))
             self._post_commit(eval_every, eval_fn)
 
+    # ------------------------------------------------------- fault tolerance
+    def _crash_worker(self, w: Worker):
+        """The worker's round in flight is lost: its return turns stale
+        (generation bump) and its error feedback is cleared."""
+        self._drop_round(w)
+        w.alive = False
+        w.generation += 1
+        w.ef = None
+        w.pending_task_id = None
+
+    def _handle_failure(self, ev: FailureEvent):
+        w = self.workers.get(ev.wid)
+        if w is None:
+            return
+        self._crash_worker(w)
+        self._events.push(ev.time + ev.restart_delay, "restart", w.wid,
+                          w.generation)
+
+    def _handle_elastic(self, ev: ElasticEvent):
+        """A joining worker starts from the current outer state with fresh
+        AdamW moments and step count 0; a leaving one loses its round in
+        flight. Either way ``rho`` follows the live worker count and DyLU
+        its fastest live pace."""
+        if ev.action == "join":
+            if ev.wid in self.workers:
+                raise ValueError(f"worker {ev.wid} joins but is a member")
+            mixture = self._mixture_for(ev.wid)
+            lang = (int(np.argmax(mixture)) if mixture is not None
+                    else ev.lang)
+            w = Worker(wid=ev.wid, pace=ev.pace, lang=lang, mixture=mixture,
+                       opt=init_adam(self.server.state.params))
+            self.workers[ev.wid] = w
+            self.server.set_n_workers(len(self._alive()))
+            self._dispatch(w)
+        elif ev.action == "leave":
+            w = self.workers.pop(ev.wid, None)
+            if w is not None:
+                self._drop_round(w)
+            self.server.set_n_workers(len(self._alive()))
+        else:
+            raise ValueError(f"elastic action {ev.action!r}")
+        self._min_pace = self._min_alive_pace()
+
 
 ENGINES = ("sim",)
 
 
 def make_engine(run_cfg: RunConfig, engine: str = "sim", *, device="cuda",
-                init_params: Optional[Mapping[str, np.ndarray]] = None):
+                init_params: Optional[Mapping[str, np.ndarray]] = None,
+                failures: Optional[List[FailureEvent]] = None,
+                elastic: Optional[List[ElasticEvent]] = None):
     """Build a training engine; the port has the virtual-clock simulator."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
     from repro_torch.async_engine.simulator import AsyncSimulator
-    return AsyncSimulator(run_cfg, device=device, init_params=init_params)
+    return AsyncSimulator(run_cfg, device=device, init_params=init_params,
+                          failures=failures, elastic=elastic)
 
 
 def make_eval_fn(engine, batch: int = 16, seq: Optional[int] = None):

@@ -2,8 +2,10 @@
 low-communication training.
 
 Port of ``repro/async_engine/server.py:Synchronizer`` on its packed path
-with one commit per arrival, no compression and no telemetry. The outer
-state lives packed: params, momentum and, for buffered methods, the
+with one commit per arrival and no telemetry. A pseudo-gradient arrives as
+a dict or, from the packed int8 round-trip, as a ``packing.Packed`` buffer,
+which the packed arrival path takes as it is. The outer state lives
+packed: params, momentum and, for buffered methods, the
 gradient accumulator are flattened once into fp32 (R, 128) buffers on the
 device, every arrival rewrites them in place with the packed kernels, and
 the dict view is unpacked only on demand (``state``, ``worker_init``).
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, NamedTuple, Optional
+from typing import Dict, List, Mapping, NamedTuple, Optional, Union
 
 import torch
 
@@ -24,6 +26,12 @@ from repro_torch.core.heloco import (
 )
 
 Params = Dict[str, torch.Tensor]
+Delta = Union[Mapping[str, torch.Tensor], packing.Packed]
+
+
+def _mean(xs: List[torch.Tensor]) -> torch.Tensor:
+    """Sum in order, then divide by the count."""
+    return packing.true_div(sum(xs), len(xs))
 
 
 class OuterState(NamedTuple):
@@ -49,10 +57,6 @@ class ArrivalRecord:
 class Synchronizer:
     def __init__(self, init_params: Mapping[str, torch.Tensor],
                  cfg: OuterOptConfig, n_workers: int, commit_batch: int = 1):
-        if cfg.compression != "none":
-            raise NotImplementedError(
-                f"compression={cfg.compression!r}: the port's server takes "
-                "uncompressed pseudo-gradients only (ROADMAP A9)")
         if commit_batch != 1:
             raise NotImplementedError(
                 f"commit_batch={commit_batch}: the port commits one arrival "
@@ -118,8 +122,7 @@ class Synchronizer:
         return rho
 
     # -- outer-step drivers ---------------------------------------------------
-    def _step_update(self, delta: Mapping[str, torch.Tensor], rho: float,
-                     tau: float):
+    def _step_update(self, delta: Delta, rho: float, tau: float):
         # The reference donates p/m(/b) to its jitted step; here the fused
         # sweep writes p', m' (and b') over p, m (and b). Each element is
         # read and written at the same index by the same thread, so the
@@ -147,7 +150,7 @@ class Synchronizer:
         self._state_cache = None
 
     # -- arrival processing ---------------------------------------------------
-    def on_arrival(self, delta: Mapping[str, torch.Tensor], s_i: int,
+    def on_arrival(self, delta: Delta, s_i: int,
                    worker_id: int, sim_time: float = 0.0, lang: str = "",
                    commit_key=None) -> ArrivalRecord:
         """Apply one pseudo-gradient arrival. A ``commit_key`` seen before
@@ -173,16 +176,25 @@ class Synchronizer:
         return rec
 
     # -- sync round (barrier) -------------------------------------------------
-    def on_sync_round(self, deltas: List[Mapping[str, torch.Tensor]],
+    def on_sync_round(self, deltas: List[Delta],
                       sim_time: float = 0.0) -> ArrivalRecord:
         """Synchronous DiLoCo: average the workers' pseudo-gradients, one
         outer step. The average adds the workers in order and then divides,
-        as the reference does (another summation order changes the bits)."""
-        k = len(deltas)
-        avg = {p: sum(d[p].float() for d in deltas) / k for p in deltas[0]}
+        as the reference does (another summation order changes the bits);
+        packed deltas average buffer by buffer."""
+        if isinstance(deltas[0], packing.Packed):
+            avg = packing.Packed(_mean([d.buf for d in deltas]))
+        else:
+            avg = {p: _mean([d[p].float() for d in deltas])
+                   for p in deltas[0]}
         # sync-nesterov in the paper uses average weighting: G = mean(Delta)
         self._step_update(avg, 1.0, 0.0)
         rec = ArrivalRecord(outer_step=self.t, worker_id=-1, staleness=0,
                             rho=1.0, sim_time=sim_time)
         self.records.append(rec)
         return rec
+
+    def set_n_workers(self, n: int):
+        """Elastic membership: the live worker count the arrival weight
+        ``rho`` is computed from."""
+        self.n_workers = n

@@ -1,6 +1,7 @@
 """Event-driven virtual-clock simulator: the port of
 ``repro/async_engine/simulator.py``. A dispatched round is stored and
-computed in-line when its virtual return event pops."""
+computed in-line when its virtual return event pops; a round lost to a
+crash or a leave is dropped unrun."""
 from __future__ import annotations
 
 from typing import Dict
@@ -21,3 +22,9 @@ class AsyncSimulator(EngineBase):
 
     def _obtain(self, w: Worker) -> RoundResult:
         return self._execute(self._pending.pop(w.pending_task_id))
+
+    def _drop_round(self, w: Worker):
+        """A crash or leave loses the parked round: drop it, and the
+        parameters it holds, now."""
+        if w.pending_task_id is not None:
+            del self._pending[w.pending_task_id]

@@ -59,7 +59,7 @@ class OuterOptConfig:
     heloco: HeLoCoConfig = field(default_factory=HeLoCoConfig)
     drop_stale_after: Optional[int] = None   # discard if tau > this
     delay_weighting: bool = False            # rho_t = 1/sqrt(1+tau)
-    # pseudo-gradient compression: the port runs "none" only (ROADMAP A9)
+    # pseudo-gradient compression, with error feedback (core/compression.py)
     compression: str = "none"        # none | int8 | topk
     topk_ratio: float = 0.1
     error_feedback: bool = True
@@ -91,11 +91,11 @@ class RunConfig:
     seed: int = 0
     worker_paces: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0)  # sec/step
     non_iid: bool = True
-    # The axes below are the reference's; the port's engine raises on a
-    # value other than the default (see ``async_engine/engine.py``).
     mixture_alpha: Optional[float] = None    # Dirichlet language mixtures
     shard_assignment: str = "fixed"  # "fixed" | "flexible" (App. A.6)
     dylu: bool = False               # Dynamic Local Updates
+    # The axes below are the reference's; the port's engine raises on a
+    # value other than the default (see ``async_engine/engine.py``).
     topology: str = "hub"            # "hub" | "ring" | "gossip"
     commit_batch: int = 1            # arrivals coalesced per commit
     batch_rampup: Optional[int] = None       # per-round batch ramp target

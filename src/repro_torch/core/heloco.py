@@ -9,7 +9,7 @@ of tensors, and one for every method but HeLoCo.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +27,7 @@ def lookahead_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
 
 
 def apply_arrival_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
-                         delta: Mapping[str, torch.Tensor], layout, *,
+                         delta, layout, *,
                          method, outer_lr: float, mu: float, h: HeLoCoConfig,
                          rho: float = 1.0, tau: float = 0.0,
                          abuf: Optional[torch.Tensor] = None,
@@ -35,7 +35,8 @@ def apply_arrival_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
                          out: Optional[Tuple[torch.Tensor, ...]] = None):
     """Process one arrival on the packed (R, 128) outer state.
 
-    delta: the arriving pseudo-gradient dict (packed here); abuf: the
+    delta: the arriving pseudo-gradient, a dict (packed here) or a
+    ``packing.Packed`` buffer (taken as it is); abuf: the
     method's packed accumulator (buffered methods only); phase: the
     outer-step index at arrival (only buffered schedules read it). Returns
     (pbuf', mbuf'), or (pbuf', mbuf', abuf') for buffered methods; ``out``

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Iterable, Mapping, Optional, Tuple
+from typing import Dict, Iterable, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +28,21 @@ import torch
 from repro_torch.kernels.tiling import LANES, padded_rows
 
 Params = Dict[str, torch.Tensor]
+
+
+class Packed(NamedTuple):
+    """A value that already lives in packed (R, 128) form.
+
+    ``pack`` passes it through, so a producer that ends with a packed
+    buffer (the packed int8 round-trip) hands it straight to the packed
+    arrival path without an unpack -> re-pack detour."""
+    buf: torch.Tensor
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c with an IEEE division on every device: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal instead."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def leaf_order(paths: Iterable[str]) -> Tuple[str, ...]:
@@ -158,9 +173,18 @@ def _block_view(layout: BlockLayout, buf: torch.Tensor, leaf: LeafSpec):
         :, :leaf.block_elems]
 
 
-def pack(layout: BlockLayout, params: Mapping[str, torch.Tensor],
+def pack(layout: BlockLayout,
+         params: Union[Packed, Mapping[str, torch.Tensor]],
          dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Flatten ``params`` into a new packed (R, 128) buffer on their device."""
+    """Flatten ``params`` into a new packed (R, 128) buffer on their device.
+    A :class:`Packed` value is already that buffer: it passes through (cast
+    to ``dtype``, no copy when it has it)."""
+    if isinstance(params, Packed):
+        if params.buf.shape != (layout.n_rows, LANES):
+            raise ValueError(f"packed buffer {tuple(params.buf.shape)} does "
+                             f"not match the layout's ({layout.n_rows}, "
+                             f"{LANES})")
+        return params.buf.to(dtype)
     if len(params) != len(layout.leaves):
         raise ValueError("params do not match layout")
     device = next(iter(params.values())).device

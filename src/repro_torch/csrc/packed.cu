@@ -53,6 +53,31 @@
 //   boundary arrivals of a buffered method toggle them); p, m and b may all
 //   alias their outputs.
 //
+// packed_rowabs    replaces src/repro/kernels/packed.py:packed_rowabs
+//                   (Pallas _rowabs_kernel): per-row max|x| -> (R,). The max
+//                   propagates NaN, as jnp.max does (fmaxf would drop it).
+//   Bound: bytes. Reads 64.07 MB, writes 0.50 MB at R = 125,128: ~19.3 us
+//   at 3.35 TB/s. One warp per row as in row_stats: a float4 per lane, then
+//   a shuffle-xor max tree; lane 0 stores the row's max.
+//
+// packed_quant     replaces src/repro/kernels/packed.py:packed_quant (Pallas
+//                   _quant_kernel): q = clip(rint(x / s), -127, 127) to int8,
+//                   s the scale of the row's block, looked up through the
+//                   (R,) int32 row->block map (the fused sweeps' scheme)
+//                   instead of an (R, 1) scale table.
+//   Bound: bytes. Reads 64.07 MB of x plus the 0.50 MB map, writes 16.02 MB
+//   of int8: ~24.1 us at 3.35 TB/s. A grid-stride sweep, a float4 in and a
+//   char4 out per thread. x / s is IEEE division (__fdiv_rn, never a
+//   reciprocal multiply) and rintf rounds half to even, as jnp.round does.
+//
+// packed_dequant   replaces src/repro/kernels/packed.py:packed_dequant
+//                   (Pallas _dequant_kernel): x = q * s, s as in quant.
+//   Bound: bytes. Reads 16.02 MB of int8 plus the map, writes 64.07 MB:
+//   ~24.1 us at 3.35 TB/s. A char4 in and a float4 out per thread.
+//
+// The three stay separate launches, as the reference's round-trip is: the
+// int8 tensor between quant and dequant is the wire payload.
+//
 // The stats variants of #2-#4 share write_moments: the per-row moments
 // [d.m, d.d, m.m, |corr - d|^2] of the unweighted correction, reduced by a
 // warp (32 consecutive float4s are one row) after the update is stored, so
@@ -266,6 +291,62 @@ correct_outer_acc_kernel(const float4* p, const float4* m, const float4* b,
   }
 }
 
+// NaN-propagating max: a NaN on either side wins, as in jnp.max.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+__global__ void __launch_bounds__(kThreads)
+rowabs_kernel(const float4* __restrict__ x, float* __restrict__ out,
+              long long rows) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+                       (threadIdx.x >> 5);
+       row < rows; row += warps) {
+    const float4 a = x[row * kVecPerRow + lane];
+    float v = nan_max(nan_max(fabsf(a.x), fabsf(a.y)),
+                      nan_max(fabsf(a.z), fabsf(a.w)));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = nan_max(v, __shfl_xor_sync(kFullMask, v, off));
+    if (lane == 0) out[row] = v;
+  }
+}
+
+__device__ __forceinline__ signed char quant_one(float x, float s) {
+  const float r = fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.0f), 127.0f);
+  return static_cast<signed char>(__float2int_rn(r));
+}
+
+__global__ void __launch_bounds__(kThreads)
+quant_kernel(const float4* __restrict__ x, const float* __restrict__ scale,
+             const int* __restrict__ row_block, char4* __restrict__ q,
+             long long n_vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_vec; i += stride) {
+    const float s = scale[row_block[i / kVecPerRow]];
+    const float4 v = x[i];
+    q[i] = make_char4(quant_one(v.x, s), quant_one(v.y, s), quant_one(v.z, s),
+                      quant_one(v.w, s));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+dequant_kernel(const char4* __restrict__ q, const float* __restrict__ scale,
+               const int* __restrict__ row_block, float4* __restrict__ x,
+               long long n_vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_vec; i += stride) {
+    const float s = scale[row_block[i / kVecPerRow]];
+    const char4 v = q[i];
+    x[i] = make_float4(static_cast<float>(v.x) * s, static_cast<float>(v.y) * s,
+                       static_cast<float>(v.z) * s, static_cast<float>(v.w) * s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -361,6 +442,41 @@ int packed_correct_outer_acc_f32(const float* p, const float* m,
       correct_outer_acc_kernel<false><<<grid, kThreads, 0, s>>>(
           p4, m4, b4, d4, cu, cv, row_block, po, mo, bo, nullptr, n_vec, sc);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int packed_rowabs_f32(const float* x, float* out, long long rows, int sms,
+                      void* stream) {
+  if (rows > 0) {
+    const int grid = grid_for(rows, kThreads / 32, sms);
+    rowabs_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float4*>(x), out, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int packed_quant_f32(const float* x, const float* scale, const int* row_block,
+                     signed char* q, long long rows, int sms, void* stream) {
+  const long long n_vec = rows * kVecPerRow;
+  if (n_vec > 0) {
+    const int grid = grid_for(n_vec, kThreads, sms);
+    quant_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float4*>(x), scale, row_block,
+        reinterpret_cast<char4*>(q), n_vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int packed_dequant_f32(const signed char* q, const float* scale,
+                       const int* row_block, float* x, long long rows, int sms,
+                       void* stream) {
+  const long long n_vec = rows * kVecPerRow;
+  if (n_vec > 0) {
+    const int grid = grid_for(n_vec, kThreads, sms);
+    dequant_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const char4*>(q), scale, row_block,
+        reinterpret_cast<float4*>(x), n_vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,11 @@ Port of the ``repro/kernels/packed.py`` sweeps an arrival runs:
                         the sweep of the accumulator schedule (delayed
                         Nesterov, FedBuff): reads (p, m, b, delta), writes
                         (p', m', b') under eight schedule scalars.
+  packed_rowabs         per-row max|x| -> (R, 1), the absmax sweep of the
+                        packed int8 round-trip (``core/compression.py``).
+  packed_quant          clip(rint(x / s), -127, 127) to int8, s the scale
+                        of the row's block.
+  packed_dequant        q * s back to fp32.
 
 Each wrapper launches the CUDA kernel of ``csrc/packed.cu`` for a CUDA
 tensor and raises if it cannot; it runs the plain PyTorch version beside it
@@ -50,6 +55,9 @@ _SIGNATURES = {
     "packed_correct_outer_acc_f32": [_ptr] * 11 + [ctypes.c_longlong] +
                                     [ctypes.c_float] * 8 +
                                     [ctypes.c_int, _ptr],
+    "packed_rowabs_f32": [_ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr],
+    "packed_quant_f32": [_ptr] * 4 + [ctypes.c_longlong, ctypes.c_int, _ptr],
+    "packed_dequant_f32": [_ptr] * 4 + [ctypes.c_longlong, ctypes.c_int, _ptr],
 }
 
 
@@ -407,8 +415,94 @@ def packed_correct_outer_acc(p2d: torch.Tensor, m2d: torch.Tensor,
 
 packed_correct_outer_acc.launches = 0
 
+# ---------------------------------------------------------------------------
+# Per-block int8 quantization of a packed buffer (the compression sweeps)
+# ---------------------------------------------------------------------------
+
+def packed_rowabs_ref(x2d: torch.Tensor) -> torch.Tensor:
+    """Plain version: (R, 128) -> (R, 1) per-row max|x|; NaN propagates."""
+    return x2d.abs().amax(dim=1, keepdim=True)
+
+
+def packed_rowabs(x2d: torch.Tensor) -> torch.Tensor:
+    """x2d: (R, 128) fp32. One read; returns the (R, 1) per-row max|x|, NaN
+    where the row holds one (as ``jnp.max``)."""
+    device = _check_buffers(x2d)
+    if device.type == "cpu":
+        return packed_rowabs_ref(x2d)
+    _check_cuda(x2d)
+    r = x2d.shape[0]
+    out = torch.empty((r, 1), dtype=torch.float32, device=device)
+    _launch("packed_rowabs", _lib().packed_rowabs_f32, device,
+            x2d.data_ptr(), out.data_ptr(), r)
+    packed_rowabs.launches += 1
+    return out
+
+
+packed_rowabs.launches = 0
+
+
+def packed_quant_ref(x2d, scale, row_block) -> torch.Tensor:
+    """Plain version of ``packed_quant``: true division, round half to even,
+    clip to +-127."""
+    q = torch.round(x2d / _rows(scale, row_block))
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def packed_quant(x2d: torch.Tensor, scale: torch.Tensor,
+                 row_block: torch.Tensor) -> torch.Tensor:
+    """q = clip(rint(x / s), -127, 127) as int8, per element.
+
+    x2d: (R, 128) fp32; scale: (B,) fp32 per-block scales (> 0); row_block:
+    (R,) int32 block of each row. The reference takes the same scales as
+    an (R, 1) table ``scale[row_block]``; the kernel looks them up."""
+    device = _check_buffers(x2d)
+    r = x2d.shape[0]
+    _check_coeffs(r, device, row_block, scale)
+    if device.type == "cpu":
+        return packed_quant_ref(x2d, scale, row_block)
+    _check_cuda(x2d, scale, row_block)
+    q = torch.empty((r, LANES), dtype=torch.int8, device=device)
+    _launch("packed_quant", _lib().packed_quant_f32, device, x2d.data_ptr(),
+            scale.data_ptr(), row_block.data_ptr(), q.data_ptr(), r)
+    packed_quant.launches += 1
+    return q
+
+
+packed_quant.launches = 0
+
+
+def packed_dequant_ref(q2d, scale, row_block) -> torch.Tensor:
+    """Plain version of ``packed_dequant``."""
+    return q2d.to(torch.float32) * _rows(scale, row_block)
+
+
+def packed_dequant(q2d: torch.Tensor, scale: torch.Tensor,
+                   row_block: torch.Tensor) -> torch.Tensor:
+    """x = q * s in fp32; q2d: (R, 128) int8, scale and row_block as in
+    ``packed_quant``."""
+    if q2d.dim() != 2 or q2d.shape[1] != LANES or q2d.dtype != torch.int8:
+        raise ValueError(f"expected an (R, {LANES}) int8 buffer, got "
+                         f"{tuple(q2d.shape)} {q2d.dtype}")
+    device = q2d.device
+    r = q2d.shape[0]
+    _check_coeffs(r, device, row_block, scale)
+    if device.type == "cpu":
+        return packed_dequant_ref(q2d, scale, row_block)
+    _check_cuda(q2d, scale, row_block)
+    x = torch.empty((r, LANES), dtype=torch.float32, device=device)
+    _launch("packed_dequant", _lib().packed_dequant_f32, device,
+            q2d.data_ptr(), scale.data_ptr(), row_block.data_ptr(),
+            x.data_ptr(), r)
+    packed_dequant.launches += 1
+    return x
+
+
+packed_dequant.launches = 0
+
 KERNEL_WRAPPERS = (packed_row_stats, packed_correct_outer,
-                   packed_correct_outer_quad, packed_correct_outer_acc)
+                   packed_correct_outer_quad, packed_correct_outer_acc,
+                   packed_rowabs, packed_quant, packed_dequant)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -13,6 +13,9 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
         --full-width
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinygpt-15m \\
         --workers 4 --paces 1,2,6,15 --outer 12 --inner 2 --batch 4 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --workers 3 \\
+        --paces 1,2,6 --outer 8 --inner 4 --dylu --compression int8 \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -45,8 +48,10 @@ def scenario_from_args(args) -> Scenario:
         worker_paces=tuple(float(p) for p in args.paces.split(",")),
         inner_steps=args.inner, outer_steps=args.outer,
         batch_size=args.batch, seq_len=args.seq,
-        shard_assignment=args.shard_assignment,
+        non_iid=not args.iid, mixture_alpha=args.mixture_alpha,
+        shard_assignment=args.shard_assignment, dylu=args.dylu,
         method=args.method, outer_lr=outer_lr, momentum=args.momentum,
+        compression=args.compression,
         drop_stale_after=args.drop_stale_after,
         inner_lr=args.inner_lr, seed=args.seed)
 
@@ -71,10 +76,20 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--inner", type=int, default=10)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--iid", action="store_true")
+    ap.add_argument("--mixture-alpha", type=float, default=None,
+                    help="per-worker Dirichlet(alpha) language mixtures "
+                         "instead of one shard per worker")
+    ap.add_argument("--dylu", action="store_true",
+                    help="Dynamic Local Updates: H scaled by the fastest "
+                         "pace over the worker's")
     ap.add_argument("--outer-lr", type=float, default=None,
                     help="default: the method's paper value (Table 3)")
     ap.add_argument("--momentum", type=float, default=0.9)
     ap.add_argument("--inner-lr", type=float, default=3e-3)
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "int8", "topk"],
+                    help="pseudo-gradient compression, with error feedback")
     ap.add_argument("--drop-stale-after", type=int, default=None)
     ap.add_argument("--shard-assignment", default="fixed",
                     choices=["fixed", "flexible"])

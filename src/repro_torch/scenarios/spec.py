@@ -208,10 +208,6 @@ class Scenario:
             out.append(f"engine={self.engine!r} (ROADMAP A13)")
         if self.faults is not None:
             out.append("faults (ROADMAP A13)")
-        if self.failures:
-            out.append("failures (ROADMAP A7, engine axes)")
-        if self.elastic:
-            out.append("elastic (ROADMAP A7, engine axes)")
         if self.pace_trace:     # its paces come from the trace file
             out.append(f"pace_trace={self.pace_trace!r} (ROADMAP A11)")
         else:
@@ -228,9 +224,18 @@ class Scenario:
             raise NotImplementedError(
                 f"scenario {self.name!r} needs what the port does not run "
                 f"yet: {'; '.join(missing)}")
-        from repro_torch.async_engine.engine import make_engine
+        from repro_torch.async_engine.engine import (
+            ElasticEvent, FailureEvent, make_engine,
+        )
+        failures = [FailureEvent(time=f.time, wid=f.wid,
+                                 restart_delay=f.restart_delay)
+                    for f in self.failures]
+        elastic = [ElasticEvent(time=e.time, action=e.action, wid=e.wid,
+                                pace=e.pace, lang=e.lang)
+                   for e in self.elastic]
         return make_engine(self.run_config(), self.engine, device=device,
-                           init_params=init_params)
+                           init_params=init_params, failures=failures,
+                           elastic=elastic)
 
     # ------------------------------------------------------------- overrides
     def overridden(self, **kw) -> "Scenario":

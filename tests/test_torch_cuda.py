@@ -7,7 +7,9 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: p'/m'(/b') of the fused updates bit for bit (the source is
-built with --fmad=false, so each product and sum rounds as in PyTorch);
+built with --fmad=false, so each product and sum rounds as in PyTorch); the
+int8 sweeps bit for bit (a max is exact in any order; quantize is one IEEE
+division and round half to even, dequantize one product);
 per-row and per-block sums, which the kernel adds in a shuffle tree, each
 within 1e-5 of its own scale: sqrt(uu*vv) for a dot product, the value
 itself for a sum of squares.
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import HeLoCoConfig
-from repro_torch.core import packing
+from repro_torch.core import compression, packing
 from repro_torch.kernels import packed as pk
 
 H = HeLoCoConfig()
@@ -152,6 +154,72 @@ def test_correct_outer_acc_bit_identical_to_plain(cuda, rows, table):
     assert all(torch.equal(x, g) for x, g in zip((p, m, b), got))
 
 
+def _quant_inputs(layout, dev, seed=5):
+    """N(0, 1) values, with block 0 on exact .5 ties at scale 0.5 and block
+    1 all zero; per-block scales from the blocks' absmax, one of them cut
+    so that x / s leaves [-127, 127] (the clip)."""
+    (x,) = _buffers(layout, dev, 1, seed=seed)
+    (s0, e0), (s1, e1) = layout.block_row_ranges[:2]
+    ties = (torch.arange(-64, 64, device=dev, dtype=torch.float32) + 0.5) * 0.5
+    x[s0:e0] = ties
+    x[s0, 0] = 63.5
+    x[s1:e1] = 0.0
+    scale = compression.block_scales(x, layout)
+    scale[-1] *= 0.25
+    return x, scale, layout.device_tables(dev)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(1, 1, 1), (3, 1, 33), (2048, 5, 2049)])
+def test_int8_kernels_bit_identical_to_plain(cuda, rows):
+    layout = _layout(rows)
+    x, scale, rb = _quant_inputs(layout, cuda)
+    assert scale[0].item() == 0.5
+    n0 = [f.launches for f in (pk.packed_rowabs, pk.packed_quant,
+                               pk.packed_dequant)]
+    absmax = pk.packed_rowabs(x)
+    q = pk.packed_quant(x, scale, rb)
+    dec = pk.packed_dequant(q, scale, rb)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (pk.packed_rowabs, pk.packed_quant,
+                                 pk.packed_dequant)] == [n + 1 for n in n0]
+    assert torch.equal(absmax, pk.packed_rowabs_ref(x))
+    assert torch.equal(q, pk.packed_quant_ref(x, scale, rb))
+    assert torch.equal(dec, pk.packed_dequant_ref(q, scale, rb))
+    # round half to even on the ties, and the clip of the cut block
+    (s0, e0) = layout.block_row_ranges[0]
+    assert torch.equal(q[s0, 1:9].cpu(), torch.tensor(
+        [-62, -62, -60, -60, -58, -58, -56, -56], dtype=torch.int8))
+    s_last, e_last = layout.block_row_ranges[-1]
+    assert (q[s_last:e_last].abs() == 127).any()
+    assert q.abs().max().item() == 127
+
+
+@pytest.mark.cuda
+def test_true_div_is_ieee_division_on_the_card(cuda):
+    """``packing.true_div`` divides by a 0-d tensor on the device and
+    gives the CPU's IEEE quotients bit for bit (PyTorch's CUDA division by
+    a Python scalar multiplies by the reciprocal instead)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(1 << 20, generator=gen, device=cuda) * 3
+    for c in (127.0, 3.0, 7.0):
+        assert torch.equal(packing.true_div(x, c).cpu(), x.cpu() / c)
+
+
+@pytest.mark.cuda
+def test_rowabs_propagates_nan(cuda):
+    layout = _layout((3, 2))
+    (x,) = _buffers(layout, cuda, 1, seed=6)
+    x[1, 17] = float("nan")
+    absmax = pk.packed_rowabs(x)
+    torch.cuda.synchronize()
+    assert torch.isnan(absmax[1, 0]) and not torch.isnan(
+        torch.cat([absmax[:1], absmax[2:]])).any()
+    keep = torch.ones(layout.n_rows, dtype=torch.bool, device=cuda)
+    keep[1] = False
+    assert torch.equal(absmax[keep], pk.packed_rowabs_ref(x)[keep])
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_mixed_devices(cuda):
     layout = _layout((2,))
@@ -170,7 +238,8 @@ def test_kernels_refuse_mixed_devices(cuda):
                                     *ACC_TABLES["dn_boundary"])
 
 
-# kernel launches per arrival (per barrier round for sync_baseline)
+# kernel launches per arrival (per barrier round for sync_baseline); a
+# crashed worker's lost round launches nothing
 LAUNCHES = {
     "paper_hetero_severe": {"packed_row_stats": 1, "packed_correct_outer": 1},
     "drop_stale": {"packed_row_stats": 1, "packed_correct_outer": 1},
@@ -179,6 +248,11 @@ LAUNCHES = {
     "fedbuff": {"packed_correct_outer_acc": 1},
     "poly_stale": {"packed_correct_outer": 1},
     "sync_baseline": {"packed_correct_outer": 1},
+    "noniid_dirichlet": {"packed_row_stats": 1, "packed_correct_outer": 1},
+    "crash_rejoin": {"packed_row_stats": 1, "packed_correct_outer": 1},
+    "elastic_membership": {"packed_row_stats": 1, "packed_correct_outer": 1},
+    "int8_dylu": {"packed_row_stats": 1, "packed_correct_outer": 1,
+                  "packed_rowabs": 1, "packed_quant": 1, "packed_dequant": 1},
 }
 
 

@@ -17,6 +17,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.async_engine.engine import make_engine as jax_make_engine
 from repro.async_engine.engine import make_eval_fn as jax_make_eval_fn
@@ -127,3 +128,94 @@ def test_full_width_evals_within_band_of_live_reference():
     assert _rows(hist) == _rows(jhist)
     for got, want in zip(hist.evals, jhist.evals):
         assert abs(got["mean"] - want["mean"]) < 1e-3, (got, want)
+
+
+# ---------------------------------------------------------------------------
+# Crash/rejoin, elastic membership and DyLU: the event bookkeeping the
+# reference's engine does (repro/async_engine/engine.py:_run_async,
+# _handle_failure, _handle_elastic), on the reduced model on the CPU
+# ---------------------------------------------------------------------------
+
+def _port_scenario(name, **kw):
+    from repro_torch.scenarios import registry as port_registry
+    return port_registry.get_scenario(name).overridden(**kw)
+
+
+def test_joining_worker_returns_from_the_previous_event_time():
+    """A join due at t=3 is applied when the t=4 event pops, before the
+    clock moves: the new worker is dispatched at the previous event's time
+    (t=2), so its first return is at 2 + H * pace = 4, not 6. It starts
+    from the current outer state with step count 0, and ``rho`` follows the
+    new worker count from the next arrival on."""
+    from repro_torch.scenarios.spec import ElasticSpec
+    scn = _port_scenario("elastic_membership", outer_steps=5, elastic=(
+        ElasticSpec(time=3.0, action="join", wid=9, pace=1.0, lang=1),))
+    eng = scn.build(device="cpu")
+    hist = eng.run()
+    first = next(a for a in hist.arrivals if a["worker_id"] == 9)
+    assert first["sim_time"] == 4.0 and first["outer_step"] - 1 - \
+        first["staleness"] == 1
+    assert [a["rho"] for a in hist.arrivals] == \
+        [3 ** -0.5] + [0.5] * (len(hist.arrivals) - 1)
+    assert eng.server.n_workers == 4
+    assert eng.workers[9].inner_step_count == 2       # one round from 0
+
+
+def test_dylu_pace_is_refreshed_on_membership_changes_only():
+    """DyLU's reference pace is the fastest live pace at construction and
+    after a join or leave; a crash leaves it as it was."""
+    from repro_torch.async_engine.engine import ElasticEvent, FailureEvent
+    eng = _port_scenario("int8_dylu").build(device="cpu")
+    w1 = eng.workers[1]                               # pace 2, H = 4
+    assert eng._min_pace == 1.0 and eng._h_steps(w1) == 2
+    eng._handle_failure(FailureEvent(time=1.0, wid=0, restart_delay=5.0))
+    assert not eng.workers[0].alive
+    assert eng._min_pace == 1.0 and eng._h_steps(w1) == 2
+    eng._handle_elastic(ElasticEvent(time=2.0, action="leave", wid=0))
+    assert eng._min_pace == 2.0 and eng._h_steps(w1) == 4
+    assert eng.server.n_workers == 2
+
+
+def test_crash_loses_the_round_and_skips_its_stale_return():
+    """``crash_rejoin``: worker 0 crashes at t=5 with a round in flight. The
+    simulator drops the parked round at once, the round never runs, its
+    return (t=6) commits nothing, and the restart at t=15 dispatches the
+    worker again: every executed round is a committed arrival."""
+    from repro_torch.async_engine.engine import FailureEvent
+    eng = _port_scenario("crash_rejoin").build(device="cpu")
+    for w in eng.workers.values():
+        eng._dispatch(w)
+    w0 = eng.workers[0]
+    lost = w0.pending_task_id
+    assert lost in eng._pending and len(eng._pending) == 3
+    eng._crash_worker(w0)
+    assert lost not in eng._pending and len(eng._pending) == 2
+    assert (w0.alive, w0.generation, w0.in_flight, w0.ef) == \
+        (False, 1, False, None)
+
+    eng = _port_scenario("crash_rejoin").build(device="cpu")
+    assert eng.failures == [FailureEvent(time=5.0, wid=0,
+                                         restart_delay=10.0)]
+    ran = []
+    execute = eng._execute
+    eng._execute = lambda task: ran.append(task.wid) or execute(task)
+    hist = eng.run()
+    assert len(ran) == len(hist.arrivals) == 12
+    assert [a["worker_id"] for a in hist.arrivals] == ran
+    times0 = [a["sim_time"] for a in hist.arrivals if a["worker_id"] == 0]
+    # returns at 2 and 4; the round due at 6 is lost; rejoined at 15
+    assert times0 == [2.0, 4.0, 17.0, 19.0, 21.0, 23.0]
+    # what stays parked is the live workers' rounds in flight, nothing lost
+    assert all(task.task_id == eng.workers[task.wid].pending_task_id
+               for task in eng._pending.values())
+
+
+def test_set_n_workers_changes_rho():
+    from repro_torch.async_engine.server import Synchronizer
+    from repro_torch.configs.base import OuterOptConfig
+    params = {"w": torch.zeros(4, 3)}
+    sync = Synchronizer(params, OuterOptConfig(), n_workers=4)
+    delta = {"w": torch.full((4, 3), 0.1)}
+    assert sync.on_arrival(delta, 0, 0).rho == 0.5
+    sync.set_n_workers(9)
+    assert sync.on_arrival(delta, 1, 1).rho == 9 ** 0.5 / 9
