@@ -1,24 +1,25 @@
 """The virtual-clock training engine of the port.
 
-Port of the part of ``repro/async_engine/engine.py`` that a run with one
-commit per arrival uses: workers at fixed paces on fixed or flexible
-language shards or on Dirichlet language mixtures, DyLU's pace-scaled local
-steps, a virtual-clock event queue of worker returns and restarts, crashes
-with a scheduled rejoin, elastic joins and leaves, the functional inner
-round (``execute_round``) with pseudo-gradient compression and error
-feedback, the server-side commit through the packed ``Synchronizer``, the
-barrier rounds of a synchronous method, and the per-language eval
-protocol. Only *time* is simulated; the inner rounds run for real on the
-engine's device.
+Port of the simulated-clock part of ``repro/async_engine/engine.py``:
+workers at fixed paces on fixed or flexible language shards or on
+Dirichlet language mixtures, DyLU's pace-scaled local steps, the
+struct-of-arrays worker store (``WorkerArena``), a vectorised virtual-clock
+event queue of worker returns and restarts, crashes with a scheduled
+rejoin, elastic joins and leaves, the functional inner round
+(``execute_round``) with pseudo-gradient compression and error feedback and
+the hogwild batch ramp-up, the server-side commit through the packed
+``Synchronizer`` (one arrival at a time, or a same-tick batch through its
+commit buffer with ``commit_batch > 1``), the barrier rounds of a
+synchronous method, and the per-language eval protocol. Only *time* is
+simulated; the inner rounds run for real on the engine's device.
 
-The arrival sequence depends only on paces, H, the schedule and the
-failure and membership events, so it equals the reference's exactly. A
-``RunConfig`` axis the port does not run yet raises
+The arrival sequence depends only on paces, H, the schedule, the batching
+and the failure and membership events, so it equals the reference's
+exactly. A ``RunConfig`` axis the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
-import heapq
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -43,8 +44,6 @@ Params = Dict[str, torch.Tensor]
 # ROADMAP item).
 UNPORTED_AXES = (
     ("topology", "hub", "A14"),
-    ("commit_batch", 1, "A11"),
-    ("batch_rampup", None, "A11"),
 )
 
 
@@ -56,22 +55,238 @@ def unported_axes(run_cfg: RunConfig) -> List[str]:
             if getattr(run_cfg, name) != default]
 
 
-@dataclass
+class WorkerArena:
+    """Struct-of-arrays store of the per-worker engine state.
+
+    Every scalar field lives in one flat numpy array indexed by slot, so
+    the aggregates the engine asks for (the live count behind ``rho``, the
+    fastest live pace behind DyLU) are one masked reduction each instead of
+    a walk over worker objects. ``Worker`` objects are views of a slot.
+    Slots are recycled: a leave releases its slot (dropping the object
+    cells, so optimizer state does not outlive the worker) and a later join
+    reuses it; a released view must not be read after its slot is taken
+    again.
+    """
+
+    SCALAR_FIELDS = (
+        ("wid", np.int64, -1),
+        ("pace", np.float64, 1.0),       # seconds per inner step (virtual)
+        ("inner_step_count", np.int64, 0),  # lifetime steps (LR schedule)
+        ("generation", np.int64, 0),     # bumped on a crash: stale return
+        ("pending_task", np.int64, -1),  # the round in flight (-1: none)
+    )
+    BOOL_FIELDS = (("used", True), ("alive", True))
+    OBJECT_FIELDS = ("lang", "mixture", "opt", "ef")
+
+    def __init__(self, capacity: int = 64):
+        cap = max(1, int(capacity))
+        self.cols: Dict[str, np.ndarray] = {}
+        for name, dt, _default in self.SCALAR_FIELDS:
+            self.cols[name] = np.zeros(cap, dt)
+        for name, _default in self.BOOL_FIELDS:
+            self.cols[name] = np.zeros(cap, bool)
+        for name in self.OBJECT_FIELDS:
+            self.cols[name] = np.empty(cap, object)
+        self._free = list(range(cap - 1, -1, -1))
+
+    def _grow(self):
+        old = len(self.cols["wid"])
+        for name, arr in self.cols.items():
+            ext = (np.empty(old, object) if arr.dtype == object
+                   else np.zeros(old, arr.dtype))
+            self.cols[name] = np.concatenate([arr, ext])
+        self._free.extend(range(2 * old - 1, old - 1, -1))
+
+    def alloc(self, wid: int) -> int:
+        if not self._free:
+            self._grow()
+        slot = self._free.pop()
+        for name, _dt, default in self.SCALAR_FIELDS:
+            self.cols[name][slot] = default
+        for name, default in self.BOOL_FIELDS:
+            self.cols[name][slot] = default
+        for name in self.OBJECT_FIELDS:
+            self.cols[name][slot] = None
+        self.cols["wid"][slot] = wid
+        return slot
+
+    def release(self, slot: int):
+        self.cols["used"][slot] = False
+        self.cols["alive"][slot] = False
+        for name in self.OBJECT_FIELDS:
+            self.cols[name][slot] = None
+        self._free.append(slot)
+
+    def n_alive(self) -> int:
+        return int(np.count_nonzero(self.cols["used"] & self.cols["alive"]))
+
+    def min_alive_pace(self, default: float = 1.0) -> float:
+        mask = self.cols["used"] & self.cols["alive"]
+        if not mask.any():
+            return default
+        return float(self.cols["pace"][mask].min())
+
+
+def _column(name, cast=None):
+    def get(self):
+        v = self.arena.cols[name][self.slot]
+        return v if cast is None else cast(v)
+
+    def set(self, value):
+        self.arena.cols[name][self.slot] = value
+
+    return property(get, set)
+
+
 class Worker:
-    wid: int
-    pace: float = 1.0                # seconds per inner step (virtual)
-    lang: Optional[int] = None       # fixed shard, or the mixture's dominant
-    mixture: Optional[Tuple[float, ...]] = None  # Dirichlet language mixture
-    opt: Optional[AdamState] = None  # carried across rounds
-    ef: Any = None                   # error feedback of the compression
-    inner_step_count: int = 0        # lifetime steps (LR schedule offset)
-    alive: bool = True
-    generation: int = 0              # bumped on a crash: its return is stale
-    pending_task_id: Optional[int] = None  # the round in flight
+    """View of one ``WorkerArena`` slot with the attributes of a worker.
+    Made without an arena (standalone use) it gets a one-slot arena of its
+    own."""
+
+    __slots__ = ("arena", "slot")
+
+    def __init__(self, wid: int, pace: float = 1.0,
+                 lang: Optional[int] = None,
+                 mixture: Optional[Tuple[float, ...]] = None,
+                 opt: Any = None, ef: Any = None, *,
+                 arena: Optional[WorkerArena] = None):
+        self.arena = arena if arena is not None else WorkerArena(1)
+        self.slot = self.arena.alloc(wid)
+        self.pace = pace
+        self.lang = lang          # fixed shard, or the mixture's dominant
+        self.mixture = mixture    # Dirichlet language mixture
+        self.opt = opt            # AdamState carried across rounds
+        self.ef = ef              # error feedback of the compression
+
+    wid = property(lambda self: int(self.arena.cols["wid"][self.slot]))
+    pace = _column("pace", float)
+    inner_step_count = _column("inner_step_count", int)
+    generation = _column("generation", int)
+    alive = _column("alive", bool)
+    lang = _column("lang")
+    mixture = _column("mixture")
+    opt = _column("opt")
+    ef = _column("ef")
+
+    @property
+    def pending_task_id(self) -> Optional[int]:
+        v = int(self.arena.cols["pending_task"][self.slot])
+        return None if v < 0 else v
+
+    @pending_task_id.setter
+    def pending_task_id(self, value: Optional[int]):
+        self.arena.cols["pending_task"][self.slot] = \
+            -1 if value is None else int(value)
 
     @property
     def in_flight(self) -> bool:
         return self.pending_task_id is not None
+
+    def __repr__(self):
+        return (f"Worker(wid={self.wid}, pace={self.pace}, "
+                f"alive={self.alive}, in_flight={self.in_flight})")
+
+
+class EventQueue:
+    """Vectorised virtual-clock event queue.
+
+    Events are (time, seq, kind, wid, gen) rows in numpy columns sorted by
+    (time, seq), the push order breaking ties. Pushes are staged and merged
+    at the next pop, and ``pop_batch`` takes a run of same-tick returns as
+    one slice. The engine reports each event a crash or leave made stale
+    (``note_stale``) and each stale event that reached a pop
+    (``note_skip``); ``maybe_compact`` filters the dead ones out in one pass
+    once they outnumber the live ones."""
+
+    KIND_RETURN = 0
+    KIND_RESTART = 1
+    _KINDS = {"return": KIND_RETURN, "restart": KIND_RESTART}
+    _NAMES = ("return", "restart")
+    _COMPACT_MIN = 64                # not worth it below this many entries
+
+    def __init__(self):
+        self._time = np.empty(0, np.float64)
+        self._seq = np.empty(0, np.int64)
+        self._kind = np.empty(0, np.int8)
+        self._wid = np.empty(0, np.int64)
+        self._gen = np.empty(0, np.int64)
+        self._head = 0               # consumed prefix of the sorted columns
+        self._staging: List[Tuple] = []
+        self._next_seq = 0
+        self.stale = 0               # known-dead entries still queued
+        self.stale_skipped = 0       # dead entries that reached a pop
+        self.compactions = 0
+
+    def __len__(self) -> int:
+        return (len(self._time) - self._head) + len(self._staging)
+
+    def push(self, time: float, kind: str, wid: int, gen: int):
+        self._staging.append((float(time), self._next_seq,
+                              self._KINDS[kind], int(wid), int(gen)))
+        self._next_seq += 1
+
+    def note_stale(self, n: int = 1):
+        self.stale += n
+
+    def note_skip(self):
+        self.stale_skipped += 1
+        self.stale = max(0, self.stale - 1)
+
+    def _merge(self):
+        if not self._staging:
+            return
+        t, s, k, w, g = (np.asarray(c) for c in zip(*self._staging))
+        self._staging = []
+        t = np.concatenate([self._time[self._head:], t.astype(np.float64)])
+        s = np.concatenate([self._seq[self._head:], s.astype(np.int64)])
+        k = np.concatenate([self._kind[self._head:], k.astype(np.int8)])
+        w = np.concatenate([self._wid[self._head:], w.astype(np.int64)])
+        g = np.concatenate([self._gen[self._head:], g.astype(np.int64)])
+        order = np.lexsort((s, t))
+        self._time, self._seq = t[order], s[order]
+        self._kind, self._wid, self._gen = k[order], w[order], g[order]
+        self._head = 0
+
+    def pop_batch(self, max_n: int = 1) -> List[Tuple[float, str, int, int]]:
+        """Pop the head event; when it is a "return", also pop up to
+        ``max_n - 1`` further same-tick returns in push order. A same-tick
+        "restart" ends the batch, so the global event order holds."""
+        self._merge()
+        if self._head >= len(self._time):
+            return []
+        i = self._head
+        if self._kind[i] != self.KIND_RETURN or max_n <= 1:
+            end = i + 1
+        else:
+            tick_end = int(np.searchsorted(self._time, self._time[i],
+                                           side="right"))
+            nonret = np.nonzero(self._kind[i:tick_end] != self.KIND_RETURN)[0]
+            end = i + int(nonret[0]) if len(nonret) else tick_end
+            end = min(end, i + max_n)
+        rows = [(float(self._time[j]), self._NAMES[self._kind[j]],
+                 int(self._wid[j]), int(self._gen[j]))
+                for j in range(i, end)]
+        self._head = end
+        return rows
+
+    def maybe_compact(self, keep) -> bool:
+        """Drop dead entries once they outnumber live ones. ``keep(kind,
+        wid, gen) -> bool`` decides."""
+        n = len(self)
+        if n < self._COMPACT_MIN or 2 * self.stale <= n:
+            return False
+        self._merge()
+        mask = np.fromiter(
+            (keep(self._NAMES[self._kind[j]], int(self._wid[j]),
+                  int(self._gen[j]))
+             for j in range(self._head, len(self._time))),
+            bool, count=len(self._time) - self._head)
+        for name in ("_time", "_seq", "_kind", "_wid", "_gen"):
+            setattr(self, name, getattr(self, name)[self._head:][mask])
+        self._head = 0
+        self.stale = 0
+        self.compactions += 1
+        return True
 
 
 @dataclass
@@ -93,35 +308,28 @@ class ElasticEvent:
     lang: Optional[int] = None
 
 
-class EventQueue:
-    """Virtual-clock events ``(time, kind, wid, generation)``, kind "return"
-    or "restart", popped in (time, push order), the order of the
-    reference's vectorized queue."""
-
-    def __init__(self):
-        self._heap: List[Tuple[float, int, str, int, int]] = []
-        self._seq = 0
-
-    def __len__(self) -> int:
-        return len(self._heap)
-
-    def push(self, time: float, kind: str, wid: int, gen: int):
-        heapq.heappush(self._heap,
-                       (float(time), self._seq, kind, int(wid), int(gen)))
-        self._seq += 1
-
-    def pop(self) -> Tuple[float, str, int, int]:
-        time, _seq, kind, wid, gen = heapq.heappop(self._heap)
-        return time, kind, wid, gen
+#: most recent arrivals kept in History.arrivals
+HISTORY_WINDOW = 4096
 
 
 @dataclass
 class History:
+    """Run history. ``arrivals`` is a ring of the most recent ``window``
+    arrival records, so a run of many arrivals keeps bounded memory;
+    ``total_arrivals`` counts every commit."""
     arrivals: List[Dict] = field(default_factory=list)
     evals: List[Dict] = field(default_factory=list)
     tokens: int = 0
     comm_bytes: int = 0
     final_time: float = 0.0
+    total_arrivals: int = 0
+    window: int = HISTORY_WINDOW
+
+    def append_arrival(self, rec: Dict):
+        self.arrivals.append(rec)
+        self.total_arrivals += 1
+        if len(self.arrivals) > self.window:
+            del self.arrivals[:len(self.arrivals) - self.window]
 
 
 @dataclass
@@ -139,6 +347,8 @@ class RoundTask:
     lang: Optional[int]
     inner_step_offset: int
     mixture: Optional[Tuple[float, ...]] = None
+    batch_size: int = 0              # per-round mini-batch (0: the config's;
+    # nonzero under the hogwild ramp-up, RunConfig.batch_rampup)
 
 
 @dataclass
@@ -152,6 +362,7 @@ class RoundResult:
     s_i: int
     h_steps: int
     lang: Optional[int]
+    batch_size: int = 0              # the round's mini-batch (0: the config's)
 
 
 def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs,
@@ -160,7 +371,8 @@ def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs,
     the worker's shard or mixture, then the pseudo-gradient, compressed
     with error feedback when the run asks for it (int8 through the packed
     ``layout``, the server's, when one is given)."""
-    sampler = ShardSampler(specs, task.lang, cfg.batch_size, cfg.seq_len,
+    sampler = ShardSampler(specs, task.lang,
+                           task.batch_size or cfg.batch_size, cfg.seq_len,
                            seed=cfg.seed * 977 + task.wid,
                            mixture=task.mixture)
     result = run_inner(model, cfg.inner, task.params, task.opt, sampler,
@@ -173,7 +385,8 @@ def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs,
         ef = None
     return RoundResult(wid=task.wid, generation=task.generation, delta=delta,
                        opt=result.opt, ef=ef, nbytes=nbytes, s_i=task.s_i,
-                       h_steps=task.h_steps, lang=task.lang)
+                       h_steps=task.h_steps, lang=task.lang,
+                       batch_size=task.batch_size)
 
 
 class EngineBase:
@@ -209,6 +422,7 @@ class EngineBase:
                 raise ValueError("init_params do not match the model's leaves")
         self.server = Synchronizer(params, run_cfg.outer, run_cfg.n_workers,
                                    commit_batch=run_cfg.commit_batch)
+        self.arena = WorkerArena(capacity=max(run_cfg.n_workers, 4))
         self.workers: Dict[int, Worker] = {}
         for wid in range(run_cfg.n_workers):
             pace = run_cfg.worker_paces[wid % len(run_cfg.worker_paces)]
@@ -218,7 +432,8 @@ class EngineBase:
             else:
                 lang = (wid % len(self.specs)) if run_cfg.non_iid else None
             self.workers[wid] = Worker(wid=wid, pace=pace, lang=lang,
-                                       mixture=mixture, opt=init_adam(params))
+                                       mixture=mixture, opt=init_adam(params),
+                                       arena=self.arena)
         self.failures = sorted(failures or [], key=lambda f: f.time)
         self.elastic = sorted(elastic or [], key=lambda e: e.time)
         self.lang_tokens = np.zeros(len(self.specs), np.int64)
@@ -228,7 +443,7 @@ class EngineBase:
         self._task_counter = 0
         # DyLU's reference pace: set here and on membership changes only,
         # never on a crash or a restart (as the reference does)
-        self._min_pace = self._min_alive_pace()
+        self._min_pace = self.arena.min_alive_pace()
 
     # -------------------------------------------------------- engine hooks
     def _submit(self, task: RoundTask) -> None:
@@ -241,11 +456,13 @@ class EngineBase:
         """The worker's round in flight is lost (crash or leave)."""
 
     # ------------------------------------------------------------------ utils
-    def _alive(self) -> List[Worker]:
-        return [w for w in self.workers.values() if w.alive]
-
-    def _min_alive_pace(self) -> float:
-        return min((w.pace for w in self._alive()), default=1.0)
+    def _event_is_live(self, kind: str, wid: int, gen: int) -> bool:
+        """Compaction predicate: a restart always stays; a return stays
+        while it is the live worker's round in flight."""
+        if kind == "restart":
+            return True
+        w = self.workers.get(wid)
+        return w is not None and w.alive and w.generation == gen
 
     def _mixture_for(self, wid: int) -> Optional[Tuple[float, ...]]:
         """Per-worker Dirichlet language mixture, deterministic in (seed,
@@ -282,7 +499,20 @@ class EngineBase:
                          params=self.server.worker_init(w.wid), opt=w.opt,
                          ef=w.ef, s_i=self.server.t, h_steps=self._h_steps(w),
                          lang=self._pick_lang(w), mixture=w.mixture,
-                         inner_step_offset=w.inner_step_count)
+                         inner_step_offset=w.inner_step_count,
+                         batch_size=self._round_batch())
+
+    def _round_batch(self) -> int:
+        """The round's mini-batch under the hogwild ramp-up
+        (``RunConfig.batch_rampup``): linear from ``batch_size`` at t = 0 to
+        the target at the last outer step, rounded half to even as Python's
+        ``round``; 0 (the config's batch) without it."""
+        target = self.cfg.batch_rampup
+        if not target:
+            return 0
+        frac = min(1.0, self.server.t / max(self.cfg.outer_steps - 1, 1))
+        return max(1, int(round(self.cfg.batch_size
+                                + frac * (target - self.cfg.batch_size))))
 
     def _dispatch(self, w: Worker):
         """Capture the round, schedule its virtual return, submit it."""
@@ -305,20 +535,49 @@ class EngineBase:
         w.ef = res.ef
         w.inner_step_count += res.h_steps
         w.pending_task_id = None
-        toks = res.h_steps * self.cfg.batch_size * self.cfg.seq_len
+        toks = (res.h_steps * (res.batch_size or self.cfg.batch_size)
+                * self.cfg.seq_len)
         self.history.tokens += toks
         if res.lang is not None:
             self.lang_tokens[res.lang] += toks
         self.history.comm_bytes += res.nbytes
 
+    def _lang_name(self, res: RoundResult) -> str:
+        return self.specs[res.lang].lang if res.lang is not None else "iid"
+
     def _commit(self, w: Worker, res: RoundResult):
         self._commit_worker(w, res)
-        rec = self.server.on_arrival(
-            res.delta, res.s_i, res.wid, sim_time=self.time,
-            lang=(self.specs[res.lang].lang if res.lang is not None
-                  else "iid"))
-        self.history.arrivals.append(dict(rec.__dict__))
+        rec = self.server.on_arrival(res.delta, res.s_i, res.wid,
+                                     sim_time=self.time,
+                                     lang=self._lang_name(res))
+        self.history.append_arrival(dict(rec.__dict__))
         return rec
+
+    def _commit_batch(self, pairs: List[Tuple[Worker, RoundResult]],
+                      reason: str = "batch-full"):
+        """Commit a batch of same-tick arrivals through the server's commit
+        buffer: one fused multi-apply for each run of applied arrivals
+        instead of one outer step each. ``reason`` labels the last flush
+        (why the batch was capped: batch-full, eval or close)."""
+        recs = []
+        for w, res in pairs:
+            self._commit_worker(w, res)
+            out = self.server.buffer_arrival(res.delta, res.s_i, res.wid,
+                                             sim_time=self.time,
+                                             lang=self._lang_name(res))
+            if out:
+                recs.extend(out)
+        recs.extend(self.server.flush(reason))
+        for rec in recs:
+            self.history.append_arrival(dict(rec.__dict__))
+        self._drain_flush_log()
+        return recs
+
+    def _drain_flush_log(self):
+        """Clear the server's flush events. The reference turns them into
+        telemetry "flush" records; the port has no recorder yet (ROADMAP
+        A10)."""
+        self.server.flush_log.clear()
 
     def _eval(self, eval_fn):
         ev = eval_fn(self.server.state.params, self.server.t, self.time)
@@ -348,19 +607,37 @@ class EngineBase:
         return self.history
 
     def _run_async(self, eval_every, eval_fn):
-        """Virtual-clock event loop until ``outer_steps`` commits. Before an
-        event takes effect, the failure and membership events due by its
-        time are applied (still at the previous event's clock, so a joining
-        worker's first return is scheduled from there). A return commits
-        one arrival and re-dispatches its worker; a restart revives a
-        crashed worker and dispatches it; the return of a lost round is
-        skipped."""
+        """Virtual-clock event loop until ``outer_steps`` commits.
+
+        Each step pops the next event; with ``commit_batch > 1`` a return
+        takes up to that many same-tick returns with it (a same-tick
+        restart ends the batch), capped so that an eval boundary or the
+        last step lands exactly at a batch's end; the tightest cap names
+        the flush's reason. Before the batch takes effect, the failure and
+        membership events due by its time are applied (still at the
+        previous event's clock, so a joining worker's first return is
+        scheduled from there). A restart revives a crashed worker and
+        dispatches it; the return of a lost round is skipped. The ready
+        returns commit, one on its own and several through the server's
+        commit buffer, and only then is each of their workers dispatched
+        again, so every one of them starts from the state after the whole
+        batch. ``commit_batch = 1`` is the sequential path."""
         for w in self.workers.values():
             self._dispatch(w)
         fail_idx = el_idx = 0
         target = self.cfg.outer_steps
+        commit_batch = max(1, int(self.cfg.commit_batch))
         while self.server.t < target and len(self._events):
-            time, kind, wid, gen = self._events.pop()
+            # min takes the first of equal caps: a batch that ends on an
+            # eval boundary still reads "batch-full"
+            limits = [(commit_batch, "batch-full"),
+                      (target - self.server.t, "close")]
+            if eval_every:
+                limits.append((eval_every - self.server.t % eval_every,
+                               "eval"))
+            cap, flush_reason = min(limits, key=lambda kv: kv[0])
+            events = self._events.pop_batch(cap)
+            time = events[0][0]
             while (fail_idx < len(self.failures)
                    and self.failures[fail_idx].time <= time):
                 self._handle_failure(self.failures[fail_idx])
@@ -370,25 +647,36 @@ class EngineBase:
                 self._handle_elastic(self.elastic[el_idx])
                 el_idx += 1
             self.time = time
-            w = self.workers.get(wid)
-            if kind == "restart":
-                if w is not None:
-                    w.alive = True
-                    self._dispatch(w)
+            ready: List[Worker] = []
+            for _t, kind, wid, gen in events:
+                w = self.workers.get(wid)
+                if kind == "restart":
+                    if w is not None:
+                        w.alive = True
+                        self._dispatch(w)
+                    continue
+                if w is None or not w.alive or gen != w.generation:
+                    self._events.note_skip()
+                    continue             # the lost round's stale return
+                ready.append(w)
+            if not ready:
                 continue
-            if w is None or not w.alive or gen != w.generation:
-                continue                 # the lost round's stale return
-            self._commit(w, self._obtain(w))
+            if len(ready) == 1:
+                self._commit(ready[0], self._obtain(ready[0]))
+            else:
+                self._commit_batch([(w, self._obtain(w)) for w in ready],
+                                   reason=flush_reason)
             self._post_commit(eval_every, eval_fn)
-            if self.server.t < target:
-                self._dispatch(w)
+            for w in ready:
+                if self.server.t < target:
+                    self._dispatch(w)
 
     def _run_sync(self, eval_every, eval_fn):
         """Barrier rounds: every worker runs one round from the same outer
         state, the slowest gates the clock, and the server takes one step
         on the workers' average pseudo-gradient."""
         while self.server.t < self.cfg.outer_steps:
-            workers = self._alive()
+            workers = [w for w in self.workers.values() if w.alive]
             round_time = max(self._h_steps(w) * w.pace for w in workers)
             tasks = [self._make_task(w) for w in workers]
             results = [self._execute(t) for t in tasks]
@@ -397,18 +685,21 @@ class EngineBase:
             self.time += round_time
             rec = self.server.on_sync_round([r.delta for r in results],
                                             sim_time=self.time)
-            self.history.arrivals.append(dict(rec.__dict__))
+            self.history.append_arrival(dict(rec.__dict__))
             self._post_commit(eval_every, eval_fn)
 
     # ------------------------------------------------------- fault tolerance
     def _crash_worker(self, w: Worker):
         """The worker's round in flight is lost: its return turns stale
         (generation bump) and its error feedback is cleared."""
+        if w.in_flight:
+            self._events.note_stale()    # its return event is now dead
         self._drop_round(w)
         w.alive = False
         w.generation += 1
         w.ef = None
         w.pending_task_id = None
+        self._events.maybe_compact(self._event_is_live)
 
     def _handle_failure(self, ev: FailureEvent):
         w = self.workers.get(ev.wid)
@@ -420,28 +711,41 @@ class EngineBase:
 
     def _handle_elastic(self, ev: ElasticEvent):
         """A joining worker starts from the current outer state with fresh
-        AdamW moments and step count 0; a leaving one loses its round in
-        flight. Either way ``rho`` follows the live worker count and DyLU
-        its fastest live pace."""
+        AdamW moments and step count 0 in a slot of its own; a leaving one
+        loses its round in flight and frees its slot. Either way ``rho``
+        follows the arena's live count and DyLU its fastest live pace.
+
+        A join of a wid that is already a member replaces ``workers[wid]``
+        and leaves the old slot allocated and alive, as the reference does:
+        the old worker counts in ``n_alive`` (and so in ``rho``) from then
+        on, though no event reaches it any more. Its parked round can never
+        be obtained, so it is dropped at once."""
         if ev.action == "join":
-            if ev.wid in self.workers:
-                raise ValueError(f"worker {ev.wid} joins but is a member")
+            old = self.workers.get(ev.wid)
+            if old is not None:
+                self._drop_round(old)
             mixture = self._mixture_for(ev.wid)
             lang = (int(np.argmax(mixture)) if mixture is not None
                     else ev.lang)
             w = Worker(wid=ev.wid, pace=ev.pace, lang=lang, mixture=mixture,
-                       opt=init_adam(self.server.state.params))
+                       opt=init_adam(self.server.state.params),
+                       arena=self.arena)
             self.workers[ev.wid] = w
-            self.server.set_n_workers(len(self._alive()))
+            self.server.set_n_workers(self.arena.n_alive())
             self._dispatch(w)
         elif ev.action == "leave":
             w = self.workers.pop(ev.wid, None)
             if w is not None:
+                if w.in_flight:
+                    self._events.note_stale()
+                w.generation += 1
                 self._drop_round(w)
-            self.server.set_n_workers(len(self._alive()))
+                self.arena.release(w.slot)
+                self._events.maybe_compact(self._event_is_live)
+            self.server.set_n_workers(self.arena.n_alive())
         else:
             raise ValueError(f"elastic action {ev.action!r}")
-        self._min_pace = self._min_alive_pace()
+        self._min_pace = self.arena.min_alive_pace(default=1.0)
 
 
 ENGINES = ("sim",)

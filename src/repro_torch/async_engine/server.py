@@ -1,14 +1,19 @@
 """The synchronizer (outer-optimizer server) for asynchronous
 low-communication training.
 
-Port of ``repro/async_engine/server.py:Synchronizer`` on its packed path
-with one commit per arrival and no telemetry. A pseudo-gradient arrives as
-a dict or, from the packed int8 round-trip, as a ``packing.Packed`` buffer,
-which the packed arrival path takes as it is. The outer state lives
-packed: params, momentum and, for buffered methods, the
-gradient accumulator are flattened once into fp32 (R, 128) buffers on the
-device, every arrival rewrites them in place with the packed kernels, and
-the dict view is unpacked only on demand (``state``, ``worker_init``).
+Port of ``repro/async_engine/server.py:Synchronizer`` on its packed path,
+without telemetry. A pseudo-gradient arrives as a dict or, from the packed
+int8 round-trip, as a ``packing.Packed`` buffer, which the packed arrival
+path takes as it is. The outer state lives packed: params, momentum and,
+for buffered methods, the gradient accumulator are flattened once into
+fp32 (R, 128) buffers on the device, every arrival rewrites them in place
+with the packed kernels, and the dict view is unpacked only on demand
+(``state``, ``worker_init``).
+
+With ``commit_batch = K > 1`` arrivals can be parked in a commit buffer
+(``buffer_arrival``) and committed together (``flush``): a run of two or
+more applied arrivals goes through one K-stacked fused sweep
+(``apply_arrivals_packed``), everything else through ``on_arrival``.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from repro_torch.configs.base import OuterOptConfig
 from repro_torch.core import methods as outer_methods
 from repro_torch.core import packing
 from repro_torch.core.heloco import (
-    apply_arrival_packed, lookahead_packed, momentum_decay_packed,
+    apply_arrival_packed, apply_arrivals_packed, lookahead_packed,
+    momentum_decay_packed,
 )
 
 Params = Dict[str, torch.Tensor]
@@ -32,6 +38,16 @@ Delta = Union[Mapping[str, torch.Tensor], packing.Packed]
 def _mean(xs: List[torch.Tensor]) -> torch.Tensor:
     """Sum in order, then divide by the count."""
     return packing.true_div(sum(xs), len(xs))
+
+
+class _Pending(NamedTuple):
+    """One buffered, not yet committed arrival (see ``buffer_arrival``)."""
+    delta: Delta
+    s_i: int
+    worker_id: int
+    sim_time: float
+    lang: str
+    commit_key: object
 
 
 class OuterState(NamedTuple):
@@ -57,10 +73,6 @@ class ArrivalRecord:
 class Synchronizer:
     def __init__(self, init_params: Mapping[str, torch.Tensor],
                  cfg: OuterOptConfig, n_workers: int, commit_batch: int = 1):
-        if commit_batch != 1:
-            raise NotImplementedError(
-                f"commit_batch={commit_batch}: the port commits one arrival "
-                "at a time (batched commits are ROADMAP A11)")
         self.cfg = cfg
         self.method = outer_methods.resolve(cfg.method)
         self.n_workers = n_workers
@@ -68,6 +80,17 @@ class Synchronizer:
         # idempotent-commit ledger: commit_key -> record already produced,
         # so a replayed delivery can never step the outer state twice
         self._committed: dict = {}
+        # the commit buffer: up to commit_batch parked arrivals, committed
+        # by flush() (on batch-full here, at eval boundaries and the run's
+        # end by the engine)
+        self.commit_batch = max(1, int(commit_batch))
+        self._pending: List[_Pending] = []
+        self._pending_keys: set = set()
+        # one event per flush (depth, why it fired, fused vs sequential
+        # commits), cleared by the engine; running totals beside it
+        self.flush_log: List[dict] = []
+        self.flush_totals: dict = {"flushes": 0, "fused": 0,
+                                   "sequential": 0, "depth_max": 0}
         self.layout = packing.build_layout(init_params)
         self._pbuf = packing.pack(self.layout, init_params)
         self._mbuf = packing.zeros(self.layout, self._pbuf.device)
@@ -137,6 +160,22 @@ class Synchronizer:
         self._step += 1
         self._state_cache = None
 
+    def _step_update_multi(self, deltas: List[Delta], rhos: List[float],
+                           taus: List[float]):
+        """Commit K arrivals through one K-stacked fused sweep, in place.
+        Their rho, tau and phase enter host-side scalars, which reach the
+        device in one copy: the kernel's (K, n) scalar table."""
+        k = len(deltas)
+        apply_arrivals_packed(
+            self._pbuf, self._mbuf, deltas, self.layout, method=self.method,
+            outer_lr=self.cfg.outer_lr, mu=self.cfg.momentum,
+            h=self.cfg.heloco, rhos=rhos, taus=taus, abuf=self._abuf,
+            phases=[(self._step + j) % self._phase_period for j in range(k)],
+            out=(self._pbuf, self._mbuf, self._abuf)[
+                :2 if self._abuf is None else 3])
+        self._step += k
+        self._state_cache = None
+
     def _step_decay(self, rho: float, tau: float):
         """Dropped arrival (App. A.6): momentum-decay-only outer step."""
         out = momentum_decay_packed(
@@ -174,6 +213,89 @@ class Synchronizer:
         if commit_key is not None:
             self._committed[commit_key] = rec
         return rec
+
+    # -- batched arrival processing -------------------------------------------
+    @property
+    def pending(self) -> int:
+        """Arrivals parked in the commit buffer, awaiting ``flush``."""
+        return len(self._pending)
+
+    def buffer_arrival(self, delta: Delta, s_i: int, worker_id: int,
+                       sim_time: float = 0.0, lang: str = "",
+                       commit_key=None) -> Optional[List[ArrivalRecord]]:
+        """Park one arrival in the commit buffer. Returns the flushed
+        records when this arrival filled the batch, None while it is still
+        coalescing. An arrival whose ``commit_key`` is in the ledger or
+        already buffered is dropped here: ``on_arrival``'s idempotence,
+        extended to buffered redelivery."""
+        if commit_key is not None:
+            if (commit_key in self._committed
+                    or commit_key in self._pending_keys):
+                return None
+            self._pending_keys.add(commit_key)
+        self._pending.append(_Pending(delta, s_i, worker_id, sim_time, lang,
+                                      commit_key))
+        if len(self._pending) >= self.commit_batch:
+            return self.flush("batch-full")
+        return None
+
+    def flush(self, reason: str = "batch-full") -> List[ArrivalRecord]:
+        """Commit every buffered arrival in buffering order and return their
+        records. A run of two or more consecutive applied arrivals of a
+        batchable method commits through one fused K-stacked sweep; a
+        dropped arrival (App. A.6), a run of one and a non-batchable method
+        go through the exact ``on_arrival``, so a batch of one equals the
+        unbatched server bit for bit. ``reason`` (batch-full | eval | close)
+        is recorded in ``flush_log``, nothing else reads it."""
+        pending, self._pending = self._pending, []
+        self._pending_keys = set()
+        if not pending:
+            return []
+        n = len(pending)
+        n_fused = 0
+        # every commit, applied or dropped, advances t by one, so arrival j
+        # of the flush sees tau_j = (t0 + j) - s_i_j whatever path it takes
+        t0 = self.t
+        drop_after = self.cfg.drop_stale_after
+        drops = [drop_after is not None and (t0 + j) - a.s_i > drop_after
+                 for j, a in enumerate(pending)]
+        recs: List[ArrivalRecord] = []
+        i = 0
+        while i < n:
+            j = i
+            if self.method.batchable and not drops[i]:
+                while j < n and not drops[j]:
+                    j += 1
+            if j - i < 2:
+                a = pending[i]
+                recs.append(self.on_arrival(a.delta, a.s_i, a.worker_id,
+                                            a.sim_time, a.lang, a.commit_key))
+                i += 1
+                continue
+            run = pending[i:j]
+            t_run = self.t
+            taus = [t_run + idx - a.s_i for idx, a in enumerate(run)]
+            rhos = [self._rho(tau) for tau in taus]
+            self._step_update_multi([a.delta for a in run], rhos, taus)
+            for idx, a in enumerate(run):
+                rec = ArrivalRecord(outer_step=t_run + idx + 1,
+                                    worker_id=a.worker_id,
+                                    staleness=taus[idx], rho=rhos[idx],
+                                    sim_time=a.sim_time, lang=a.lang)
+                self.records.append(rec)
+                if a.commit_key is not None:
+                    self._committed[a.commit_key] = rec
+                recs.append(rec)
+            n_fused += len(run)
+            i = j
+        self.flush_log.append({"depth": n, "reason": str(reason),
+                               "fused": n_fused, "sequential": n - n_fused})
+        self.flush_totals["flushes"] += 1
+        self.flush_totals["fused"] += n_fused
+        self.flush_totals["sequential"] += n - n_fused
+        self.flush_totals["depth_max"] = max(self.flush_totals["depth_max"],
+                                             n)
+        return recs
 
     # -- sync round (barrier) -------------------------------------------------
     def on_sync_round(self, deltas: List[Delta],

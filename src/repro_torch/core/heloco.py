@@ -5,7 +5,9 @@ the Nesterov outer update (Alg. 1-2, Eqs. 7-19).
 Port of the packed path of ``repro/core/heloco.py``. An arrival is at
 most one statistics sweep plus one fused correct+outer sweep over the
 packed (R, 128) buffers: two kernel launches at most, whatever the number
-of tensors, and one for every method but HeLoCo.
+of tensors, and one for every method but HeLoCo. A flush of K coalesced
+arrivals (``apply_arrivals_packed``) is at most two launches too: one Gram
+sweep (HeLoCo) and one K-chained fused sweep.
 """
 from __future__ import annotations
 
@@ -72,6 +74,58 @@ def apply_arrival_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
                                             out=out)
     return pk.packed_correct_outer(pbuf, mbuf, dbuf, cu, cv, row_block,
                                    outer_lr, mu, rho, out=out)
+
+
+def apply_arrivals_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
+                          deltas, layout, *, method, outer_lr: float,
+                          mu: float, h: HeLoCoConfig, rhos, taus,
+                          abuf: Optional[torch.Tensor] = None, phases=None,
+                          out: Optional[Tuple[torch.Tensor, ...]] = None):
+    """Process K coalesced arrivals on the packed outer state in at most two
+    kernel launches (one multi-Gram sweep for HeLoCo, one K-chained fused
+    sweep), where the sequential path takes up to 2K.
+
+    deltas: K pseudo-gradients (dicts or ``packing.Packed``) in commit
+    order, stacked into one (K, R, 128) buffer on the state's device; rhos /
+    taus: K scalars each; phases: K outer-step indices (buffered schedules
+    only). The result is that of K sequential ``apply_arrival_packed``
+    calls with the momentum evolving between them: the same arithmetic per
+    element, with the coefficients each application would have seen
+    (HeLoCo's from the Gram matrices, fp32-close). Returns and ``out`` as
+    ``apply_arrival_packed``.
+    """
+    m = _methods.resolve(method)
+    k = len(deltas)
+    dstack = torch.empty((k, layout.n_rows, pbuf.shape[1]),
+                         dtype=torch.float32, device=pbuf.device)
+    for j, d in enumerate(deltas):
+        packing.pack(layout, d, out=dstack[j])
+    phases = [None] * k if phases is None else list(phases)
+    ctxs = [_methods.ArrivalCtx(outer_lr=outer_lr, mu=mu, h=h, rho=rho,
+                                tau=tau, phase=phase, layout=layout)
+            for rho, tau, phase in zip(rhos, taus, phases)]
+    cu, cv, cq = _methods.multi_packed_coeffs(m, ctxs, dstack, mbuf)
+    row_block, _ = layout.device_tables(pbuf.device)
+    if m.custom_update:
+        if cq is not None:
+            raise NotImplementedError(
+                f"method {m.name!r}: a quadratic (cq) term combined with "
+                "a custom schedule is not supported on the packed path")
+        if abuf is None:
+            abuf = packing.zeros(layout, pbuf.device)
+        if out is not None and len(out) == 2:
+            out = (*out, abuf)
+        res = pk.packed_multi_correct_outer_acc(
+            pbuf, mbuf, abuf, dstack, cu, cv, row_block, outer_lr, list(rhos),
+            *_methods.multi_schedule_coeffs(m, ctxs), out=out)
+        return res if m.uses_buffer else res[:2]
+    if cq is not None:
+        return pk.packed_multi_correct_outer_quad(
+            pbuf, mbuf, dstack, cu, cv, cq, row_block, outer_lr, mu,
+            list(rhos), out=out)
+    return pk.packed_multi_correct_outer(pbuf, mbuf, dstack, cu, cv,
+                                         row_block, outer_lr, mu, list(rhos),
+                                         out=out)
 
 
 def momentum_decay_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,

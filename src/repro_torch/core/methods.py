@@ -13,6 +13,9 @@ Port of ``repro/core/methods.py`` on its packed path. An
     ca])``; None means the standard Nesterov update of Eqs. 17-19, and a
     ``buffer_period > 0`` adds a gradient accumulator (delayed Nesterov,
     FedBuff);
+  * ``packed_multi_coeffs``: the per-delta ``(cu, cv, cq)`` tables of a
+    flush of K coalesced arrivals, for a method whose coefficients read the
+    momentum (HeLoCo); None evaluates ``packed_coeffs`` per delta;
   * look-ahead participation, the Table-3 defaults and the benchmark-dialect
     aliases.
 
@@ -25,8 +28,7 @@ Generalized update (one fused packed sweep, see ``kernels/packed.py``):
     p'   = p - eta*(cg*G + ca*acc + cm*m')
 
 The reference's per-leaf ``correct`` hooks (its correctness path and the
-dist outer exchange) wait for the port's per-leaf path, ROADMAP A16; its
-``packed_multi_coeffs`` hooks wait for the batched commit path, A11.
+dist outer exchange) wait for the port's per-leaf path, ROADMAP A16.
 
 Scalars: the reference computes every host-side scalar of these hooks in
 jitted fp32, where a Python constant becomes fp32 before it meets an fp32
@@ -93,10 +95,12 @@ class OuterMethod:
     stale_alpha: float = 0.0         # polynomial staleness exponent
     buffer_period: int = 0           # >0: gradient accumulator, momentum
     # refresh every N arrivals (delayed Nesterov / FedBuff)
-    batchable: bool = True           # False: a commit buffer must flush
-    # around every arrival of this method (read by A11's batched path)
+    batchable: bool = True           # False: the server's commit buffer
+    # commits every arrival of this method on its own
     # -- hooks --------------------------------------------------------------
     packed_coeffs: Callable = None   # (m, ctx, dbuf, mbuf) -> (cu, cv, cq)
+    packed_multi_coeffs: Callable = None   # (m, ctxs, dstack, mbuf) ->
+    # (cu, cv, cq) as (K, B) tables; None: packed_coeffs per delta
     decay_scale: Callable = None     # (m, ctx) -> s, with G = s*m when dropped
     outer_coeffs: Callable = None    # (m, ctx) -> (am, bm, ab, cg, cm[, ca])
 
@@ -186,6 +190,36 @@ def schedule_coeffs(m: OuterMethod, ctx: ArrivalCtx):
     return (*c, 0.0) if len(c) == 5 else c
 
 
+def multi_schedule_coeffs(m: OuterMethod, ctxs):
+    """:func:`schedule_coeffs` over a flush: six (K,) fp32 vectors ``(am, bm,
+    ab, cg, cm, ca)``, each delta's boundary state in its own slot of the
+    multi accumulator kernel's scalar table."""
+    rows = [schedule_coeffs(m, ctx) for ctx in ctxs]
+    return tuple(np.array([r[i] for r in rows], np.float32)
+                 for i in range(6))
+
+
+def multi_packed_coeffs(m: OuterMethod, ctxs, dstack, mbuf):
+    """Per-delta coefficient tables for a flush of K coalesced arrivals.
+
+    ctxs: one :class:`ArrivalCtx` per delta, in commit order; dstack:
+    (K, R, 128). Returns ``(cu, cv, cq)``, each (K, B) (``cq`` None without
+    a quadratic term): the coefficients application j would see on the
+    sequential path, against the momentum as of that application. The
+    default evaluates ``packed_coeffs`` per delta against the flush-time
+    momentum, exact when the hook never reads ``mbuf``; a hook that reads it
+    (HeLoCo's) brings its own ``packed_multi_coeffs``."""
+    if m.packed_multi_coeffs is not None:
+        return m.packed_multi_coeffs(m, ctxs, dstack, mbuf)
+    outs = [m.packed_coeffs(m, ctx, dstack[j], mbuf)
+            for j, ctx in enumerate(ctxs)]
+    cu = torch.stack([o[0] for o in outs])
+    cv = torch.stack([o[1] for o in outs])
+    if outs[0][2] is None:
+        return cu, cv, None
+    return cu, cv, torch.stack([o[2] for o in outs])
+
+
 def decay_coeffs(m: OuterMethod, ctx: ArrivalCtx):
     """Scalars of a dropped arrival's outer step for methods on the standard
     schedule. With the pseudo-gradient suppressed the corrected gradient is
@@ -242,6 +276,35 @@ def _heloco_packed_coeffs(m, ctx, dbuf, mbuf):
     stats = pk.packed_stats(dbuf, mbuf, ctx.layout)
     cu, cv = pk.branch_scalars(stats, ctx.h)
     return cu, cv, None
+
+
+def _heloco_multi_coeffs(m, ctxs, dstack, mbuf):
+    """Evolving-momentum branch statistics for K coalesced deltas from one
+    Gram sweep. After j applications the momentum lies in span[m0, d_1..d_j];
+    tracking its basis coordinates ``alpha`` (B, K+1) per block turns every
+    (dot, uu, vv) the sequential path would measure into O(B K^2) math on
+    the per-block Gram matrices, with no further O(d) pass. fp32-close to
+    the sequential statistics, not bitwise (another summation order)."""
+    layout = ctxs[0].layout
+    k = dstack.shape[0]
+    gram = pk.multi_gram_blocks(mbuf, dstack, layout)     # (B, K+1, K+1)
+    alpha = torch.zeros((layout.n_blocks, k + 1), dtype=torch.float32,
+                        device=mbuf.device)
+    alpha[:, 0] = 1.0                                     # m_cur = 1 * m0
+    cus, cvs = [], []
+    for j, ctx in enumerate(ctxs):
+        e = j + 1                                         # basis slot of d_j
+        dot = (alpha * gram[:, e, :]).sum(1)
+        uu = gram[:, e, e]
+        vv = (alpha * torch.einsum("btu,bu->bt", gram, alpha)).sum(1)
+        cu, cv = pk.branch_scalars(torch.stack([dot, uu, vv], dim=1), ctx.h)
+        cus.append(cu)
+        cvs.append(cv)
+        # m' = mu*m + (1-mu)*rho*(cu*d_j + cv*m), in basis coordinates
+        w = float(f32(1.0 - ctx.mu) * f32(ctx.rho))
+        alpha = alpha * (float(f32(ctx.mu)) + w * cv)[:, None]
+        alpha[:, e] += w * cu
+    return torch.stack(cus), torch.stack(cvs), None
 
 
 # -- MLA (momentum look-ahead; Ajanthan et al. 2025) -------------------------
@@ -329,7 +392,8 @@ register(OuterMethod(
                 "pseudo-gradients + momentum-guided look-ahead (paper "
                 "Alg. 1-2).",
     outer_lr=0.7, momentum=0.9, weight_factor="base", lookahead_init=True,
-    aliases=("async-heloco",), packed_coeffs=_heloco_packed_coeffs))
+    aliases=("async-heloco",), packed_coeffs=_heloco_packed_coeffs,
+    packed_multi_coeffs=_heloco_multi_coeffs))
 
 register(OuterMethod(
     name="mla",

@@ -121,12 +121,23 @@ class BlockLayout:
         key = str(torch.device(device))
         tabs = self._on_device.get(key)
         if tabs is None:
-            rows = [e - s for s, e in self.block_row_ranges]
-            plane = np.array(rows + [self.n_rows - self.data_rows], np.int64)
             tabs = (torch.from_numpy(self.row_block).to(device),
-                    torch.from_numpy(np.tile(plane, 3)).to(device))
+                    self.segment_lengths(device, 3))
             self._on_device[key] = tabs
         return tabs
+
+    def segment_lengths(self, device, planes: int) -> torch.Tensor:
+        """Segment lengths of the per-block sum over ``planes`` stacked (R,)
+        planes, each its B blocks' row counts plus one segment of filler
+        rows: (planes * (B + 1),) int64 on ``device``, made once."""
+        key = (str(torch.device(device)), planes)
+        seg = self._on_device.get(key)
+        if seg is None:
+            rows = [e - s for s, e in self.block_row_ranges]
+            plane = np.array(rows + [self.n_rows - self.data_rows], np.int64)
+            seg = torch.from_numpy(np.tile(plane, planes)).to(device)
+            self._on_device[key] = seg
+        return seg
 
 
 def build_layout(params: Mapping[str, object],
@@ -175,20 +186,27 @@ def _block_view(layout: BlockLayout, buf: torch.Tensor, leaf: LeafSpec):
 
 def pack(layout: BlockLayout,
          params: Union[Packed, Mapping[str, torch.Tensor]],
-         dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Flatten ``params`` into a new packed (R, 128) buffer on their device.
+         dtype: torch.dtype = torch.float32,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flatten ``params`` into a new packed (R, 128) buffer on their device,
+    or into ``out`` (an (R, 128) buffer, e.g. one slice of a delta stack).
     A :class:`Packed` value is already that buffer: it passes through (cast
-    to ``dtype``, no copy when it has it)."""
+    to ``dtype``, no copy when it has it), or is copied into ``out``."""
     if isinstance(params, Packed):
         if params.buf.shape != (layout.n_rows, LANES):
             raise ValueError(f"packed buffer {tuple(params.buf.shape)} does "
                              f"not match the layout's ({layout.n_rows}, "
                              f"{LANES})")
+        if out is not None:
+            return out.copy_(params.buf)
         return params.buf.to(dtype)
     if len(params) != len(layout.leaves):
         raise ValueError("params do not match layout")
-    device = next(iter(params.values())).device
-    buf = torch.zeros((layout.n_rows, LANES), dtype=dtype, device=device)
+    if out is None:
+        device = next(iter(params.values())).device
+        buf = torch.zeros((layout.n_rows, LANES), dtype=dtype, device=device)
+    else:
+        buf = out.zero_()
     for leaf in layout.leaves:
         x = params[leaf.path]
         if tuple(x.shape) != leaf.shape:

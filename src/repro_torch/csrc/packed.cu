@@ -78,6 +78,37 @@
 // The three stay separate launches, as the reference's round-trip is: the
 // int8 tensor between quant and dequant is the wire payload.
 //
+// packed_multi_correct_outer, _quad, _acc replace src/repro/kernels/
+//                   packed.py:packed_multi_correct_outer{,_quad,_acc} (Pallas
+//                   _multi_correct_outer{,_quad,_acc}_kernel): K chained
+//                   applications of #2, #3 or #4 in one launch, for the K
+//                   arrivals of one flush of the server's commit buffer.
+//   Bound: bytes. p and m (and b) are read once and written once, each of
+//   the K deltas is read once: at K = 4 and R = 125,128, 6 reads + 2 writes
+//   of 64.07 MB plus the map (~513 MB, ~153 us at 3.35 TB/s) for the plain
+//   and quadratic sweeps, 7 reads + 3 writes (~641 MB, ~191 us) for the
+//   accumulator one, where K sequential launches would move (3K+2K) buffers.
+//   Each thread keeps its float4 of p and m (and b) in registers across the
+//   K applications and reads Delta_j from the (K, R, 128) stack. K is a
+//   runtime argument. The per-block coefficients are (K, B), looked up
+//   through the row->block map, and application j's scalars are row j of a
+//   (K, n) fp32 table on the device ([eta, mu, rho], or the accumulator's
+//   eight). Application j runs the very function of the single-arrival
+//   kernel (update_one, quad_one, acc_one), so with --fmad=false the chain
+//   equals K sequential launches of that kernel bit for bit. The stats
+//   variants write (K, R, 4) moments, slice j against m as of application j.
+//
+// packed_multi_gram replaces src/repro/kernels/packed.py:packed_multi_gram
+//                   (Pallas _multi_gram_kernel): per row, the (K+1)(K+2)/2
+//                   lane sums of the pairwise products of the basis [m0,
+//                   Delta_1..Delta_K], in the reference's (a <= b) column
+//                   order, stored planar, (P, R), so the per-block reduction
+//                   is one 1-D segment sum, as for the row stats.
+//   Bound: bytes. At K = 4: 5 reads of 64.07 MB and 15 columns of R floats
+//   out, ~328 MB: ~98 us at 3.35 TB/s. One warp per row as in row_stats; each
+//   lane holds one float4 of each of the K+1 basis vectors in registers (K
+//   is a template argument, 1..8) and a shuffle tree reduces each product.
+//
 // The stats variants of #2-#4 share write_moments: the per-row moments
 // [d.m, d.d, m.m, |corr - d|^2] of the unweighted correction, reduced by a
 // warp (32 consecutive float4s are one row) after the update is stored, so
@@ -291,6 +322,139 @@ correct_outer_acc_kernel(const float4* p, const float4* m, const float4* b,
   }
 }
 
+// K chained applications of update_one (kQuad: quad_one) per element; p and
+// m stay in registers. hp: (K, 3) rows [eta, mu, rho]; cu/cv/cq: (K, nb).
+template <bool kStats, bool kQuad>
+__global__ void __launch_bounds__(kThreads)
+multi_correct_outer_kernel(const float4* p, const float4* m,
+                           const float4* __restrict__ d,
+                           const float* __restrict__ cu,
+                           const float* __restrict__ cv,
+                           const float* __restrict__ cq,
+                           const int* __restrict__ row_block,
+                           const float* __restrict__ hp, float4* p_out,
+                           float4* m_out, float* __restrict__ stats,
+                           long long n_vec, int k, int nb) {
+  const long long rows = n_vec / kVecPerRow;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_vec; i += stride) {
+    const long long row = i / kVecPerRow;
+    const int blk = row_block[row];
+    float4 pv = p[i];
+    float4 mv = m[i];
+    for (int j = 0; j < k; ++j) {
+      const float eta = hp[3 * j], mu = hp[3 * j + 1], rho = hp[3 * j + 2];
+      const float one_minus_mu = 1.0f - mu;
+      const float a = cu[j * nb + blk];
+      const float b = cv[j * nb + blk];
+      const float4 dv = d[j * n_vec + i];
+      float4 pn, mn, cr;
+      if (kQuad) {
+        const float q = cq[j * nb + blk];
+        pn.x = quad_one(pv.x, mv.x, dv.x, a, b, q, eta, mu, one_minus_mu, rho, &mn.x, &cr.x);
+        pn.y = quad_one(pv.y, mv.y, dv.y, a, b, q, eta, mu, one_minus_mu, rho, &mn.y, &cr.y);
+        pn.z = quad_one(pv.z, mv.z, dv.z, a, b, q, eta, mu, one_minus_mu, rho, &mn.z, &cr.z);
+        pn.w = quad_one(pv.w, mv.w, dv.w, a, b, q, eta, mu, one_minus_mu, rho, &mn.w, &cr.w);
+      } else {
+        pn.x = update_one(pv.x, mv.x, dv.x, a, b, eta, mu, one_minus_mu, rho, &mn.x, &cr.x);
+        pn.y = update_one(pv.y, mv.y, dv.y, a, b, eta, mu, one_minus_mu, rho, &mn.y, &cr.y);
+        pn.z = update_one(pv.z, mv.z, dv.z, a, b, eta, mu, one_minus_mu, rho, &mn.z, &cr.z);
+        pn.w = update_one(pv.w, mv.w, dv.w, a, b, eta, mu, one_minus_mu, rho, &mn.w, &cr.w);
+      }
+      if (kStats) write_moments(stats + j * rows * 4, row, dv, mv, cr);
+      pv = pn;
+      mv = mn;
+    }
+    p_out[i] = pv;
+    m_out[i] = mv;
+  }
+}
+
+// K chained applications of acc_one; p, m and b stay in registers. hp: (K, 8)
+// rows [eta, rho, am, bm, ab, cg, cm, ca], so a boundary arrival inside the
+// batch toggles its own row.
+template <bool kStats>
+__global__ void __launch_bounds__(kThreads)
+multi_correct_outer_acc_kernel(const float4* p, const float4* m,
+                               const float4* b, const float4* __restrict__ d,
+                               const float* __restrict__ cu,
+                               const float* __restrict__ cv,
+                               const int* __restrict__ row_block,
+                               const float* __restrict__ hp, float4* p_out,
+                               float4* m_out, float4* b_out,
+                               float* __restrict__ stats, long long n_vec,
+                               int k, int nb) {
+  const long long rows = n_vec / kVecPerRow;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_vec; i += stride) {
+    const long long row = i / kVecPerRow;
+    const int blk = row_block[row];
+    float4 pv = p[i];
+    float4 mv = m[i];
+    float4 bv = b[i];
+    for (int j = 0; j < k; ++j) {
+      const float* h = hp + 8 * j;
+      const AccScalars s{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7]};
+      const float x = cu[j * nb + blk];
+      const float y = cv[j * nb + blk];
+      const float4 dv = d[j * n_vec + i];
+      float4 pn, mn, bn, cr;
+      pn.x = acc_one(pv.x, mv.x, bv.x, dv.x, x, y, s, &mn.x, &bn.x, &cr.x);
+      pn.y = acc_one(pv.y, mv.y, bv.y, dv.y, x, y, s, &mn.y, &bn.y, &cr.y);
+      pn.z = acc_one(pv.z, mv.z, bv.z, dv.z, x, y, s, &mn.z, &bn.z, &cr.z);
+      pn.w = acc_one(pv.w, mv.w, bv.w, dv.w, x, y, s, &mn.w, &bn.w, &cr.w);
+      if (kStats) write_moments(stats + j * rows * 4, row, dv, mv, cr);
+      pv = pn;
+      mv = mn;
+      bv = bn;
+    }
+    p_out[i] = pv;
+    m_out[i] = mv;
+    b_out[i] = bv;
+  }
+}
+
+// Per-row Gram partials of the basis [m, d_0..d_{T-2}]: column c of the
+// (a <= b) order holds row . row of vectors a and b; out is planar (P, R).
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+multi_gram_kernel(const float4* __restrict__ m, const float4* __restrict__ d,
+                  float* __restrict__ out, long long rows) {
+  const int lane = threadIdx.x & 31;
+  const long long n_vec = rows * kVecPerRow;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+                       (threadIdx.x >> 5);
+       row < rows; row += warps) {
+    const long long i = row * kVecPerRow + lane;
+    float4 v[T];
+    v[0] = m[i];
+#pragma unroll
+    for (int j = 1; j < T; ++j) v[j] = d[(j - 1) * n_vec + i];
+    int c = 0;
+#pragma unroll
+    for (int a = 0; a < T; ++a) {
+#pragma unroll
+      for (int b = a; b < T; ++b) {
+        const float s = warp_sum(dot4(v[a], v[b]));
+        if (lane == 0) out[c * rows + row] = s;
+        ++c;
+      }
+    }
+  }
+}
+
+template <int T>
+void launch_multi_gram(const float* m, const float* d, float* out,
+                       long long rows, int sms, cudaStream_t s) {
+  const int grid = grid_for(rows, kThreads / 32, sms);
+  multi_gram_kernel<T><<<grid, kThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(m), reinterpret_cast<const float4*>(d),
+      out, rows);
+}
+
 // NaN-propagating max: a NaN on either side wins, as in jnp.max.
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
@@ -441,6 +605,98 @@ int packed_correct_outer_acc_f32(const float* p, const float* m,
     } else {
       correct_outer_acc_kernel<false><<<grid, kThreads, 0, s>>>(
           p4, m4, b4, d4, cu, cv, row_block, po, mo, bo, nullptr, n_vec, sc);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cq == nullptr: the plain sweep; else the quadratic one.
+int packed_multi_correct_outer_f32(const float* p, const float* m,
+                                   const float* d, const float* cu,
+                                   const float* cv, const float* cq,
+                                   const int* row_block, const float* hp,
+                                   float* p_out, float* m_out, float* stats,
+                                   long long rows, int k, int nb, int sms,
+                                   void* stream) {
+  const long long n_vec = rows * kVecPerRow;
+  if (n_vec > 0 && k > 0) {
+    const int grid = grid_for(n_vec, kThreads, sms);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    const float4* m4 = reinterpret_cast<const float4*>(m);
+    const float4* d4 = reinterpret_cast<const float4*>(d);
+    float4* po = reinterpret_cast<float4*>(p_out);
+    float4* mo = reinterpret_cast<float4*>(m_out);
+    if (cq != nullptr) {
+      if (stats != nullptr) {
+        multi_correct_outer_kernel<true, true><<<grid, kThreads, 0, s>>>(
+            p4, m4, d4, cu, cv, cq, row_block, hp, po, mo, stats, n_vec, k, nb);
+      } else {
+        multi_correct_outer_kernel<false, true><<<grid, kThreads, 0, s>>>(
+            p4, m4, d4, cu, cv, cq, row_block, hp, po, mo, nullptr, n_vec, k,
+            nb);
+      }
+    } else if (stats != nullptr) {
+      multi_correct_outer_kernel<true, false><<<grid, kThreads, 0, s>>>(
+          p4, m4, d4, cu, cv, nullptr, row_block, hp, po, mo, stats, n_vec, k,
+          nb);
+    } else {
+      multi_correct_outer_kernel<false, false><<<grid, kThreads, 0, s>>>(
+          p4, m4, d4, cu, cv, nullptr, row_block, hp, po, mo, nullptr, n_vec,
+          k, nb);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int packed_multi_correct_outer_acc_f32(const float* p, const float* m,
+                                       const float* b, const float* d,
+                                       const float* cu, const float* cv,
+                                       const int* row_block, const float* hp,
+                                       float* p_out, float* m_out,
+                                       float* b_out, float* stats,
+                                       long long rows, int k, int nb, int sms,
+                                       void* stream) {
+  const long long n_vec = rows * kVecPerRow;
+  if (n_vec > 0 && k > 0) {
+    const int grid = grid_for(n_vec, kThreads, sms);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    const float4* m4 = reinterpret_cast<const float4*>(m);
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    const float4* d4 = reinterpret_cast<const float4*>(d);
+    float4* po = reinterpret_cast<float4*>(p_out);
+    float4* mo = reinterpret_cast<float4*>(m_out);
+    float4* bo = reinterpret_cast<float4*>(b_out);
+    if (stats != nullptr) {
+      multi_correct_outer_acc_kernel<true><<<grid, kThreads, 0, s>>>(
+          p4, m4, b4, d4, cu, cv, row_block, hp, po, mo, bo, stats, n_vec, k,
+          nb);
+    } else {
+      multi_correct_outer_acc_kernel<false><<<grid, kThreads, 0, s>>>(
+          p4, m4, b4, d4, cu, cv, row_block, hp, po, mo, bo, nullptr, n_vec, k,
+          nb);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k in 1..8 (the wrapper refuses more); any other k launches nothing and
+// returns cudaErrorInvalidValue.
+int packed_multi_gram_f32(const float* m, const float* d, float* out,
+                          long long rows, int k, int sms, void* stream) {
+  if (rows > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (k) {
+      case 1: launch_multi_gram<2>(m, d, out, rows, sms, s); break;
+      case 2: launch_multi_gram<3>(m, d, out, rows, sms, s); break;
+      case 3: launch_multi_gram<4>(m, d, out, rows, sms, s); break;
+      case 4: launch_multi_gram<5>(m, d, out, rows, sms, s); break;
+      case 5: launch_multi_gram<6>(m, d, out, rows, sms, s); break;
+      case 6: launch_multi_gram<7>(m, d, out, rows, sms, s); break;
+      case 7: launch_multi_gram<8>(m, d, out, rows, sms, s); break;
+      case 8: launch_multi_gram<9>(m, d, out, rows, sms, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -21,6 +21,18 @@ Port of the ``repro/kernels/packed.py`` sweeps an arrival runs:
   packed_quant          clip(rint(x / s), -127, 127) to int8, s the scale
                         of the row's block.
   packed_dequant        q * s back to fp32.
+  packed_multi_correct_outer, packed_multi_correct_outer_quad,
+  packed_multi_correct_outer_acc
+                        K chained applications of the three fused sweeps
+                        in one launch, for the K arrivals of one flush of
+                        the server's commit buffer: p and m (and b) are
+                        read and written once, each delta of the (K, R, 128)
+                        stack read once.
+  packed_multi_gram     one read of (m, delta stack) -> per-row pairwise
+                        products of the basis [m, delta_1..delta_K];
+                        ``multi_gram_blocks`` reduces them to per-block
+                        (K+1, K+1) Gram matrices, HeLoCo's statistics for a
+                        K-flush.
 
 Each wrapper launches the CUDA kernel of ``csrc/packed.cu`` for a CUDA
 tensor and raises if it cannot; it runs the plain PyTorch version beside it
@@ -58,7 +70,16 @@ _SIGNATURES = {
     "packed_rowabs_f32": [_ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _ptr],
     "packed_quant_f32": [_ptr] * 4 + [ctypes.c_longlong, ctypes.c_int, _ptr],
     "packed_dequant_f32": [_ptr] * 4 + [ctypes.c_longlong, ctypes.c_int, _ptr],
+    "packed_multi_correct_outer_f32": [_ptr] * 11 + [ctypes.c_longlong] +
+                                      [ctypes.c_int] * 3 + [_ptr],
+    "packed_multi_correct_outer_acc_f32": [_ptr] * 12 + [ctypes.c_longlong] +
+                                          [ctypes.c_int] * 3 + [_ptr],
+    "packed_multi_gram_f32": [_ptr] * 3 + [ctypes.c_longlong] +
+                             [ctypes.c_int] * 2 + [_ptr],
 }
+
+# The largest K of one multi-Gram launch (its template instantiations).
+MAX_GRAM_K = 8
 
 
 @functools.cache
@@ -100,8 +121,11 @@ def _check_cuda(*tensors: torch.Tensor):
             raise ValueError(f"CUDA kernel given a {t.device} tensor")
         if not t.is_contiguous():
             raise ValueError("CUDA kernel needs contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("CUDA kernel needs 16-byte aligned buffers")
+        # (R, 128) buffers are read 16 bytes at a time, the rest by element
+        align = 16 if t.shape[-1:] == (LANES,) else t.element_size()
+        if t.data_ptr() % align:
+            raise ValueError(f"CUDA kernel needs {align}-byte aligned "
+                             "buffers")
 
 
 def _raise_on(err: int, what: str):
@@ -500,9 +524,289 @@ def packed_dequant(q2d: torch.Tensor, scale: torch.Tensor,
 
 packed_dequant.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# The K-stacked sweeps of a flush of the commit buffer
+# ---------------------------------------------------------------------------
+
+def _hp_table(k: int, *cols) -> np.ndarray:
+    """Per-delta scalar table: each column is a scalar or K values, rounded
+    to fp32 -> (K, #cols)."""
+    return np.ascontiguousarray(np.stack(
+        [np.broadcast_to(np.asarray(c, np.float32), (k,)) for c in cols],
+        axis=1))
+
+
+def _multi_hp(k: int, device, *cols) -> torch.Tensor:
+    """``_hp_table`` on ``device``: one host-to-device copy."""
+    return torch.from_numpy(_hp_table(k, *cols)).to(device)
+
+
+def _check_stack(d3d: torch.Tensor, r: int, device) -> int:
+    if (d3d.dim() != 3 or d3d.shape[1:] != (r, LANES)
+            or d3d.dtype != torch.float32 or d3d.device != device):
+        raise ValueError(f"expected a (K, {r}, {LANES}) float32 delta stack "
+                         f"on {device}, got {tuple(d3d.shape)} {d3d.dtype} "
+                         f"on {d3d.device}")
+    return d3d.shape[0]
+
+
+def _check_multi_coeffs(k: int, r: int, device, row_block, *mats):
+    if row_block.shape != (r,) or row_block.dtype != torch.int32:
+        raise ValueError("row_block must be (R,) int32")
+    if any(c.dim() != 2 or c.shape != mats[0].shape or c.shape[0] != k
+           or c.dtype != torch.float32 for c in mats):
+        raise ValueError(f"per-block coefficients must be matching (K={k}, "
+                         "B) float32 tables")
+    if any(t.device != device for t in (*mats, row_block)):
+        raise ValueError("coefficients/row_block must be on the buffers' "
+                         "device")
+
+
+def _multi_ref(single, k, state, d3d, coeffs, hp, with_stats):
+    """K sequential calls of a single-arrival plain version, application j
+    with row j of the coefficient tables and of the scalar table; the
+    moments of slice j are taken against the state as of application j."""
+    stats = []
+    for j in range(k):
+        res = single(*state, d3d[j], *(c[j] for c in coeffs),
+                     *(float(x) for x in hp[j]), with_stats=with_stats)
+        state = res[:len(state)]
+        if with_stats:
+            stats.append(res[-1])
+    return (*state, torch.stack(stats)) if with_stats else tuple(state)
+
+
+def packed_multi_correct_outer_ref(p2d, m2d, d3d, cu, cv, row_block, eta, mu,
+                                   rho, with_stats: bool = False):
+    """Plain version of ``packed_multi_correct_outer``: K sequential
+    ``packed_correct_outer_ref`` applications."""
+    k = d3d.shape[0]
+    hp = _hp_table(k, eta, mu, rho)
+
+    def single(p, m, d, a, b, eta, mu, rho, with_stats):
+        return packed_correct_outer_ref(p, m, d, a, b, row_block, eta, mu, rho,
+                                        with_stats=with_stats)
+    return _multi_ref(single, k, (p2d, m2d), d3d, (cu, cv), hp, with_stats)
+
+
+def packed_multi_correct_outer_quad_ref(p2d, m2d, d3d, cu, cv, cq, row_block,
+                                        eta, mu, rho,
+                                        with_stats: bool = False):
+    """Plain version of ``packed_multi_correct_outer_quad``: K sequential
+    ``packed_correct_outer_quad_ref`` applications."""
+    k = d3d.shape[0]
+    hp = _hp_table(k, eta, mu, rho)
+
+    def single(p, m, d, a, b, q, eta, mu, rho, with_stats):
+        return packed_correct_outer_quad_ref(p, m, d, a, b, q, row_block, eta,
+                                             mu, rho, with_stats=with_stats)
+    return _multi_ref(single, k, (p2d, m2d), d3d, (cu, cv, cq), hp,
+                      with_stats)
+
+
+def packed_multi_correct_outer_acc_ref(p2d, m2d, b2d, d3d, cu, cv, row_block,
+                                       eta, rho, am, bm, ab, cg, cm, ca=0.0,
+                                       with_stats: bool = False):
+    """Plain version of ``packed_multi_correct_outer_acc``: K sequential
+    ``packed_correct_outer_acc_ref`` applications, each under its own row
+    of the schedule table."""
+    k = d3d.shape[0]
+    hp = _hp_table(k, eta, rho, am, bm, ab, cg, cm, ca)
+
+    def single(p, m, b, d, x, y, *scalars, with_stats):
+        return packed_correct_outer_acc_ref(p, m, b, d, x, y, row_block,
+                                            *scalars, with_stats=with_stats)
+    return _multi_ref(single, k, (p2d, m2d, b2d), d3d, (cu, cv), hp,
+                      with_stats)
+
+
+def _launch_multi(name, fn, state, d3d, coeffs, row_block, hp, out,
+                  with_stats, *extra):
+    """Shared launch of the three multi sweeps: ``state`` is (p, m) or
+    (p, m, b), ``coeffs`` the (K, B) tables, ``extra`` the pointers the
+    C entry point takes between the coefficients and the map."""
+    device = state[0].device
+    k, r = d3d.shape[0], state[0].shape[0]
+    outs = _outputs(out, state[0], len(state))
+    _check_buffers(state[0], *outs)
+    stats = (torch.empty((k, r, N_MOMENTS), dtype=torch.float32,
+                         device=device) if with_stats else None)
+    _check_cuda(*state, d3d, *coeffs, row_block, hp, *outs)
+    _launch(name, fn, device, *(t.data_ptr() for t in (*state, d3d, *coeffs)),
+            *extra, row_block.data_ptr(), hp.data_ptr(),
+            *(t.data_ptr() for t in outs),
+            None if stats is None else stats.data_ptr(), r, k,
+            coeffs[0].shape[1])
+    return outs if stats is None else (*outs, stats)
+
+
+def packed_multi_correct_outer(p2d: torch.Tensor, m2d: torch.Tensor,
+                               d3d: torch.Tensor, cu: torch.Tensor,
+                               cv: torch.Tensor, row_block: torch.Tensor,
+                               eta, mu, rho, *, with_stats: bool = False,
+                               out: Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]] = None):
+    """K fused correct+outer applications in one launch.
+
+    d3d: (K, R, 128) delta stack in commit order; cu/cv: (K, B) per-delta
+    per-block branch scalars; eta/mu/rho: a scalar or K values each.
+    Application j is ``packed_correct_outer`` with row j of everything and
+    the momentum as left by application j - 1. Returns (p', m') after all
+    K, plus the (K, R, 4) per-row moments when ``with_stats`` (slice j
+    against m as of application j; same launch, same bits). ``out`` as in
+    ``packed_correct_outer``."""
+    device = _check_buffers(p2d, m2d)
+    r = p2d.shape[0]
+    k = _check_stack(d3d, r, device)
+    _check_multi_coeffs(k, r, device, row_block, cu, cv)
+    if device.type == "cpu":
+        return _cpu_result(packed_multi_correct_outer_ref(
+            p2d, m2d, d3d, cu, cv, row_block, eta, mu, rho,
+            with_stats=with_stats), out)
+    hp = _multi_hp(k, device, eta, mu, rho)
+    res = _launch_multi("packed_multi_correct_outer",
+                        _lib().packed_multi_correct_outer_f32, (p2d, m2d), d3d,
+                        (cu, cv), row_block, hp, out, with_stats, None)
+    packed_multi_correct_outer.launches += 1
+    return res
+
+
+packed_multi_correct_outer.launches = 0
+
+
+def packed_multi_correct_outer_quad(p2d: torch.Tensor, m2d: torch.Tensor,
+                                    d3d: torch.Tensor, cu: torch.Tensor,
+                                    cv: torch.Tensor, cq: torch.Tensor,
+                                    row_block: torch.Tensor, eta, mu, rho, *,
+                                    with_stats: bool = False,
+                                    out: Optional[Tuple[torch.Tensor,
+                                                        torch.Tensor]] = None):
+    """``packed_multi_correct_outer`` with DC-ASGD's quadratic term: cq is
+    a (K, B) table, application j is ``packed_correct_outer_quad``."""
+    device = _check_buffers(p2d, m2d)
+    r = p2d.shape[0]
+    k = _check_stack(d3d, r, device)
+    _check_multi_coeffs(k, r, device, row_block, cu, cv, cq)
+    if device.type == "cpu":
+        return _cpu_result(packed_multi_correct_outer_quad_ref(
+            p2d, m2d, d3d, cu, cv, cq, row_block, eta, mu, rho,
+            with_stats=with_stats), out)
+    _check_cuda(cq)
+    hp = _multi_hp(k, device, eta, mu, rho)
+    res = _launch_multi("packed_multi_correct_outer_quad",
+                        _lib().packed_multi_correct_outer_f32, (p2d, m2d), d3d,
+                        (cu, cv), row_block, hp, out, with_stats, cq.data_ptr())
+    packed_multi_correct_outer_quad.launches += 1
+    return res
+
+
+packed_multi_correct_outer_quad.launches = 0
+
+
+def packed_multi_correct_outer_acc(p2d: torch.Tensor, m2d: torch.Tensor,
+                                   b2d: torch.Tensor, d3d: torch.Tensor,
+                                   cu: torch.Tensor, cv: torch.Tensor,
+                                   row_block: torch.Tensor, eta, rho, am, bm,
+                                   ab, cg, cm, ca=0.0, *,
+                                   with_stats: bool = False,
+                                   out: Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor,
+                                                       torch.Tensor]] = None):
+    """K accumulator-schedule applications in one launch: every schedule
+    scalar may be K values (a boundary arrival inside the batch toggles its
+    own row). Application j is ``packed_correct_outer_acc``. Returns (p',
+    m', b'), plus (K, R, 4) moments when ``with_stats``."""
+    device = _check_buffers(p2d, m2d, b2d)
+    r = p2d.shape[0]
+    k = _check_stack(d3d, r, device)
+    _check_multi_coeffs(k, r, device, row_block, cu, cv)
+    if device.type == "cpu":
+        return _cpu_result(packed_multi_correct_outer_acc_ref(
+            p2d, m2d, b2d, d3d, cu, cv, row_block, eta, rho, am, bm, ab, cg,
+            cm, ca, with_stats=with_stats), out)
+    hp = _multi_hp(k, device, eta, rho, am, bm, ab, cg, cm, ca)
+    res = _launch_multi("packed_multi_correct_outer_acc",
+                        _lib().packed_multi_correct_outer_acc_f32,
+                        (p2d, m2d, b2d), d3d, (cu, cv), row_block, hp, out,
+                        with_stats)
+    packed_multi_correct_outer_acc.launches += 1
+    return res
+
+
+packed_multi_correct_outer_acc.launches = 0
+
+
+def gram_pairs(k: int):
+    """The (a <= b) column order of the basis [m, d_1..d_K]'s pairs."""
+    t = k + 1
+    return [(a, b) for a in range(t) for b in range(a, t)]
+
+
+def packed_multi_gram_ref(m2d: torch.Tensor,
+                          d3d: torch.Tensor) -> torch.Tensor:
+    """Plain version: (R, 128) + (K, R, 128) -> (R, P) per-row products of
+    the basis pairs in ``gram_pairs`` order, P = (K+1)(K+2)/2."""
+    vecs = [m2d, *d3d]
+    return torch.stack([(vecs[a] * vecs[b]).sum(1)
+                        for a, b in gram_pairs(d3d.shape[0])], dim=1)
+
+
+def packed_multi_gram(m2d: torch.Tensor, d3d: torch.Tensor) -> torch.Tensor:
+    """m2d: (R, 128) fp32, d3d: (K, R, 128) fp32, K <= ``MAX_GRAM_K``. One
+    read of each; returns the (R, P) per-row partials. On the card they are
+    stored planar, so the result is the transposed view of a contiguous
+    (P, R) tensor."""
+    device = _check_buffers(m2d)
+    r = m2d.shape[0]
+    k = _check_stack(d3d, r, device)
+    if device.type == "cpu":
+        return packed_multi_gram_ref(m2d, d3d)
+    if not 1 <= k <= MAX_GRAM_K:
+        raise ValueError(f"packed_multi_gram takes 1..{MAX_GRAM_K} deltas, "
+                         f"got {k}")
+    _check_cuda(m2d, d3d)
+    out = torch.empty((len(gram_pairs(k)), r), dtype=torch.float32,
+                      device=device)
+    _launch("packed_multi_gram", _lib().packed_multi_gram_f32, device,
+            m2d.data_ptr(), d3d.data_ptr(), out.data_ptr(), r, k)
+    packed_multi_gram.launches += 1
+    return out.t()
+
+
+packed_multi_gram.launches = 0
+
+
+@functools.cache
+def _gram_index(k: int, device: str) -> torch.Tensor:
+    """(K+1, K+1) column of each (a, b) pair, symmetric, on ``device``."""
+    t = k + 1
+    idx = np.zeros((t, t), np.int64)
+    for c, (a, b) in enumerate(gram_pairs(k)):
+        idx[a, b] = idx[b, a] = c
+    return torch.from_numpy(idx).to(device)
+
+
+def multi_gram_blocks(m2d: torch.Tensor, d3d: torch.Tensor,
+                      layout) -> torch.Tensor:
+    """Per-block Gram matrices of the basis [m, d_1..d_K], (B, K+1, K+1):
+    one O(d) sweep plus one segment sum over its planes, as
+    ``packed_stats`` reduces the row stats. Every inner product a sequential
+    flush would measure between a delta and the evolving momentum is a
+    linear functional of these."""
+    parts = packed_multi_gram(m2d, d3d)
+    k = d3d.shape[0]
+    seg = layout.segment_lengths(parts.device, parts.shape[1])
+    sums = torch.segment_reduce(parts.t().reshape(-1), "sum", lengths=seg)
+    blocks = sums.reshape(parts.shape[1], -1)[:, :layout.n_blocks].t()
+    return blocks[:, _gram_index(k, str(parts.device))]
+
+
 KERNEL_WRAPPERS = (packed_row_stats, packed_correct_outer,
                    packed_correct_outer_quad, packed_correct_outer_acc,
-                   packed_rowabs, packed_quant, packed_dequant)
+                   packed_rowabs, packed_quant, packed_dequant,
+                   packed_multi_correct_outer, packed_multi_correct_outer_quad,
+                   packed_multi_correct_outer_acc, packed_multi_gram)
 
 
 def launch_counts() -> Dict[str, int]:

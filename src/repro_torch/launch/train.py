@@ -16,6 +16,8 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --workers 3 \\
         --paces 1,2,6 --outer 8 --inner 4 --dylu --compression int8 \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --scenario fedbuff \\
+        --commit-batch 4 --device cpu
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ def scenario_from_args(args) -> Scenario:
         method=args.method, outer_lr=outer_lr, momentum=args.momentum,
         compression=args.compression,
         drop_stale_after=args.drop_stale_after,
+        commit_batch=args.commit_batch,
         inner_lr=args.inner_lr, seed=args.seed)
 
 
@@ -93,6 +96,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--drop-stale-after", type=int, default=None)
     ap.add_argument("--shard-assignment", default="fixed",
                     choices=["fixed", "flexible"])
+    ap.add_argument("--commit-batch", type=int, default=1,
+                    help="server commit-buffer size: >1 commits up to K "
+                         "same-tick arrivals in one fused flush (also "
+                         "overrides a --scenario's own)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-every", type=int, default=None,
                     help="default: 10, or the scenario's golden-trace "
@@ -112,6 +119,8 @@ def main(argv: Optional[Sequence[str]] = None):
         scn = registry.get_scenario(args.scenario)
         if args.full_width:
             scn = scn.overridden(**FULL_WIDTH)
+        if args.commit_batch > 1:
+            scn = scn.overridden(commit_batch=args.commit_batch)
         print(f"scenario {scn.name}: {scn.description}")
     else:
         scn = scenario_from_args(args)

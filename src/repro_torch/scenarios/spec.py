@@ -3,14 +3,19 @@
 Port of ``repro/scenarios/spec.py``. Every field, default and JSON form is
 the reference's, so ``Scenario.to_dict()`` equals the reference's (and the
 ``scenario`` dict of each committed golden) field for field. ``build()``
-hands back a port engine on the device it is given; a scenario that asks
-for an axis the port does not run yet raises ``NotImplementedError``
-naming its ROADMAP item before anything runs.
+hands back a port engine on the device it is given, with the paces,
+failures and membership events of a committed pace trace when the scenario
+names one; a scenario that asks for an axis the port does not run yet
+raises ``NotImplementedError`` naming its ROADMAP item before anything
+runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -26,6 +31,20 @@ ENGINES = ("sim", "wallclock")
 MODES = ("deterministic", "free")
 TRANSPORTS = ("inproc", "socket")
 TOPOLOGIES = ("hub", "ring", "gossip")
+
+#: the committed straggler/churn trace files (data of the repository)
+TRACE_DIR = Path(__file__).resolve().parents[3] / "results" / "traces"
+
+
+@functools.cache
+def load_pace_trace(name: str) -> Dict[str, Any]:
+    """A committed worker-speed/churn trace, read once. ``name`` is a file
+    in ``TRACE_DIR`` unless it is a path that exists as given. JSON:
+    {"paces": [sec/step, ...] cycled to n_workers, "failures": [[time,
+    wid, restart_delay], ...], "elastic": [[time, action, wid, pace,
+    lang], ...]}."""
+    path = Path(name) if Path(name).exists() else TRACE_DIR / name
+    return json.loads(path.read_text())
 
 
 @dataclass(frozen=True)
@@ -137,11 +156,9 @@ class Scenario:
     # ------------------------------------------------------------ properties
     @property
     def paces(self) -> Tuple[float, ...]:
-        if self.pace_trace:
-            raise NotImplementedError(
-                f"pace_trace={self.pace_trace!r}: trace-replayed paces and "
-                "churn are not in the port yet (ROADMAP A11)")
         base = self.worker_paces
+        if self.pace_trace:
+            base = tuple(load_pace_trace(self.pace_trace)["paces"]) or base
         return tuple(base[i % len(base)] for i in range(self.n_workers))
 
     @property
@@ -208,11 +225,7 @@ class Scenario:
             out.append(f"engine={self.engine!r} (ROADMAP A13)")
         if self.faults is not None:
             out.append("faults (ROADMAP A13)")
-        if self.pace_trace:     # its paces come from the trace file
-            out.append(f"pace_trace={self.pace_trace!r} (ROADMAP A11)")
-        else:
-            out += unported_axes(self.run_config())
-        return tuple(out)
+        return tuple(out + unported_axes(self.run_config()))
 
     def build(self, device="cuda",
               init_params: Optional[Mapping[str, np.ndarray]] = None):
@@ -233,6 +246,17 @@ class Scenario:
         elastic = [ElasticEvent(time=e.time, action=e.action, wid=e.wid,
                                 pace=e.pace, lang=e.lang)
                    for e in self.elastic]
+        if self.pace_trace:
+            # the trace's crashes and membership changes, after the
+            # scenario's own (the engine sorts both lists by time)
+            tr = load_pace_trace(self.pace_trace)
+            failures += [FailureEvent(time=float(t), wid=int(w),
+                                      restart_delay=float(d))
+                         for t, w, d in tr.get("failures", [])]
+            elastic += [ElasticEvent(time=float(t), action=str(a),
+                                     wid=int(w), pace=float(pc),
+                                     lang=None if lang is None else int(lang))
+                        for t, a, w, pc, lang in tr.get("elastic", [])]
         return make_engine(self.run_config(), self.engine, device=device,
                            init_params=init_params, failures=failures,
                            elastic=elastic)

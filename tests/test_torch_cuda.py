@@ -7,7 +7,9 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: p'/m'(/b') of the fused updates bit for bit (the source is
-built with --fmad=false, so each product and sum rounds as in PyTorch); the
+built with --fmad=false, so each product and sum rounds as in PyTorch), and
+of the K-stacked multi sweeps bit for bit against their plain versions and
+against K back-to-back launches of the single-arrival kernel; the
 int8 sweeps bit for bit (a max is exact in any order; quantize is one IEEE
 division and round half to even, dequantize one product);
 per-row and per-block sums, which the kernel adds in a shuffle tree, each
@@ -238,6 +240,119 @@ def test_kernels_refuse_mixed_devices(cuda):
                                     *ACC_TABLES["dn_boundary"])
 
 
+# (am, bm, ab, cg, cm, ca) per delta of a multi accumulator sweep:
+# delayed-Nesterov non-boundary rows with a boundary in the second slot
+DN_HOLD = (1.0, 0.0, 1.0, 1.0, 0.9, 0.0)
+
+
+def _multi_table(k):
+    rows = [DN_HOLD] * k
+    rows[1] = ACC_TABLES["dn_boundary"]
+    return [list(col) for col in zip(*rows)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("kernel", ["plain", "quad", "acc"])
+@pytest.mark.parametrize("rows", [(1,), (3, 1, 33), (2048, 5, 2049)])
+def test_multi_sweeps_bit_identical_to_plain_and_sequential(cuda, rows,
+                                                            kernel, k):
+    layout = _layout(rows)
+    p, m, b = _buffers(layout, cuda, 3, seed=8)
+    d = torch.stack(_buffers(layout, cuda, k, seed=9))
+    cu, cv, cq = (torch.stack(c) for c in zip(*[_coeffs(layout, cuda, seed=s)
+                                                for s in range(11, 11 + k)]))
+    rb, _ = layout.device_tables(cuda)
+    rhos = [0.5 / np.sqrt(1.0 + j) for j in range(k)]
+    if kernel == "plain":
+        state = (p, m)
+        multi, ref = pk.packed_multi_correct_outer, \
+            pk.packed_multi_correct_outer_ref
+        args = (d, cu, cv, rb, 0.7, 0.9, rhos)
+
+        def single(j, *s):
+            return pk.packed_correct_outer(*s, d[j], cu[j], cv[j], rb, 0.7,
+                                           0.9, rhos[j])
+    elif kernel == "quad":
+        state = (p, m)
+        multi, ref = pk.packed_multi_correct_outer_quad, \
+            pk.packed_multi_correct_outer_quad_ref
+        args = (d, cu, cv, cq, rb, 0.07, 0.9, rhos)
+
+        def single(j, *s):
+            return pk.packed_correct_outer_quad(*s, d[j], cu[j], cv[j], cq[j],
+                                                rb, 0.07, 0.9, rhos[j])
+    else:
+        state = (p, m, b)
+        table = _multi_table(k)
+        multi, ref = pk.packed_multi_correct_outer_acc, \
+            pk.packed_multi_correct_outer_acc_ref
+        args = (d, cu, cv, rb, 0.7, rhos, *table)
+
+        def single(j, *s):
+            return pk.packed_correct_outer_acc(*s, d[j], cu[j], cv[j], rb, 0.7,
+                                               rhos[j], *(c[j] for c in table))
+    want = ref(*state, *args, with_stats=True)
+    n0 = multi.launches
+    got = multi(*state, *args)
+    stats = multi(*state, *args, with_stats=True)
+    seq = state
+    for j in range(k):
+        seq = single(j, *seq)
+    torch.cuda.synchronize()
+    assert multi.launches == n0 + 2
+    n = len(state)
+    assert all(torch.equal(g, w) for g, w in zip(got, want[:n]))
+    assert all(torch.equal(g, w) for g, w in zip(stats[:n], got))
+    assert all(torch.equal(g, w) for g, w in zip(got, seq))
+    assert stats[n].shape == (k, layout.n_rows, pk.N_MOMENTS)
+    _close_sums(stats[n].reshape(-1, 4), want[n].reshape(-1, 4))
+    copies = tuple(t.clone() for t in state)
+    multi(*copies, *args, out=copies)
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, g) for c, g in zip(copies, got))
+
+
+def _close_gram(got, want, k):
+    """(R or B, P) pair sums, each within 1e-5 of sqrt(G_aa * G_bb)."""
+    pairs = pk.gram_pairs(k)
+    got, want = got.double().cpu(), want.double().cpu()
+    diag = {a: want[:, c] for c, (a, b) in enumerate(pairs) if a == b}
+    scale = torch.stack([(diag[a] * diag[b]).sqrt() for a, b in pairs], 1)
+    bad = ((got - want).abs() > 1e-5 * scale).nonzero()
+    assert not len(bad), f"{len(bad)} sums off, first at {bad[0].tolist()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("rows", [(1,), (3, 1, 33), (2048, 5, 2049)])
+def test_multi_gram_matches_plain(cuda, rows, k):
+    layout = _layout(rows)
+    m, *ds = _buffers(layout, cuda, 1 + k, seed=12)
+    d = torch.stack(ds)
+    n0 = pk.packed_multi_gram.launches
+    got = pk.packed_multi_gram(m, d)
+    torch.cuda.synchronize()
+    assert pk.packed_multi_gram.launches == n0 + 1
+    assert got.shape == (layout.n_rows, (k + 1) * (k + 2) // 2)
+    _close_gram(got, pk.packed_multi_gram_ref(m, d), k)
+    blocks = pk.multi_gram_blocks(m, d, layout)
+    assert torch.equal(blocks, pk.multi_gram_blocks(m, d, layout))
+    want = pk.multi_gram_blocks(m.cpu(), d.cpu(), layout)
+    pairs = pk.gram_pairs(k)
+    _close_gram(torch.stack([blocks[:, a, c] for a, c in pairs], 1),
+                torch.stack([want[:, a, c] for a, c in pairs], 1), k)
+    assert torch.equal(blocks, blocks.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_multi_gram_refuses_more_than_its_instantiations(cuda):
+    layout = _layout((2,))
+    m, *ds = _buffers(layout, cuda, 1 + pk.MAX_GRAM_K + 1)
+    with pytest.raises(ValueError, match="1..8"):
+        pk.packed_multi_gram(m, torch.stack(ds))
+
+
 # kernel launches per arrival (per barrier round for sync_baseline); a
 # crashed worker's lost round launches nothing
 LAUNCHES = {
@@ -269,3 +384,40 @@ def test_smoke_scenario_on_the_card_matches_golden(cuda, name):
     assert pk.launch_counts() == want
     assert eng.server._pbuf.device.type == "cuda"
     assert all(np.isfinite(e["mean"]) for e in hist.evals)
+
+
+# the batched scenarios: an arrival committed on its own launches the
+# single-arrival kernels, a fused run of K >= 2 arrivals one multi-Gram and
+# one multi sweep, whatever K
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hogwild_rampup", "trace_paced"])
+def test_batched_scenario_on_the_card_matches_golden(cuda, name):
+    from repro_torch.async_engine.engine import make_eval_fn
+    from repro_torch.scenarios import registry, run
+    scn = registry.get_scenario(name)
+    eng = scn.build(device="cuda")
+    runs = []
+    step = eng.server._step_update_multi
+
+    def fused(deltas, rhos, taus):
+        before = pk.launch_counts()
+        step(deltas, rhos, taus)
+        after = pk.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {"packed_multi_gram": 1,
+                                              "packed_multi_correct_outer": 1}
+        runs.append(len(deltas))
+
+    eng.server._step_update_multi = fused
+    pk.reset_launch_counts()
+    hist = eng.run(eval_every=scn.eval_cadence,
+                   eval_fn=make_eval_fn(eng, batch=scn.eval_batch))
+    assert run.compare(scn, hist) == []
+    alone = len(hist.arrivals) - sum(runs)
+    assert runs and min(runs) >= 2
+    want = {k: 0 for k in pk.launch_counts()}
+    want.update(packed_row_stats=alone, packed_correct_outer=alone,
+                packed_multi_gram=len(runs),
+                packed_multi_correct_outer=len(runs))
+    assert pk.launch_counts() == want
+    assert eng.server._pbuf.device.type == "cuda"

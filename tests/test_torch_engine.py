@@ -219,3 +219,33 @@ def test_set_n_workers_changes_rho():
     assert sync.on_arrival(delta, 0, 0).rho == 0.5
     sync.set_n_workers(9)
     assert sync.on_arrival(delta, 1, 1).rho == 9 ** 0.5 / 9
+
+
+def test_join_of_a_member_keeps_the_old_slot_alive_as_the_reference():
+    """An elastic join of a wid that is already a member (worker 1 again at
+    t=5, pace 3): both engines replace ``workers[1]`` and leave the old
+    worker's arena slot allocated and alive, so it counts in ``n_alive`` and
+    in ``rho`` from then on. Arrivals (with each ``rho``), the live count
+    and the fastest live pace equal the reference's."""
+    from repro.scenarios.spec import ElasticSpec as JaxElasticSpec
+    from repro_torch.scenarios.spec import ElasticSpec
+    join = dict(time=5.0, action="join", wid=1, pace=3.0, lang=1)
+    jscn = registry.get_scenario("elastic_membership")
+    jscn = jscn.overridden(elastic=jscn.elastic + (JaxElasticSpec(**join),))
+    scn = _port_scenario("elastic_membership")
+    scn = scn.overridden(elastic=scn.elastic + (ElasticSpec(**join),))
+    jeng = jax_make_engine(jscn)
+    eng = scn.build(device="cpu", init_params=_flat(jeng.server.state.params))
+    jhist, hist = jeng.run(), eng.run()
+    assert _rows(hist) == _rows(jhist)
+    assert (eng.arena.n_alive(), eng.arena.min_alive_pace(),
+            eng.server.n_workers) == (jeng.arena.n_alive(),
+                                      jeng.arena.min_alive_pace(),
+                                      jeng.server.n_workers) == (5, 1.0, 5)
+    nxt = next(a for a in hist.arrivals if a["sim_time"] > 5.0)
+    assert nxt["rho"] == 5 ** 0.5 / 5
+    assert eng.workers[1].pace == 3.0 and len(eng.workers) == 4
+    # the parked rounds are the live workers' in flight; the old worker 1's
+    # can never be obtained and was dropped at the join
+    assert all(task.task_id == eng.workers[task.wid].pending_task_id
+               for task in eng._pending.values())

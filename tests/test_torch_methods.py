@@ -282,10 +282,15 @@ def test_synchronizer_matches_reference_after_every_arrival(name):
 
 def test_port_server_refuses_what_it_does_not_run():
     init = bridge.to_torch(_flat(_tree(np.random.default_rng(0))), "cpu")
-    # compressed pseudo-gradients are taken since A9 (core/compression.py)
+    # compressed pseudo-gradients are taken since A9 (core/compression.py),
+    # a commit buffer since A11 (tests/test_torch_batched.py)
     Synchronizer(init, OuterOptConfig(compression="int8"), n_workers=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        Synchronizer(init, OuterOptConfig(), n_workers=2, commit_batch=4)
+    sync = Synchronizer(init, OuterOptConfig(), n_workers=2, commit_batch=4)
+    assert (sync.commit_batch, sync.pending) == (4, 0)
+    assert sync.flush() == [] and sync.flush_totals["flushes"] == 0
+    # the reference's telemetry switch waits for A10
+    with pytest.raises(TypeError, match="telemetry"):
+        Synchronizer(init, OuterOptConfig(), n_workers=2, telemetry=True)
 
 
 def _live(name, **overrides):

@@ -4,11 +4,12 @@ committed golden traces.
   * every registered scenario's ``to_dict()`` equals the reference
     registry's and its golden's ``scenario`` dict, and ``from_dict`` of
     that dict rebuilds it;
-  * the eleven sim goldens the port runs (the five method baselines,
+  * the thirteen sim goldens the port runs (the five method baselines,
     ``drop_stale``, ``flexible_shards``, ``noniid_dirichlet``,
-    ``crash_rejoin``, ``elastic_membership`` and ``int8_dylu``;
-    ``paper_hetero_severe`` is tests/test_torch_engine.py's) are reproduced
-    exactly: arrivals, ``tokens``, ``comm_bytes``, ``final_time``;
+    ``crash_rejoin``, ``elastic_membership``, ``int8_dylu`` and the batched
+    ``hogwild_rampup`` and ``trace_paced``; ``paper_hetero_severe`` is
+    tests/test_torch_engine.py's) are reproduced exactly: arrivals,
+    ``tokens``, ``comm_bytes``, ``final_time``;
   * a scenario with an axis the port lacks raises before it runs;
   * ``delayed_nesterov``, ``fedbuff``, ``crash_rejoin`` and
     ``sync_baseline`` with int8 compression against a live reference run
@@ -38,10 +39,9 @@ from test_torch_server import _flat
 PORTED = ("delayed_nesterov", "fedbuff", "dcasgd", "poly_stale",
           "sync_baseline", "drop_stale", "flexible_shards",
           "noniid_dirichlet", "crash_rejoin", "elastic_membership",
-          "int8_dylu")
+          "int8_dylu", "hogwild_rampup", "trace_paced")
 UNPORTED = ("wallclock_hetero", "chaos_lossy", "gossip_ring",
-            "socket_hetero", "hogwild_rampup", "trace_paced",
-            "chaos_partition")
+            "socket_hetero", "chaos_partition")
 
 
 def test_registry_names_match_reference():
@@ -123,8 +123,8 @@ def test_unported_axis_raises_before_running(name, monkeypatch):
 
 def test_engine_refuses_an_unported_run_config():
     cfg = registry.get_scenario("drop_stale").overridden(
-        commit_batch=2).run_config()
-    with pytest.raises(NotImplementedError, match="commit_batch"):
+        topology="ring").run_config()
+    with pytest.raises(NotImplementedError, match="topology.*A14"):
         engine_lib.make_engine(cfg, device="cpu")
 
 
