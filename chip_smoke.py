@@ -16,10 +16,19 @@ Phases, in order; any failure exits non-zero:
      bit against four back-to-back launches of the matching single-arrival
      kernel, the accumulator one under a per-delta table whose second slot
      is a delayed-Nesterov boundary; the multi-Gram sweep's per-row and
-     per-block sums) and time both with CUDA events (median of 30 runs
-     after a warm-up), beside one PyTorch library call where there is one
-     (one fake-quantize call against the int8 quant + dequant pair's sum;
-     one ``torch.bmm`` over a pre-stacked basis for the Gram);
+     per-block sums; the per-leaf kernels of ``csrc/leaf.cu`` on the
+     largest leaf, the tied embedding (50257 x 256): block_stats within
+     TOL_SUM, correct_apply and outer_update_2d bit for bit, each also on
+     four stacked blocks (L = 4; for correct_apply one block in each branch
+     of Alg. 2: keep, anti, weak, degenerate) and on an odd length) and time
+     both with CUDA events (median of 30 runs after a warm-up), beside one
+     PyTorch library call where there is one (one fake-quantize call against
+     the int8 quant + dequant pair's sum; one ``torch.bmm`` over a
+     pre-stacked basis for the Gram; ``torch.mm(S, S.T)`` over a pre-stacked
+     (2, n) S for block_stats; ``torch.add(u, v, alpha=cv)`` for
+     correct_apply with cu = 1; ``torch._fused_sgd_`` with Nesterov and
+     dampening mu for outer_update_2d with rho = 1), and time the 43-leaf
+     correction pass;
   3. run the slice's scenarios through ``repro_torch.scenarios`` at full
      tinygpt-15m width, batch 4 x 128, on cuda: ``paper_hetero_severe``
      (HeLoCo), the outer-method baselines ``delayed_nesterov``,
@@ -39,8 +48,20 @@ Phases, in order; any failure exits non-zero:
      exactly one multi sweep (plus one multi-Gram sweep for HeLoCo), and
      no other kernel may launch (a crashed worker's lost round launches
      nothing); every tensor must stay on the card, and the eval losses
-     must be finite;
-  4. print the card's name and power limit, the kernel summary line, and
+     must be finite. Last, ``paper_hetero_severe`` once more with the
+     engine's server swapped for a per-leaf kernel server
+     (``Synchronizer(packed=False, use_kernel=True)``): arrivals equal to the
+     golden's, block_stats and correct_apply launched once per leaf of each
+     applied arrival and no other kernel, evals within 1e-3 of the packed
+     run's;
+  4. the single-tensor path: ``kernels.ops.outer_update_block`` over the 43
+     leaves of a full-width state, one outer_update_2d launch a leaf, each
+     bit for bit against the plain version;
+  5. a replay: eight pseudo-gradients from inner rounds on the card, at
+     staleness up to 3 with ``drop_stale_after=2``, fed to a packed server
+     and a per-leaf kernel server: the same arrivals dropped, p and m within
+     3e-5 after every arrival;
+  6. print the card's name and power limit, the kernel summary line, and
      the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device, or without the rest of the repository, it exits
@@ -66,6 +87,11 @@ PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "": (3.35e12, 67e12)}
 ITERS = 30
 # the batched commit path's flush depth in the kernel phase
 K_MULTI = 4
+# the reference's per-arrival band between the per-leaf and packed servers
+# (tests/test_packed.py:163-168), and the full-width band of eval losses
+# between two runs of the same trace (the slow lane's)
+TOL_SERVERS = 3e-5
+TOL_EVAL = 1e-3
 # per-row / per-block sums (fp32, another summation order): each entry within
 # TOL_SUM of its own scale, sqrt(uu*vv) for a dot product (Cauchy-Schwarz
 # bounds it) and the value itself for a sum of squares
@@ -113,7 +139,18 @@ REPLACES = {
     "packed_multi_correct_outer_quad": "src/repro/kernels/packed.py:529",
     "packed_multi_correct_outer_acc": "src/repro/kernels/packed.py:603",
     "packed_multi_gram": "src/repro/kernels/packed.py:664",
+    "block_stats": "src/repro/kernels/heloco_correct.py:38",
+    "correct_apply": "src/repro/kernels/heloco_correct.py:63",
+    "outer_update_2d": "src/repro/kernels/outer_update.py:32",
 }
+LEAF_KERNELS = ("block_stats", "correct_apply", "outer_update_2d")
+# tinygpt-15m's 43 leaves: the per-leaf HeLoCo arrival launches the two
+# correction kernels once per leaf
+N_LEAVES = 43
+PER_LEAF = {"block_stats": N_LEAVES, "correct_apply": N_LEAVES}
+# (s_i, worker) of the replay's eight arrivals at t = 0..7: staleness 0, 1,
+# 2, 3, 2, 3, 1, 3; with drop_stale_after=2 those at t = 3, 5 and 7 drop
+REPLAY = ((0, 0), (0, 1), (0, 2), (0, 3), (2, 0), (2, 1), (5, 2), (4, 3))
 # (am, bm, ab, cg, cm, ca) of a delayed-Nesterov boundary arrival and of a
 # FedBuff non-boundary one (cg = 0: the parameters come back unchanged)
 ACC_TABLES = {"dn_boundary": (0.9, 0.025, 0.0, 1.0, 0.9, 0.0),
@@ -150,15 +187,30 @@ def time_ms(fn, iters=ITERS, warmup=3):
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def check_sums(name, got, want):
-    """Rows of (dot, uu, vv[, more sums of squares]) held entry by entry to
-    TOL_SUM of their own scale (a (K, R, n) stack row by row). Returns the
-    largest absolute difference."""
+def sum_errors(got, want):
+    """Entry by entry, the absolute difference of two stacks of rows of
+    (dot, uu, vv[, more sums of squares]) and the scale TOL_SUM is taken
+    of: sqrt(uu*vv) for the dot product, the value itself for a sum of
+    squares."""
     got = got.reshape(-1, got.shape[-1]).double()
     want = want.reshape(-1, want.shape[-1]).double()
     scale = want.abs()
     scale[:, 0] = (want[:, 1] * want[:, 2]).sqrt()
-    diff = (got - want).abs()
+    return got, want, (got - want).abs(), scale
+
+
+def rel_sum_err(got, want):
+    """The largest difference over its own scale, the quantity check_sums
+    holds to TOL_SUM (0 where both are 0)."""
+    _, _, diff, scale = sum_errors(got, want)
+    return (diff / scale).nan_to_num(nan=0.0).max().item()
+
+
+def check_sums(name, got, want):
+    """Rows of (dot, uu, vv[, more sums of squares]) held entry by entry to
+    TOL_SUM of their own scale (a (K, R, n) stack row by row). Returns the
+    largest absolute difference."""
+    got, want, diff, scale = sum_errors(got, want)
     bad = (diff > TOL_SUM * scale).nonzero()
     assert not len(bad), (f"{name}: {len(bad)} sums off, first at "
                           f"{bad[0].tolist()}: got {got[tuple(bad[0])].item()} "
@@ -184,7 +236,7 @@ def check_update(name, torch, fn, state, want, stats_want):
     return check_sums(f"{name} stats", with_stats[-1], stats_want)
 
 
-def kernel_phase(torch, pk, compression, layout, dev, bw, flops):
+def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops):
     from repro_torch.configs.base import HeLoCoConfig
     R, B = layout.n_rows, layout.n_blocks
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -275,6 +327,7 @@ def kernel_phase(torch, pk, compression, layout, dev, bw, flops):
         return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
     multi_rows = multi_phase(torch, pk, layout, dev, p, m, b, bound)
+    leaf_rows = leaf_phase(torch, specs, dev, bound)
 
     n = R * 128
     plane, table_bytes = n * f4, R * 4
@@ -367,7 +420,7 @@ def kernel_phase(torch, pk, compression, layout, dev, bw, flops):
         "branch_scalars_ms": time_ms(lambda: pk.branch_scalars(
             blocks, HeLoCoConfig())),
     }))
-    return rows + multi_rows
+    return rows + multi_rows + leaf_rows
 
 
 def check_gram(name, got, want, k):
@@ -543,6 +596,159 @@ def multi_phase(torch, pk, layout, dev, p, m, b, bound):
     return rows
 
 
+def branch_blocks(torch, u4, gen):
+    """Momentum blocks against the four stacked blocks of ``u4`` that land
+    in the four branches of Alg. 2: keep (c near 1), anti (c near -1), weak
+    (c near 0.1) and degenerate (a zero momentum)."""
+    noise = torch.randn(u4.shape, generator=gen, device=u4.device)
+    return torch.stack([2.0 * u4[0] + 0.1 * noise[0],
+                        -u4[1] + 0.1 * noise[1],
+                        0.1 * u4[2] + noise[2],
+                        torch.zeros_like(u4[3])])
+
+
+def leaf_phase(torch, specs, dev, bound):
+    """The per-leaf kernels of ``csrc/leaf.cu`` on the largest leaf (the
+    tied embedding) held to their plain versions: block_stats within
+    TOL_SUM, correct_apply and outer_update_2d bit for bit, as one block,
+    as four stacked blocks (one in each branch of Alg. 2 for the
+    correction) and on an odd length; then timed, with the library
+    yardsticks and the 43-leaf correction pass. Returns their rows."""
+    from repro_torch.configs.base import HeLoCoConfig
+    from repro_torch.core.heloco import block_correct
+    from repro_torch.kernels import heloco_correct as hk
+    from repro_torch.kernels import outer_update as ok
+    from repro_torch.kernels.packed import branch_scalars
+    h = HeLoCoConfig()
+    shape = tuple(max(specs.values(), key=lambda t: t.numel()).shape)
+    n = math.prod(shape)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    u, v, p, m, g = (torch.randn(n, generator=gen, device=dev)
+                     for _ in range(5))
+    eta, mu, rho = 0.7, 0.9, 0.5
+    odd = n - 3
+    cases = {"one block": (1, n), "4 stacked blocks": (4, n // 4),
+             "odd length": (1, odd)}
+    errs, rels = [], []
+    for label, (blocks, k) in cases.items():
+        U, V = u[:blocks * k].view(blocks, k), v[:blocks * k].view(blocks, k)
+        if blocks == 4:
+            V = branch_blocks(torch, U, gen)
+        stats = hk.block_stats(U, V)
+        again = hk.block_stats(U, V)
+        torch.cuda.synchronize()
+        assert torch.equal(stats, again), "block_stats is not deterministic"
+        want = hk.block_stats_ref(U, V)
+        errs.append(check_sums(f"block_stats ({label})", stats, want))
+        rels.append(rel_sum_err(stats, want))
+        cu, cv = branch_scalars(stats, h)
+        if blocks == 4:
+            c = (stats[:, 0] / (stats[:, 1] * stats[:, 2]).sqrt()).tolist()
+            assert (c[0] >= h.c_ok and c[1] < 0.0 and 0.0 <= c[2] < h.c_ok
+                    and stats[3, 2].item() == 0.0), c
+            # anti damps along v (cv > 0 against c < 0), weak rotates
+            assert (cu[1].item() == 1.0 and cv[1].item() > 0.0
+                    and cu[2].item() != 1.0), (cu, cv)
+        got = hk.correct_apply(U, V, cu, cv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hk.correct_apply_ref(U, V, cu, cv)), \
+            f"correct_apply ({label}) differs from the plain version"
+        sl = slice(0, blocks * k)
+        args = [t[sl].view(blocks, k) for t in (p, m, g)]
+        if label == "one block":
+            args = [t.view(shape) for t in args]
+        got = ok.outer_update_2d(*args, eta, mu, rho)
+        torch.cuda.synchronize()
+        want = ok.outer_update_2d_ref(*args, eta, mu, rho)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"outer_update_2d ({label}) differs from the plain version"
+    print(f"leaf kernels agree on {shape} = {n} elements, as one block, four "
+          f"stacked blocks (keep, anti, weak, degenerate) and {odd} "
+          f"elements: block_stats err {max(errs):.3e} absolute, "
+          f"{max(rels):.3e} of its own scale (each sum within {TOL_SUM} of "
+          "it), correct_apply and outer_update_2d "
+          "bit-identical to their plain versions")
+
+    # timed on the embedding as one block; correct_apply at cu = 1, the
+    # function of one torch.add (keep, anti and degenerate have cu = 1)
+    U, V = u.view(1, n), v.view(1, n)
+    cu = torch.ones(1, device=dev)
+    cv = torch.full((1,), -0.3, device=dev)
+    S = torch.stack([u, v])
+    gram = torch.mm(S, S.T)
+    check_sums("torch.mm yardstick", torch.stack(
+        [gram[0, 1], gram[0, 0], gram[1, 1]])[None], hk.block_stats(U, V))
+    lib_add = torch.add(u, v, alpha=-0.3)
+    assert torch.allclose(lib_add, hk.correct_apply(U, V, cu, cv)[0],
+                          rtol=1e-6, atol=1e-6), \
+        "the correct_apply yardstick computes another function"
+    P, M, G = (t.view(shape) for t in (p, m, g))
+    # outer_update_2d at rho = 1 is one Nesterov SGD step with dampening mu:
+    # m' = mu m + (1 - mu) g, p' = p - eta (g + mu m'), in place on p and m
+    # (the same 3 reads and 2 writes); ATen's fused kernel takes its scalars
+    # in double, so it is held to the plain version within a few ulps
+    P1, M1 = P.clone(), M.clone()
+
+    def fused_sgd():
+        torch._fused_sgd_([P1], [G], [M1], weight_decay=0.0, momentum=mu,
+                          lr=eta, dampening=mu, nesterov=True, maximize=False,
+                          is_first_step=False)
+
+    fused_sgd()
+    for got, want in zip((P1, M1), ok.outer_update_2d_ref(P, M, G, eta, mu,
+                                                          1.0)):
+        assert torch.allclose(got, want, rtol=1e-6, atol=1e-6), \
+            "the outer_update_2d yardstick computes another function"
+    f4 = 4
+    rows = []
+    for name, fn, plain, lib, call, nbytes, nflops, err in (
+            ("block_stats", lambda: hk.block_stats(U, V),
+             lambda: hk.block_stats_ref(U, V), lambda: torch.mm(S, S.T),
+             "torch.mm(S, S.T) over a pre-stacked (2, n) S = [u; v] (the "
+             "stack not timed)", 2 * n * f4 + 3 * f4, 6 * n, max(errs)),
+            ("correct_apply", lambda: hk.correct_apply(U, V, cu, cv),
+             lambda: hk.correct_apply_ref(U, V, cu, cv),
+             lambda: torch.add(u, v, alpha=-0.3),
+             "torch.add(u, v, alpha=cv), the same function at cu = 1",
+             3 * n * f4 + 2 * f4, 3 * n, 0.0),
+            ("outer_update_2d", lambda: ok.outer_update_2d(P, M, G, eta, mu,
+                                                           rho),
+             lambda: ok.outer_update_2d_ref(P, M, G, eta, mu, rho),
+             fused_sgd,
+             "torch._fused_sgd_ (nesterov, dampening = momentum = mu, "
+             "lr = eta) in place on clones of p and m, the same function at "
+             "rho = 1", 5 * n * f4, 8 * n, 0.0)):
+        b_ms, by = bound(nbytes, nflops)
+        rows.append({"name": name, "ms": time_ms(fn),
+                     "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                     "bound_by": by, "max_abs_err": err,
+                     "library_ms": time_ms(lib) if lib else None,
+                     "library_call": call, "bytes": nbytes, "flops": nflops,
+                     "n": n, "L": 1})
+    rows[0]["max_rel_err"] = max(rels)
+    del S, gram, lib_add, P1, M1
+    # the 43-leaf correction pass of one per-leaf HeLoCo arrival
+    delta = {k: torch.randn(t.shape, generator=gen, device=dev)
+             for k, t in specs.items()}
+    mom = {k: torch.randn(t.shape, generator=gen, device=dev)
+           for k, t in specs.items()}
+
+    def kernels_only():
+        for k, d in delta.items():
+            a, b = d.view(1, -1), mom[k].view(1, -1)
+            hk.block_stats(a, b)
+            hk.correct_apply(a, b, cu, cv)
+
+    print(json.dumps({
+        "op": f"block_correct over {len(specs)} leaves = block_stats + "
+              "branch_scalars + correct_apply per leaf",
+        "ms": time_ms(lambda: block_correct(delta, mom, h, use_kernel=True)),
+        "plain_ms": time_ms(lambda: block_correct(delta, mom, h)),
+        "kernels_only_ms": time_ms(kernels_only),
+        "elements": sum(t.numel() for t in specs.values())}))
+    return rows
+
+
 def int8_inputs(torch, compression, d, layout, dev):
     """A buffer and per-block scales for the int8 sweeps: ``d`` with block 0
     on exact .5 ties at scale 0.5 ((n + 0.5) * 0.5 with |max| 63.5) and
@@ -573,18 +779,29 @@ def cpu_arrivals(scn):
             hist.final_time)
 
 
-def run_scenario(torch, pk, name, overrides, single, fused):
+def run_scenario(torch, kernels, name, overrides, single, fused,
+                 per_leaf=False):
     """One slice scenario at full width on cuda, through the scenario layer,
     with ``overrides``. ``single``: the kernels an arrival committed on its
-    own launches once; ``fused``: those a fused run of K >= 2 arrivals
-    launches once. Returns (launch counts of this run, applied arrivals
-    committed on their own, fused arrivals)."""
+    own launches once (or a mapping of kernel to launches per arrival);
+    ``fused``: those a fused run of K >= 2 arrivals launches once.
+    ``per_leaf``: the engine's server swapped for a per-leaf kernel server
+    before the run. Returns the launch counts of this run, the applied
+    arrivals committed on their own, the fused arrivals, the eval means
+    and the median server ms of an arrival committed on its own."""
     from repro_torch.async_engine.engine import make_eval_fn
+    from repro_torch.async_engine.server import Synchronizer
     from repro_torch.launch.train import FULL_WIDTH
     from repro_torch.scenarios import registry, run
 
     scn = registry.get_scenario(name).overridden(**FULL_WIDTH, **overrides)
     eng = scn.build(device="cuda")
+    if per_leaf:
+        eng.server = Synchronizer(eng.server.state.params, eng.cfg.outer,
+                                  eng.cfg.n_workers, packed=False,
+                                  use_kernel=True)
+    per_arrival = single if isinstance(single, dict) else dict.fromkeys(
+        single, 1)
     spans = {"inner_round": [], "server_step": [], "eval": []}
     flush_ms = {}                   # server ms of a fused run, by K
     fused_runs = []
@@ -602,14 +819,14 @@ def run_scenario(torch, pk, name, overrides, single, fused):
     def fused_step(deltas, rhos, taus, _fn=eng.server._step_update_multi):
         """Times one fused run and holds it to one launch of each kernel in
         ``fused`` and of no other."""
-        before = pk.launch_counts()
+        before = kernels.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _fn(deltas, rhos, taus)
         torch.cuda.synchronize()
         flush_ms.setdefault(len(deltas), []).append(
             1e3 * (time.perf_counter() - t0))
-        after = pk.launch_counts()
+        after = kernels.launch_counts()
         diff = {k: after[k] - before[k] for k in after
                 if after[k] != before[k]}
         assert diff == {k: 1 for k in fused}, \
@@ -623,12 +840,12 @@ def run_scenario(torch, pk, name, overrides, single, fused):
     eval_fn = timed(make_eval_fn(eng, batch=scn.eval_batch), "eval")
     target = cpu_arrivals(scn) if overrides else None
     torch.cuda.synchronize()
-    pk.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     hist = eng.run(eval_every=scn.eval_cadence, eval_fn=eval_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = pk.launch_counts()
+    counts = kernels.launch_counts()
 
     if target is None:
         bad = run.compare(scn, hist)
@@ -644,13 +861,15 @@ def run_scenario(torch, pk, name, overrides, single, fused):
     n_fused = sum(fused_runs)
     singles = applied - n_fused
     assert (len(fused_runs) > 0) == bool(fused), (name, fused_runs)
-    want = {k: singles * (k in single) + len(fused_runs) * (k in fused)
-            for k in counts}
+    want = {k: singles * per_arrival.get(k, 0)
+            + len(fused_runs) * (k in fused) for k in counts}
     assert counts == want, f"{name}: launch counts {counts}, want {want}"
     srv = eng.server
-    tensors = [srv._pbuf, srv._mbuf, *srv.state.params.values()]
-    if srv._abuf is not None:
-        tensors.append(srv._abuf)
+    state = srv.state
+    tensors = [*state.params.values(), *state.momentum.values(),
+               *(state.aux or {}).values()]
+    if srv.packed:
+        tensors += [srv._pbuf, srv._mbuf]
     for w in eng.workers.values():
         tensors += [*w.opt.mu.values(), *w.opt.nu.values()]
         if w.ef is not None:                    # packed int8 error feedback
@@ -667,10 +886,11 @@ def run_scenario(torch, pk, name, overrides, single, fused):
                            for k, v in sorted(flush_ms.items())})
     print(json.dumps({
         "scenario": name, "overrides": overrides, "method": scn.method,
+        "server": ("per-leaf, use_kernel" if per_leaf else "packed"),
         "config": f"tinygpt-15m full width, {scn.n_workers} workers "
                   f"{scn.paces}, H={scn.inner_steps}, batch 4 x 128, "
                   f"commit_batch {scn.commit_batch}",
-        "params": sum(t.numel() for t in srv.state.params.values()),
+        "params": sum(t.numel() for t in state.params.values()),
         "arrivals": len(hist.arrivals), "applied": applied,
         "fused_runs": fused_runs, "committed_alone": singles,
         "arrivals_equal": "golden" if target is None else
@@ -683,26 +903,114 @@ def run_scenario(torch, pk, name, overrides, single, fused):
         "server_ms_all_by_k": {k: v for k, v in sorted(flush_ms.items())},
         "eval_means": means,
         "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
-    return counts, singles, n_fused
+    return counts, singles, n_fused, means, server_ms_by_k.get(1)
 
 
-def slice_phase(torch, pk):
-    """Every slice scenario; returns per kernel (launches, arrivals of the
-    runs it served: committed alone for a single-arrival kernel, fused for
-    a multi one)."""
+def slice_phase(torch, kernels):
+    """Every slice scenario, then ``paper_hetero_severe`` on a per-leaf
+    kernel server, its evals held to the packed run's; returns per kernel
+    (launches, arrivals of the runs it served: committed alone for a
+    single-arrival kernel, fused for a multi one)."""
     totals = {k: [0, 0] for k in REPLACES}
-    for name, overrides, single, fused in SLICE:
-        counts, singles, n_fused = run_scenario(torch, pk, name, overrides,
-                                                single, fused)
+    runs = [(*entry, False) for entry in SLICE]
+    runs.append(("paper_hetero_severe", {}, PER_LEAF, (), True))
+    packed_run = {}
+    for name, overrides, single, fused, per_leaf in runs:
+        counts, singles, n_fused, means, server_ms = run_scenario(
+            torch, kernels, name, overrides, single, fused, per_leaf)
         for k in single:
             totals[k][0] += counts[k]
             totals[k][1] += singles
         for k in fused:
             totals[k][0] += counts[k]
             totals[k][1] += n_fused
+        if name == "paper_hetero_severe" and not per_leaf:
+            packed_run = {"means": means, "server_ms": server_ms}
+        if per_leaf:
+            diff = max(abs(a - b) for a, b in zip(means, packed_run["means"]))
+            assert len(means) == len(packed_run["means"]) and \
+                diff <= TOL_EVAL, (f"{name} on the per-leaf server: evals "
+                                   f"{means} against the packed run's "
+                                   f"{packed_run['means']}")
+            print(json.dumps({
+                "per_leaf_vs_packed": name,
+                "server_ms_per_arrival": {"per_leaf": server_ms,
+                                          "packed": packed_run["server_ms"]},
+                "eval_max_abs_diff": diff, "band": TOL_EVAL}))
         gc.collect()
         torch.cuda.empty_cache()
     return totals
+
+
+def single_tensor_phase(torch, kernels, specs, dev):
+    """The single-tensor entry point: one per-leaf Nesterov step through
+    ``ops.outer_update_block`` on each leaf of a full-width state, with the
+    counts set to 0 just before and read just after; each leaf bit for bit
+    against the plain version. Returns outer_update_2d's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import outer_update as ok
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state = {k: [torch.randn(t.shape, generator=gen, device=dev)
+                 for _ in range(3)] for k, t in specs.items()}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = {k: ops.outer_update_block(*pmg, 0.7, 0.9, 0.5)
+           for k, pmg in state.items()}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["outer_update_2d"] = len(specs)
+    assert counts == want, f"single-tensor path launched {counts}"
+    for k, pmg in state.items():
+        plain = ok.outer_update_2d_ref(*pmg, 0.7, 0.9, 0.5)
+        assert all(torch.equal(a, b) for a, b in zip(out[k], plain)), k
+    print(f"single-tensor path: outer_update_block over {len(specs)} "
+          f"leaves, {counts['outer_update_2d']} outer_update_2d launches, "
+          "each leaf bit-identical to the plain version")
+    return counts["outer_update_2d"]
+
+
+def replay_phase(torch):
+    """Eight pseudo-gradients from inner rounds on the card (each from the
+    packed server's look-ahead at that step), fed to a packed server and a
+    per-leaf kernel server with ``drop_stale_after=2`` at the staleness of
+    REPLAY: the same drops, p and m within TOL_SERVERS after every
+    arrival."""
+    import dataclasses
+    from repro_torch.async_engine.server import Synchronizer
+    from repro_torch.core import packing
+    from repro_torch.launch.train import FULL_WIDTH
+    from repro_torch.scenarios import registry
+
+    scn = registry.get_scenario("paper_hetero_severe").overridden(
+        **FULL_WIDTH)
+    eng = scn.build(device="cuda")
+    cfg = dataclasses.replace(eng.cfg.outer, drop_stale_after=2)
+    init = eng.server.state.params
+    packed = Synchronizer(init, cfg, eng.cfg.n_workers)
+    leaf = Synchronizer(init, cfg, eng.cfg.n_workers, packed=False,
+                        use_kernel=True)
+    eng.server = packed                 # rounds start from its look-ahead
+    worst, dropped = 0.0, []
+    for s_i, wid in REPLAY:
+        delta = eng._execute(eng._make_task(eng.workers[wid])).delta
+        a = packed.on_arrival(delta, s_i, wid)
+        b = leaf.on_arrival(delta, s_i, wid)
+        assert a.dropped == b.dropped, (a, b)
+        dropped.append(a.dropped)
+        for name, buf, tree in (("p", packed._pbuf, leaf.state.params),
+                                ("m", packed._mbuf, leaf.state.momentum)):
+            got = packing.pack(packed.layout, tree)
+            assert torch.allclose(got, buf, rtol=TOL_SERVERS,
+                                  atol=TOL_SERVERS), (
+                f"replay step {packed.t}: per-leaf {name} off the packed "
+                f"server's by {(got - buf).abs().max().item()}")
+            worst = max(worst, (got - buf).abs().max().item())
+    assert dropped == [False, False, False, True, False, True, False, True]
+    print(json.dumps({"replay": "paper_hetero_severe full width, "
+                                "drop_stale_after=2",
+                      "arrivals": len(REPLAY), "dropped": dropped,
+                      "max_abs_diff_p_m": worst, "band": TOL_SERVERS}))
 
 
 def main() -> int:
@@ -714,6 +1022,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import compression
     from repro_torch.core.packing import build_layout
+    from repro_torch import kernels as all_kernels
     from repro_torch.kernels import _build
     from repro_torch.kernels import packed as pk
     from repro_torch.models import Model
@@ -733,17 +1042,28 @@ def main() -> int:
         print(log.strip())
     print(f"build phase: {time.perf_counter() - t0:.1f}s")
 
-    layout = build_layout(Model(get_config("tinygpt-15m")).param_specs())
+    specs = Model(get_config("tinygpt-15m")).param_specs()
+    assert len(specs) == N_LEAVES, len(specs)
+    layout = build_layout(specs)
     assert (layout.n_rows, layout.n_blocks) == (125_128, 43), layout.n_rows
-    rows = kernel_phase(torch, pk, compression, layout, torch.device("cuda"),
-                        bw, flops)
+    dev = torch.device("cuda")
+    rows = kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops)
     t0 = time.perf_counter()
-    totals = slice_phase(torch, pk)
+    totals = slice_phase(torch, all_kernels)
     print(f"slice phase: {time.perf_counter() - t0:.1f}s")
+    # outer_update_2d's path is the single-tensor entry point: launches per
+    # leaf of one outer step
+    totals["outer_update_2d"] = [
+        single_tensor_phase(torch, all_kernels, specs, dev), N_LEAVES]
+    t0 = time.perf_counter()
+    replay_phase(torch)
+    print(f"replay phase: {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for r in rows:
         launches, arrivals = totals[r["name"]]
+        assert launches > 0, f"{r['name']} was not launched on its path"
+        shape = {k: r[k] for k in ("R", "blocks", "n", "L") if k in r}
         print(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"],
                           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                           "bound_by": r["bound_by"], "bytes": r["bytes"],
@@ -751,13 +1071,15 @@ def main() -> int:
                           "library_ms": r["library_ms"],
                           "library_call": r["library_call"],
                           "launches_per_arrival": launches / arrivals,
-                          "R": r["R"], "blocks": r["blocks"]}))
+                          **shape}))
         pair = {k: r[k] for k in ("pair_ms", "library_pair_ms",
                                   "library_pair_call") if k in r}
-        extra = {k: r[k] for k in ("sequential_ms", "K") if k in r}
+        extra = {k: r[k] for k in ("sequential_ms", "K", "max_rel_err")
+                 if k in r}
+        source = "leaf" if r["name"] in LEAF_KERNELS else "packed"
         kernels.append({
             "name": r["name"], "route": "cuda",
-            "source": "src/repro_torch/csrc/packed.cu",
+            "source": f"src/repro_torch/csrc/{source}.cu",
             "replaces": REPLACES[r["name"]],
             "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -765,6 +1087,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "library_call": r["library_call"],
             "launches_per_arrival": launches / arrivals, **pair, **extra})
+    assert len(kernels) == len(REPLACES), [k["name"] for k in kernels]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,26 @@
 """The synchronizer (outer-optimizer server) for asynchronous
 low-communication training.
 
-Port of ``repro/async_engine/server.py:Synchronizer`` on its packed path,
-without telemetry. A pseudo-gradient arrives as a dict or, from the packed
-int8 round-trip, as a ``packing.Packed`` buffer, which the packed arrival
-path takes as it is. The outer state lives packed: params, momentum and,
-for buffered methods, the gradient accumulator are flattened once into
-fp32 (R, 128) buffers on the device, every arrival rewrites them in place
-with the packed kernels, and the dict view is unpacked only on demand
+Port of ``repro/async_engine/server.py:Synchronizer``, without telemetry.
+A pseudo-gradient arrives as a dict or, from the packed int8 round-trip,
+as a ``packing.Packed`` buffer, which the packed arrival path takes as it
+is. By default the outer state lives packed: params, momentum and, for
+buffered methods, the gradient accumulator are flattened once into fp32
+(R, 128) buffers on the device, every arrival rewrites them in place with
+the packed kernels, and the dict view is unpacked only on demand
 (``state``, ``worker_init``).
 
+``packed=False`` keeps the per-leaf path instead, the correctness
+reference: the state is an ``OuterState`` of dicts and each arrival goes
+through ``core/heloco.py:apply_arrival`` leaf by leaf; with
+``use_kernel=True`` HeLoCo's correction of each leaf runs through the
+per-leaf kernels (``kernels/ops.py``: two launches a leaf). Dropped stale
+arrivals take a momentum-decay-only step on either path.
+
 With ``commit_batch = K > 1`` arrivals can be parked in a commit buffer
-(``buffer_arrival``) and committed together (``flush``): a run of two or
-more applied arrivals goes through one K-stacked fused sweep
-(``apply_arrivals_packed``), everything else through ``on_arrival``.
+(``buffer_arrival``) and committed together (``flush``): on the packed path
+a run of two or more applied arrivals goes through one K-stacked fused
+sweep (``apply_arrivals_packed``), everything else through ``on_arrival``.
 """
 from __future__ import annotations
 
@@ -27,8 +34,9 @@ from repro_torch.configs.base import OuterOptConfig
 from repro_torch.core import methods as outer_methods
 from repro_torch.core import packing
 from repro_torch.core.heloco import (
-    apply_arrival_packed, apply_arrivals_packed, lookahead_packed,
-    momentum_decay_packed,
+    OuterState, apply_arrival, apply_arrival_packed, apply_arrivals_packed,
+    init_outer_state, lookahead_init, lookahead_packed, momentum_decay_packed,
+    momentum_decay_update,
 )
 
 Params = Dict[str, torch.Tensor]
@@ -50,15 +58,6 @@ class _Pending(NamedTuple):
     commit_key: object
 
 
-class OuterState(NamedTuple):
-    """Outer params + Nesterov momentum + outer step t (+ the method's
-    gradient accumulator, buffered methods only)."""
-    params: Params
-    momentum: Params
-    step: int
-    aux: Optional[Params] = None
-
-
 @dataclass
 class ArrivalRecord:
     outer_step: int
@@ -72,10 +71,20 @@ class ArrivalRecord:
 
 class Synchronizer:
     def __init__(self, init_params: Mapping[str, torch.Tensor],
-                 cfg: OuterOptConfig, n_workers: int, commit_batch: int = 1):
+                 cfg: OuterOptConfig, n_workers: int,
+                 stacked_axes: Optional[Mapping[str, int]] = None,
+                 use_kernel: bool = False, packed: bool = True,
+                 commit_batch: int = 1):
+        """stacked_axes: path -> leading layer axes of a stacked leaf (each
+        layer its own block); use_kernel: HeLoCo's per-leaf correction
+        through the kernels (per-leaf path only); packed: the packed fast
+        path (True) or the per-leaf path."""
         self.cfg = cfg
         self.method = outer_methods.resolve(cfg.method)
         self.n_workers = n_workers
+        self.stacked_axes = stacked_axes
+        self.use_kernel = use_kernel
+        self.packed = packed
         self.records: List[ArrivalRecord] = []
         # idempotent-commit ledger: commit_key -> record already produced,
         # so a replayed delivery can never step the outer state twice
@@ -91,20 +100,28 @@ class Synchronizer:
         self.flush_log: List[dict] = []
         self.flush_totals: dict = {"flushes": 0, "fused": 0,
                                    "sequential": 0, "depth_max": 0}
-        self.layout = packing.build_layout(init_params)
+        # the schedule hooks read only (phase + 1) % buffer_period
+        self._phase_period = self.method.buffer_period or 1
+        if not packed:
+            self.layout = None
+            self._state = init_outer_state(
+                init_params, with_aux=self.method.uses_buffer)
+            return
+        self.layout = packing.build_layout(init_params, stacked_axes)
         self._pbuf = packing.pack(self.layout, init_params)
         self._mbuf = packing.zeros(self.layout, self._pbuf.device)
         self._abuf = (packing.zeros(self.layout, self._pbuf.device)
                       if self.method.uses_buffer else None)
-        # the schedule hooks read only (phase + 1) % buffer_period
-        self._phase_period = self.method.buffer_period or 1
         self._step = 0
         self._state_cache: Optional[OuterState] = None
 
     # -- outer state view -----------------------------------------------------
     @property
     def state(self) -> OuterState:
-        """Dict view of the outer state (unpacked on demand, cached)."""
+        """Dict view of the outer state (on the packed path unpacked on
+        demand, cached)."""
+        if not self.packed:
+            return self._state
         if self._state_cache is None:
             self._state_cache = OuterState(
                 params=packing.unpack(self.layout, self._pbuf),
@@ -116,9 +133,23 @@ class Synchronizer:
                      if self._abuf is not None else None))
         return self._state_cache
 
+    @state.setter
+    def state(self, value: OuterState):
+        if not self.packed:
+            self._state = value
+            return
+        self._pbuf = packing.pack(self.layout, value.params)
+        self._mbuf = packing.pack(self.layout, value.momentum)
+        if self.method.uses_buffer:
+            self._abuf = (packing.pack(self.layout, value.aux)
+                          if value.aux is not None
+                          else packing.zeros(self.layout, self._pbuf.device))
+        self._step = int(value.step)
+        self._state_cache = None
+
     @property
     def t(self) -> int:
-        return self._step
+        return self._step if self.packed else self._state.step
 
     # -- worker initialization ------------------------------------------------
     def worker_init(self, wid: Optional[int] = None) -> Params:
@@ -126,6 +157,11 @@ class Synchronizer:
         look-ahead for methods that take part in it, else theta_t. ``wid``
         mirrors the reference signature; the hub hands every worker the
         same state."""
+        if not self.packed:
+            if self.cfg.lookahead_init and self.method.lookahead_init:
+                return lookahead_init(self._state, self.cfg.outer_lr,
+                                      self.cfg.momentum)
+            return dict(self._state.params)
         if self.cfg.lookahead_init and self.method.lookahead_init:
             return packing.unpack(self.layout, lookahead_packed(
                 self._pbuf, self._mbuf, self.cfg.outer_lr, self.cfg.momentum))
@@ -146,6 +182,17 @@ class Synchronizer:
 
     # -- outer-step drivers ---------------------------------------------------
     def _step_update(self, delta: Delta, rho: float, tau: float):
+        if not self.packed:
+            if isinstance(delta, packing.Packed):
+                raise TypeError("the per-leaf path takes a dict of leaves, "
+                                "not a packed buffer")
+            self._state = apply_arrival(
+                self._state, delta, method=self.method,
+                outer_lr=self.cfg.outer_lr, mu=self.cfg.momentum,
+                h=self.cfg.heloco, rho=rho, tau=tau,
+                stacked_axes=self.stacked_axes, use_kernel=self.use_kernel,
+                phase=self.t % self._phase_period)
+            return
         # The reference donates p/m(/b) to its jitted step; here the fused
         # sweep writes p', m' (and b') over p, m (and b). Each element is
         # read and written at the same index by the same thread, so the
@@ -178,6 +225,12 @@ class Synchronizer:
 
     def _step_decay(self, rho: float, tau: float):
         """Dropped arrival (App. A.6): momentum-decay-only outer step."""
+        if not self.packed:
+            self._state = momentum_decay_update(
+                self._state, self.cfg.outer_lr, self.cfg.momentum,
+                method=self.method, rho=rho, tau=tau,
+                phase=self.t % self._phase_period)
+            return
         out = momentum_decay_packed(
             self._pbuf, self._mbuf, self.cfg.outer_lr, self.cfg.momentum,
             method=self.method, rho=rho, tau=tau, abuf=self._abuf,
@@ -241,12 +294,13 @@ class Synchronizer:
 
     def flush(self, reason: str = "batch-full") -> List[ArrivalRecord]:
         """Commit every buffered arrival in buffering order and return their
-        records. A run of two or more consecutive applied arrivals of a
-        batchable method commits through one fused K-stacked sweep; a
-        dropped arrival (App. A.6), a run of one and a non-batchable method
-        go through the exact ``on_arrival``, so a batch of one equals the
-        unbatched server bit for bit. ``reason`` (batch-full | eval | close)
-        is recorded in ``flush_log``, nothing else reads it."""
+        records. On the packed path a run of two or more consecutive applied
+        arrivals of a batchable method commits through one fused K-stacked
+        sweep; a dropped arrival (App. A.6), a run of one, a non-batchable
+        method and the per-leaf path go through the exact ``on_arrival``, so
+        a batch of one equals the unbatched server bit for bit. ``reason``
+        (batch-full | eval | close) is recorded in ``flush_log``, nothing
+        else reads it."""
         pending, self._pending = self._pending, []
         self._pending_keys = set()
         if not pending:
@@ -259,11 +313,12 @@ class Synchronizer:
         drop_after = self.cfg.drop_stale_after
         drops = [drop_after is not None and (t0 + j) - a.s_i > drop_after
                  for j, a in enumerate(pending)]
+        batchable = self.packed and self.method.batchable
         recs: List[ArrivalRecord] = []
         i = 0
         while i < n:
             j = i
-            if self.method.batchable and not drops[i]:
+            if batchable and not drops[i]:
                 while j < n and not drops[j]:
                     j += 1
             if j - i < 2:

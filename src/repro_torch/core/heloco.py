@@ -1,17 +1,29 @@
-"""HeLoCo on the packed outer state: momentum-guided look-ahead (Eq. 5) and
-the per-block directional correction of stale pseudo-gradients fused with
-the Nesterov outer update (Alg. 1-2, Eqs. 7-19).
+"""HeLoCo: momentum-guided look-ahead worker initialization (Eq. 5) and the
+per-block directional correction of stale pseudo-gradients (Alg. 1-2,
+Eqs. 7-19).
 
-Port of the packed path of ``repro/core/heloco.py``. An arrival is at
-most one statistics sweep plus one fused correct+outer sweep over the
-packed (R, 128) buffers: two kernel launches at most, whatever the number
-of tensors, and one for every method but HeLoCo. A flush of K coalesced
-arrivals (``apply_arrivals_packed``) is at most two launches too: one Gram
-sweep (HeLoCo) and one K-chained fused sweep.
+Port of ``repro/core/heloco.py``. A "block" is a leaf tensor of the
+parameter dict, the paper's granularity; a leaf with stacked leading layer
+axes is one block per layer (``stacked_axes``: path -> number of layer
+axes). Two arrival implementations share the same math:
+
+  apply_arrival         per-leaf path over the parameter dict, the
+                        correctness reference; with ``use_kernel`` the
+                        correction of each leaf runs through the per-leaf
+                        kernels (``kernels/ops.py``), two launches a leaf
+  apply_arrival_packed  the fast path over the packed (R, 128) buffers: at
+                        most one statistics sweep plus one fused
+                        correct+outer sweep, two kernel launches at most,
+                        whatever the number of tensors, and one for every
+                        method but HeLoCo. A flush of K coalesced arrivals
+                        (``apply_arrivals_packed``) is at most two launches
+                        too: one Gram sweep (HeLoCo) and one K-chained fused
+                        sweep.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +31,213 @@ import torch
 from repro_torch.configs.base import HeLoCoConfig
 from repro_torch.core import methods as _methods
 from repro_torch.core import packing
+from repro_torch.kernels import ops
 from repro_torch.kernels import packed as pk
+
+Params = Dict[str, torch.Tensor]
+f32 = np.float32
+
+
+class OuterState(NamedTuple):
+    """Outer params + Nesterov momentum + outer step t (+ the method's
+    gradient accumulator, buffered methods only)."""
+    params: Params
+    momentum: Params
+    step: int
+    aux: Optional[Params] = None
+
+
+def init_outer_state(params: Mapping[str, torch.Tensor],
+                     with_aux: bool = False) -> OuterState:
+    def zeros():
+        return {k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in params.items()}
+    return OuterState(params=dict(params), momentum=zeros(), step=0,
+                      aux=zeros() if with_aux else None)
+
+
+# ---------------------------------------------------------------------------
+# Eq. 5: momentum-guided look-ahead worker initialization
+# ---------------------------------------------------------------------------
+
+def lookahead_init(state: OuterState, outer_lr: float, mu: float) -> Params:
+    """theta_bar = theta - eta * mu * m (HeLoCo + MLA worker init)."""
+    c = float(f32(outer_lr * mu))
+    return {k: (p.float() - c * state.momentum[k]).to(p.dtype)
+            for k, p in state.params.items()}
+
+
+# ---------------------------------------------------------------------------
+# Eqs. 7-16 / Alg. 2: per-block directional correction
+# ---------------------------------------------------------------------------
+
+def _correct_rows(u: torch.Tensor, v: torch.Tensor,
+                  h: HeLoCoConfig) -> torch.Tensor:
+    """Alg. 2 on each row of (L, n) fp32 blocks u against v."""
+    nu = torch.linalg.vector_norm(u, dim=1, keepdim=True)
+    nv = torch.linalg.vector_norm(v, dim=1, keepdim=True)
+    u_hat = u / torch.clamp_min(nu, h.eps)
+    v_hat = v / torch.clamp_min(nv, h.eps)
+    c = (u_hat * v_hat).sum(1, keepdim=True)                     # Eq. 8
+    conf = nu / (nu + h.kappa * nv + h.eps)                      # Eq. 15
+
+    # anti-aligned branch (Eqs. 10-11)
+    beta = torch.clamp_max(h.k_s * (-c) * conf, h.beta_max)
+    anti = u - beta * c * nu * v_hat
+
+    # weakly aligned branch (Eqs. 12-14)
+    lam = torch.clamp_max(h.k_d * (1.0 - c) * conf, 1.0)
+    u_tilde = (1.0 - lam) * u_hat + lam * v_hat
+    nt = torch.linalg.vector_norm(u_tilde, dim=1, keepdim=True)
+    weak = nu * u_tilde / torch.clamp_min(nt, h.eps)
+
+    corrected = torch.where(c >= h.c_ok, u, torch.where(c < 0.0, anti, weak))
+    degenerate = (nu < h.eps) | (nv < h.eps)
+    return torch.where(degenerate, u, corrected)
+
+
+def correct_block(delta: torch.Tensor, mom: torch.Tensor,
+                  h: HeLoCoConfig) -> torch.Tensor:
+    """Correct one tensor block against its momentum block: with the cosine
+    c of the two flattened blocks,
+      c >= c_ok          keep
+      c < 0              damp the anti-momentum component   (Eqs. 10-11)
+      0 <= c < c_ok      norm-preserving rotation toward v  (Eqs. 12-14)
+      a degenerate norm  pass through
+    """
+    out = _correct_rows(delta.float().reshape(1, -1),
+                        mom.float().reshape(1, -1), h)
+    return out.reshape(delta.shape).to(delta.dtype)
+
+
+def block_correct(delta: Mapping[str, torch.Tensor],
+                  momentum: Mapping[str, torch.Tensor], h: HeLoCoConfig,
+                  stacked_axes: Optional[Mapping[str, int]] = None,
+                  use_kernel: bool = False) -> Params:
+    """Alg. 2 over the whole pseudo-gradient dict.
+
+    stacked_axes: path -> number of leading layer axes of that leaf (absent:
+    none); each layer of a stacked leaf is its own block. use_kernel: correct
+    each leaf through the per-leaf kernels (``kernels/ops.py``), two
+    launches a leaf whatever its layer count."""
+    stacked_axes = stacked_axes or {}
+    out = {}
+    for k, d in delta.items():
+        nax = int(stacked_axes.get(k, 0))
+        if use_kernel:
+            out[k] = ops.heloco_correct_block(d, momentum[k], h,
+                                              stacked_axes=nax)
+            continue
+        blocks = math.prod(d.shape[:nax])
+        rows = _correct_rows(d.float().reshape(blocks, -1),
+                             momentum[k].float().reshape(blocks, -1), h)
+        out[k] = rows.reshape(d.shape).to(d.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Eqs. 17-19: per-leaf outer update (Nesterov / MLA / HeLoCo)
+# ---------------------------------------------------------------------------
+
+def outer_update(state: OuterState, g: Mapping[str, torch.Tensor],
+                 outer_lr: float, mu: float, rho: float = 1.0) -> OuterState:
+    """m' = mu m + (1-mu) rho G;  theta' = theta - eta (rho G + mu m').
+
+    Plain tensor math, as the reference leaves it to XLA outside any kernel,
+    in the reference's order: ``((1-mu)*rho)*G``, where the fused kernel
+    (``kernels/outer_update.py``) takes ``(1-mu)*(rho*G)``."""
+    mu_, eta = float(f32(mu)), float(f32(outer_lr))
+    w = float(f32(1.0 - mu) * f32(rho))
+    rho_ = float(f32(rho))
+    momentum, params = {}, {}
+    for k, p in state.params.items():
+        gf = g[k].float()
+        momentum[k] = mu_ * state.momentum[k] + w * gf
+        params[k] = (p.float() - eta * (rho_ * gf + mu_ * momentum[k])
+                     ).to(p.dtype)
+    return OuterState(params=params, momentum=momentum, step=state.step + 1,
+                      aux=state.aux)
+
+
+# ---------------------------------------------------------------------------
+# Method dispatch on the per-leaf path. Per-method behaviour lives in the
+# ``core.methods`` registry; the drivers below are method-agnostic.
+# ---------------------------------------------------------------------------
+
+def mla_correct(delta: Mapping[str, torch.Tensor],
+                momentum: Mapping[str, torch.Tensor], outer_lr: float,
+                mu: float, tau: float, tau_clip: float = 10.0) -> Params:
+    """Momentum Look-Ahead (Ajanthan et al. 2025): one uniform
+    staleness-proportional shift of the whole pseudo-gradient along the
+    momentum, Delta' = Delta + eta * mu * min(tau, clip)/clip * m."""
+    scale = float(_methods.tau_scaled(tau, tau_clip, outer_lr * mu))
+    return {k: (d.float() + scale * momentum[k]).to(d.dtype)
+            for k, d in delta.items()}
+
+
+def momentum_decay_update(state: OuterState, outer_lr: float, mu: float,
+                          method="heloco", rho: float = 1.0, tau: float = 0.0,
+                          phase: Optional[int] = None) -> OuterState:
+    """Outer step of a dropped stale arrival (App. A.6) on the per-leaf
+    state: the method applied to a zero pseudo-gradient, with no
+    correction and no zero dict made (one for a custom schedule)."""
+    m = _methods.resolve(method)
+    ctx = _methods.ArrivalCtx(outer_lr=outer_lr, mu=mu, rho=rho, tau=tau,
+                              phase=phase)
+    if m.custom_update:
+        return _methods.scheduled_decay_update(m, ctx, state)
+    c_m, c_p = _methods.decay_coeffs(m, ctx)
+    step = float(f32(outer_lr) * c_p)
+    return OuterState(
+        params={k: (p.float() - step * state.momentum[k]).to(p.dtype)
+                for k, p in state.params.items()},
+        momentum={k: float(c_m) * mm for k, mm in state.momentum.items()},
+        step=state.step + 1, aux=state.aux)
+
+
+def apply_arrival(state: OuterState, delta: Mapping[str, torch.Tensor], *,
+                  method, outer_lr: float, mu: float, h: HeLoCoConfig,
+                  rho: float = 1.0, tau: float = 0.0,
+                  stacked_axes: Optional[Mapping[str, int]] = None,
+                  use_kernel: bool = False,
+                  phase: Optional[int] = None) -> OuterState:
+    """Process one arriving pseudo-gradient through the chosen method on the
+    per-leaf state (for a sync method ``delta`` is the workers' average).
+    ``phase``: the outer-step index at arrival, read only by buffered
+    schedules."""
+    m = _methods.resolve(method)
+    ctx = _methods.ArrivalCtx(outer_lr=outer_lr, mu=mu, h=h, rho=rho,
+                              tau=tau, phase=phase, stacked_axes=stacked_axes,
+                              use_kernel=use_kernel)
+    g = m.correct(m, ctx, delta, state.momentum)
+    if m.custom_update:
+        return _methods.scheduled_outer_update(m, ctx, state, g)
+    return outer_update(state, g, outer_lr, mu, rho=rho)
+
+
+def apply_arrivals(state: OuterState, deltas, *, method, outer_lr: float,
+                   mu: float, h: HeLoCoConfig, rhos=None, taus=None,
+                   phases=None,
+                   stacked_axes: Optional[Mapping[str, int]] = None,
+                   use_kernel: bool = False) -> OuterState:
+    """Per-leaf reference of a batched flush: K sequential ``apply_arrival``
+    steps with per-delta rho, tau and phase, the semantics
+    ``apply_arrivals_packed`` reproduces."""
+    k = len(deltas)
+    rhos = [1.0] * k if rhos is None else list(rhos)
+    taus = [0.0] * k if taus is None else list(taus)
+    phases = [None] * k if phases is None else list(phases)
+    for delta, rho, tau, phase in zip(deltas, rhos, taus, phases):
+        state = apply_arrival(state, delta, method=method, outer_lr=outer_lr,
+                              mu=mu, h=h, rho=rho, tau=tau, phase=phase,
+                              stacked_axes=stacked_axes,
+                              use_kernel=use_kernel)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Packed fast path: the same math on one flat buffer, O(1) kernel launches
+# ---------------------------------------------------------------------------
 
 
 def lookahead_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,

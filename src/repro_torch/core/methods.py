@@ -1,9 +1,12 @@
 """The pluggable outer-method layer: one registry the server, the engines
 and the scenarios read.
 
-Port of ``repro/core/methods.py`` on its packed path. An
-:class:`OuterMethod` holds every per-method behaviour the server reads:
+Port of ``repro/core/methods.py``. An :class:`OuterMethod` holds every
+per-method behaviour the server reads:
 
+  * ``correct``: the per-leaf correction of a pseudo-gradient dict against
+    the momentum dict, the math the paper states (the per-leaf path,
+    ``core/heloco.py:apply_arrival``);
   * ``packed_coeffs``: the per-block triple ``(cu, cv, cq)`` with
     ``g = cu*Delta + cv*m + cq*Delta^2*m`` (``cq`` None when a method has no
     quadratic term), so ``kernels/packed.py`` never branches on names;
@@ -27,8 +30,9 @@ Generalized update (one fused packed sweep, see ``kernels/packed.py``):
     b'   = ab*acc
     p'   = p - eta*(cg*G + ca*acc + cm*m')
 
-The reference's per-leaf ``correct`` hooks (its correctness path and the
-dist outer exchange) wait for the port's per-leaf path, ROADMAP A16.
+On the per-leaf path a custom schedule runs the same update leaf by leaf
+(``scheduled_outer_update``), with the accumulator dict in
+``OuterState.aux``.
 
 Scalars: the reference computes every host-side scalar of these hooks in
 jitted fp32, where a Python constant becomes fp32 before it meets an fp32
@@ -41,7 +45,7 @@ rounds each op, as its kernels do, which can move those scalars by 1 ulp.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +66,9 @@ class ArrivalCtx:
     tau: float = 0.0                 # staleness
     phase: Optional[int] = None      # outer-step index at arrival (None =
     # step 0); only buffered schedules read it
+    stacked_axes: Optional[Mapping[str, int]] = None   # per-leaf path:
+    # leading layer axes of each stacked leaf
+    use_kernel: bool = False         # per-leaf path: HeLoCo through kernels
     layout: Any = None               # packing.BlockLayout (packed path)
 
 
@@ -69,10 +76,10 @@ def _phase(ctx: ArrivalCtx) -> int:
     return 0 if ctx.phase is None else int(ctx.phase)
 
 
-def _tau_scaled(ctx: ArrivalCtx, clip: float, c) -> np.float32:
+def tau_scaled(tau: float, clip: float, c) -> np.float32:
     """``c * min(tau, clip) / clip`` as the reference's jitted fp32 computes
     it: XLA folds ``c / clip`` into one constant."""
-    return f32(min(f32(ctx.tau), f32(clip))) * (f32(c) / f32(clip))
+    return f32(min(f32(tau), f32(clip))) * (f32(c) / f32(clip))
 
 
 @dataclass(frozen=True)
@@ -98,6 +105,7 @@ class OuterMethod:
     batchable: bool = True           # False: the server's commit buffer
     # commits every arrival of this method on its own
     # -- hooks --------------------------------------------------------------
+    correct: Callable = None         # (m, ctx, delta, momentum) -> g dict
     packed_coeffs: Callable = None   # (m, ctx, dbuf, mbuf) -> (cu, cv, cq)
     packed_multi_coeffs: Callable = None   # (m, ctxs, dstack, mbuf) ->
     # (cu, cv, cq) as (K, B) tables; None: packed_coeffs per delta
@@ -107,8 +115,9 @@ class OuterMethod:
     def __post_init__(self):
         if self.weight_factor not in ("base", "average", "one"):
             raise ValueError(self.weight_factor)
-        if self.packed_coeffs is None:
-            raise ValueError(f"method {self.name!r} needs a packed_coeffs hook")
+        if self.correct is None or self.packed_coeffs is None:
+            raise ValueError(f"method {self.name!r} needs correct and "
+                             "packed_coeffs hooks")
         if self.decay_scale is None:
             object.__setattr__(self, "decay_scale", _zero_decay)
 
@@ -231,6 +240,40 @@ def decay_coeffs(m: OuterMethod, ctx: ArrivalCtx):
     return c_m, c_p
 
 
+def scheduled_outer_update(m: OuterMethod, ctx: ArrivalCtx, state, g):
+    """Per-leaf generalized outer step (see the module docstring) for
+    methods whose schedule is not plain Nesterov (``custom_update``), leaf
+    by leaf with the accumulator dict in ``state.aux``."""
+    from repro_torch.core.heloco import OuterState
+    rho = f32(ctx.rho)
+    am, bm, ab, cg, cm, ca = (f32(c) for c in schedule_coeffs(m, ctx))
+    # the fp32 scalars as Python floats; the reference's ``cg * rho * g``
+    # multiplies the two scalars first
+    eta, rho, am, bm, ab, cg_rho, cm, ca = (float(c) for c in (
+        f32(ctx.outer_lr), rho, am, bm, ab, cg * rho, cm, ca))
+    params, momentum, aux = {}, {}, {}
+    for k, p in state.params.items():
+        gf = g[k].float()
+        b = (state.aux[k] if state.aux is not None
+             else torch.zeros_like(state.momentum[k]))
+        acc = b + rho * gf
+        momentum[k] = am * state.momentum[k] + bm * acc
+        params[k] = (p.float() - eta * (cg_rho * gf + ca * acc
+                                        + cm * momentum[k])).to(p.dtype)
+        aux[k] = ab * acc
+    return OuterState(params=params, momentum=momentum, step=state.step + 1,
+                      aux=aux if m.uses_buffer else None)
+
+
+def scheduled_decay_update(m: OuterMethod, ctx: ArrivalCtx, state):
+    """Per-leaf dropped-arrival step for ``custom_update`` methods: the
+    generalized update applied to the collapsed gradient G = s*m
+    (``decay_scale``), one dict made."""
+    s = float(f32(m.decay_scale(m, ctx)))
+    return scheduled_outer_update(
+        m, ctx, state, {k: s * mm for k, mm in state.momentum.items()})
+
+
 def scheduled_decay_packed(m: OuterMethod, ctx: ArrivalCtx, pbuf, mbuf,
                            abuf=None):
     """Packed dropped-arrival step for ``custom_update`` methods: the
@@ -260,6 +303,11 @@ def _zero_decay(m, ctx):
     return 0.0
 
 
+def _identity_correct(m, ctx, delta, momentum):
+    """Nesterov family: the pseudo-gradient is applied as it is."""
+    return delta
+
+
 def _full(ctx, dbuf, value) -> torch.Tensor:
     """A (B,) fp32 vector of one scalar on the buffers' device."""
     return torch.full((ctx.layout.n_blocks,), float(f32(value)),
@@ -271,6 +319,13 @@ def _plain_packed_coeffs(m, ctx, dbuf, mbuf):
 
 
 # -- HeLoCo (paper Alg. 2) ---------------------------------------------------
+
+def _heloco_correct(m, ctx, delta, momentum):
+    from repro_torch.core.heloco import block_correct
+    return block_correct(delta, momentum, ctx.h,
+                         stacked_axes=ctx.stacked_axes,
+                         use_kernel=ctx.use_kernel)
+
 
 def _heloco_packed_coeffs(m, ctx, dbuf, mbuf):
     stats = pk.packed_stats(dbuf, mbuf, ctx.layout)
@@ -310,7 +365,13 @@ def _heloco_multi_coeffs(m, ctxs, dstack, mbuf):
 # -- MLA (momentum look-ahead; Ajanthan et al. 2025) -------------------------
 
 def _mla_scale(m, ctx):
-    return _tau_scaled(ctx, m.tau_clip, ctx.outer_lr * ctx.mu)
+    return tau_scaled(ctx.tau, m.tau_clip, ctx.outer_lr * ctx.mu)
+
+
+def _mla_correct(m, ctx, delta, momentum):
+    from repro_torch.core.heloco import mla_correct
+    return mla_correct(delta, momentum, ctx.outer_lr, ctx.mu, ctx.tau,
+                       tau_clip=m.tau_clip)
 
 
 def _mla_packed_coeffs(m, ctx, dbuf, mbuf):
@@ -365,21 +426,44 @@ def _fedbuff_outer_coeffs(m, ctx):
 
 # -- polynomial staleness weighting (Xie et al. 2019 style) ------------------
 
-def _poly_packed_coeffs(m, ctx, dbuf, mbuf):
+def _poly_weight(m, ctx) -> np.float32:
+    return (f32(1.0) + f32(ctx.tau)) ** f32(-m.stale_alpha)
+
+
+def _poly_correct(m, ctx, delta, momentum):
     """Damp the whole pseudo-gradient by (1 + tau)^-alpha (tau = 0 is plain
     Nesterov)."""
-    w = (f32(1.0) + f32(ctx.tau)) ** f32(-m.stale_alpha)
-    return _full(ctx, dbuf, w), _full(ctx, dbuf, 0.0), None
+    w = float(_poly_weight(m, ctx))
+    return {k: (w * d.float()).to(d.dtype) for k, d in delta.items()}
+
+
+def _poly_packed_coeffs(m, ctx, dbuf, mbuf):
+    return (_full(ctx, dbuf, _poly_weight(m, ctx)), _full(ctx, dbuf, 0.0),
+            None)
 
 
 # -- DC-ASGD-style delay compensation (Zheng et al. 2017) --------------------
 
-def _dcasgd_packed_coeffs(m, ctx, dbuf, mbuf):
+def _dcasgd_coef(m, ctx) -> np.float32:
+    return tau_scaled(ctx.tau, m.tau_clip, -(m.dc_lambda * ctx.outer_lr))
+
+
+def _dcasgd_correct(m, ctx, delta, momentum):
     """Taylor-style compensation of a stale pseudo-gradient along the
     momentum: g~ = Delta - lambda * eta * tau_norm * (Delta (.) Delta (.) m),
-    the quadratic term of the fused sweep."""
-    coef = _tau_scaled(ctx, m.tau_clip, -(m.dc_lambda * ctx.outer_lr))
-    return _full(ctx, dbuf, 1.0), _full(ctx, dbuf, 0.0), _full(ctx, dbuf, coef)
+    summed as the reference writes it, Delta + ((coef*Delta)*Delta)*m."""
+    coef = float(_dcasgd_coef(m, ctx))
+    out = {}
+    for k, d in delta.items():
+        df = d.float()
+        out[k] = (df + coef * df * df * momentum[k].float()).to(d.dtype)
+    return out
+
+
+def _dcasgd_packed_coeffs(m, ctx, dbuf, mbuf):
+    """The same compensation as the quadratic term of the fused sweep."""
+    return (_full(ctx, dbuf, 1.0), _full(ctx, dbuf, 0.0),
+            _full(ctx, dbuf, _dcasgd_coef(m, ctx)))
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +476,8 @@ register(OuterMethod(
                 "pseudo-gradients + momentum-guided look-ahead (paper "
                 "Alg. 1-2).",
     outer_lr=0.7, momentum=0.9, weight_factor="base", lookahead_init=True,
-    aliases=("async-heloco",), packed_coeffs=_heloco_packed_coeffs,
+    aliases=("async-heloco",), correct=_heloco_correct,
+    packed_coeffs=_heloco_packed_coeffs,
     packed_multi_coeffs=_heloco_multi_coeffs))
 
 register(OuterMethod(
@@ -400,7 +485,7 @@ register(OuterMethod(
     description="Momentum Look-Ahead: uniform staleness-proportional "
                 "extrapolation along the momentum (Ajanthan et al. 2025).",
     outer_lr=0.7, momentum=0.9, weight_factor="base", lookahead_init=True,
-    aliases=("async-mla",), tau_clip=10.0,
+    aliases=("async-mla",), tau_clip=10.0, correct=_mla_correct,
     packed_coeffs=_mla_packed_coeffs, decay_scale=_mla_decay_scale))
 
 register(OuterMethod(
@@ -409,7 +494,7 @@ register(OuterMethod(
                 "DiLoCo baseline; needs the reduced Table-3 outer LR).",
     outer_lr=0.07, momentum=0.9, weight_factor="base", lookahead_init=False,
     aliases=("async-nesterov",), outer_lr_cap=0.07,
-    packed_coeffs=_plain_packed_coeffs))
+    correct=_identity_correct, packed_coeffs=_plain_packed_coeffs))
 
 register(OuterMethod(
     name="sync_nesterov",
@@ -417,7 +502,7 @@ register(OuterMethod(
                 "slowest worker gates every round.",
     outer_lr=0.7, momentum=0.9, weight_factor="average",
     lookahead_init=False, aliases=("sync-nesterov",), sync=True,
-    packed_coeffs=_plain_packed_coeffs))
+    correct=_identity_correct, packed_coeffs=_plain_packed_coeffs))
 
 register(OuterMethod(
     name="delayed_nesterov",
@@ -425,7 +510,8 @@ register(OuterMethod(
                 "pseudo-gradients, momentum step every N arrivals.",
     outer_lr=0.7, momentum=0.9, weight_factor="base", lookahead_init=False,
     aliases=("async-delayed-nesterov", "dn"), buffer_period=4,
-    packed_coeffs=_plain_packed_coeffs, outer_coeffs=_dn_outer_coeffs))
+    correct=_identity_correct, packed_coeffs=_plain_packed_coeffs,
+    outer_coeffs=_dn_outer_coeffs))
 
 register(OuterMethod(
     name="fedbuff",
@@ -434,7 +520,8 @@ register(OuterMethod(
                 "one outer Nesterov step (Nguyen et al. 2022).",
     outer_lr=0.7, momentum=0.9, weight_factor="one", lookahead_init=False,
     aliases=("async-fedbuff",), buffer_period=4,
-    packed_coeffs=_plain_packed_coeffs, outer_coeffs=_fedbuff_outer_coeffs))
+    correct=_identity_correct, packed_coeffs=_plain_packed_coeffs,
+    outer_coeffs=_fedbuff_outer_coeffs))
 
 register(OuterMethod(
     name="poly_stale",
@@ -443,7 +530,7 @@ register(OuterMethod(
                 "(staleness-aware async SGD baseline).",
     outer_lr=0.07, momentum=0.9, weight_factor="base", lookahead_init=False,
     aliases=("async-poly-stale",), outer_lr_cap=0.07, stale_alpha=0.5,
-    packed_coeffs=_poly_packed_coeffs))
+    correct=_poly_correct, packed_coeffs=_poly_packed_coeffs))
 
 register(OuterMethod(
     name="dcasgd",
@@ -451,4 +538,5 @@ register(OuterMethod(
                 "pseudo-gradients, scaled by staleness tau.",
     outer_lr=0.07, momentum=0.9, weight_factor="base", lookahead_init=False,
     aliases=("async-dcasgd",), outer_lr_cap=0.07, tau_clip=10.0,
-    dc_lambda=1.0, packed_coeffs=_dcasgd_packed_coeffs))
+    dc_lambda=1.0, correct=_dcasgd_correct,
+    packed_coeffs=_dcasgd_packed_coeffs))

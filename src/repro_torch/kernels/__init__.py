@@ -1,1 +1,23 @@
+"""The port's kernels: the packed sweeps (``packed``), the per-leaf
+correction (``heloco_correct``) and outer update (``outer_update``), and
+their per-leaf entry points (``ops``). Every kernel wrapper counts its
+launches; ``launch_counts`` reads them all."""
+from __future__ import annotations
 
+from typing import Dict
+
+
+def wrappers():
+    """Every kernel wrapper of the port, in one tuple."""
+    from repro_torch.kernels import heloco_correct, outer_update, packed
+    return (packed.KERNEL_WRAPPERS + heloco_correct.KERNEL_WRAPPERS
+            + outer_update.KERNEL_WRAPPERS)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {fn.__name__: fn.launches for fn in wrappers()}
+
+
+def reset_launch_counts():
+    for fn in wrappers():
+        fn.launches = 0

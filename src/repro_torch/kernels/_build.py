@@ -2,26 +2,30 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``build/kernels/lib<name>-<hash>.so`` at the checkout's root, then
-loaded with ``ctypes``. The hash covers the source and the flags, so an
-edited source builds anew and an unchanged one is reused. Nothing builds
-when a module is imported: the first launch on a CUDA tensor builds, and
-``build_all`` builds every source at once (one ``nvcc`` each, all started
-together).
+loaded with ``ctypes``; ``bind`` also declares its entry points' argument
+types, and ``launch`` calls one on the current stream. The hash covers the
+source and the flags, so an edited source builds anew and an unchanged one
+is reused. Nothing builds when a module is imported: the first launch on a
+CUDA tensor builds, and ``build_all`` builds every source at once (one
+``nvcc`` each, all started together).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Mapping, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("packed",)
+SOURCES = ("packed", "leaf")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -87,3 +91,38 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def bind(name: str, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """``load(name)`` with the argument types of the named entry points
+    declared; every entry point returns an int, ``cudaGetLastError()``."""
+    lib = load(name)
+    for fn, args in signatures.items():
+        getattr(lib, fn).argtypes = list(args)
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SM count of CUDA device ``index``, read once: it sizes each grid."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_cuda(*tensors: torch.Tensor):
+    """Tensors a kernel reads element by element: on the card, contiguous."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"CUDA kernel given a {t.device} tensor")
+        if not t.is_contiguous():
+            raise ValueError("CUDA kernel needs contiguous tensors")
+
+
+def launch(name: str, fn, device, *args):
+    """Call the C launcher ``fn`` with ``args``, the device's SM count and
+    its current stream; raise if the launch failed."""
+    with torch.cuda.device(device):
+        err = fn(*args, sm_count(device.index),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -37,20 +37,21 @@ Port of the ``repro/kernels/packed.py`` sweeps an arrival runs:
 Each wrapper launches the CUDA kernel of ``csrc/packed.cu`` for a CUDA
 tensor and raises if it cannot; it runs the plain PyTorch version beside it
 (``*_ref``) only for a tensor on the CPU. Each wrapper counts its kernel
-launches in ``<wrapper>.launches``. ``branch_scalars`` is O(#blocks) tensor
+launches in ``<wrapper>.launches`` (``kernels.launch_counts`` reads them). ``branch_scalars`` is O(#blocks) tensor
 math and has no kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import HeLoCoConfig
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import launch as _launch
 from repro_torch.kernels.tiling import LANES
 
 N_MOMENTS = 4
@@ -84,17 +85,7 @@ MAX_GRAM_K = 8
 
 @functools.cache
 def _lib():
-    lib = _build.load("packed")
-    for fn, args in _SIGNATURES.items():
-        getattr(lib, fn).argtypes = args
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    """SM count of CUDA device ``index``, read once: it sizes each grid."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    return _build.bind("packed", _SIGNATURES)
 
 
 def _f32(x) -> float:
@@ -116,30 +107,13 @@ def _check_buffers(*bufs: torch.Tensor):
 
 
 def _check_cuda(*tensors: torch.Tensor):
+    _build.check_cuda(*tensors)
     for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"CUDA kernel given a {t.device} tensor")
-        if not t.is_contiguous():
-            raise ValueError("CUDA kernel needs contiguous tensors")
         # (R, 128) buffers are read 16 bytes at a time, the rest by element
         align = 16 if t.shape[-1:] == (LANES,) else t.element_size()
         if t.data_ptr() % align:
             raise ValueError(f"CUDA kernel needs {align}-byte aligned "
                              "buffers")
-
-
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
-def _launch(name: str, fn, device, *args):
-    """Call the C launcher ``fn`` on ``device``'s current stream; raise if
-    the launch failed."""
-    with torch.cuda.device(device):
-        err = fn(*args, _sm_count(device.index),
-                 torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(err, name)
 
 
 # ---------------------------------------------------------------------------
@@ -807,12 +781,3 @@ KERNEL_WRAPPERS = (packed_row_stats, packed_correct_outer,
                    packed_rowabs, packed_quant, packed_dequant,
                    packed_multi_correct_outer, packed_multi_correct_outer_quad,
                    packed_multi_correct_outer_acc, packed_multi_gram)
-
-
-def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts():
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0

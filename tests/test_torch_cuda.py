@@ -14,14 +14,19 @@ int8 sweeps bit for bit (a max is exact in any order; quantize is one IEEE
 division and round half to even, dequantize one product);
 per-row and per-block sums, which the kernel adds in a shuffle tree, each
 within 1e-5 of its own scale: sqrt(uu*vv) for a dot product, the value
-itself for a sum of squares.
+itself for a sum of squares. The per-leaf kernels (csrc/leaf.cu) are held
+the same way: correct_apply and outer_update bit for bit, block_stats
+within 1e-5 of its own scale.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.base import HeLoCoConfig
+from repro_torch import kernels
 from repro_torch.core import compression, packing
+from repro_torch.kernels import heloco_correct as hk
+from repro_torch.kernels import outer_update as ok
 from repro_torch.kernels import packed as pk
 
 H = HeLoCoConfig()
@@ -376,12 +381,13 @@ LAUNCHES = {
 def test_smoke_scenario_on_the_card_matches_golden(cuda, name):
     from repro_torch.scenarios import registry, run
     scn = registry.get_scenario(name)
-    pk.reset_launch_counts()
+    kernels.reset_launch_counts()
     eng, hist = run.run(scn, "cuda")
     assert run.compare(scn, hist) == []
     applied = sum(not a["dropped"] for a in hist.arrivals)
-    want = {k: LAUNCHES[name].get(k, 0) * applied for k in pk.launch_counts()}
-    assert pk.launch_counts() == want
+    want = {k: LAUNCHES[name].get(k, 0) * applied
+            for k in kernels.launch_counts()}
+    assert kernels.launch_counts() == want
     assert eng.server._pbuf.device.type == "cuda"
     assert all(np.isfinite(e["mean"]) for e in hist.evals)
 
@@ -400,24 +406,114 @@ def test_batched_scenario_on_the_card_matches_golden(cuda, name):
     step = eng.server._step_update_multi
 
     def fused(deltas, rhos, taus):
-        before = pk.launch_counts()
+        before = kernels.launch_counts()
         step(deltas, rhos, taus)
-        after = pk.launch_counts()
+        after = kernels.launch_counts()
         assert {k: after[k] - before[k] for k in after
                 if after[k] != before[k]} == {"packed_multi_gram": 1,
                                               "packed_multi_correct_outer": 1}
         runs.append(len(deltas))
 
     eng.server._step_update_multi = fused
-    pk.reset_launch_counts()
+    kernels.reset_launch_counts()
     hist = eng.run(eval_every=scn.eval_cadence,
                    eval_fn=make_eval_fn(eng, batch=scn.eval_batch))
     assert run.compare(scn, hist) == []
     alone = len(hist.arrivals) - sum(runs)
     assert runs and min(runs) >= 2
-    want = {k: 0 for k in pk.launch_counts()}
+    want = {k: 0 for k in kernels.launch_counts()}
     want.update(packed_row_stats=alone, packed_correct_outer=alone,
                 packed_multi_gram=len(runs),
                 packed_multi_correct_outer=len(runs))
-    assert pk.launch_counts() == want
+    assert kernels.launch_counts() == want
     assert eng.server._pbuf.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The per-leaf kernels (csrc/leaf.cu)
+# ---------------------------------------------------------------------------
+
+# (L, n): one block and stacked ones, n odd and around the 4 x 256 elements
+# a thread group covers per step and the 4096 of a statistics chunk, up to
+# tinygpt-15m's embedding leaf (50257 x 256)
+LEAF_SHAPES = [(1, 7), (1, 1023), (1, 1025), (4, 4097), (3, 128_003),
+               (1, 12_865_792)]
+
+
+def _leaf_tensors(shape, dev, n, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LEAF_SHAPES)
+def test_block_stats_matches_plain(cuda, shape):
+    u, v = _leaf_tensors(shape, cuda, 2)
+    n0 = hk.block_stats.launches
+    got = hk.block_stats(u, v)
+    again = hk.block_stats(u, v)
+    torch.cuda.synchronize()
+    assert hk.block_stats.launches == n0 + 2
+    assert got.shape == (shape[0], 3) and torch.equal(got, again)
+    _close_sums(got, hk.block_stats_ref(u, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LEAF_SHAPES)
+def test_correct_apply_bit_identical_to_plain(cuda, shape):
+    u, v = _leaf_tensors(shape, cuda, 2, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cu = torch.rand(shape[0], generator=gen, device=cuda) + 0.5
+    cv = torch.rand(shape[0], generator=gen, device=cuda) - 0.5
+    n0 = hk.correct_apply.launches
+    got = hk.correct_apply(u, v, cu, cv)
+    torch.cuda.synchronize()
+    assert hk.correct_apply.launches == n0 + 1
+    assert torch.equal(got, hk.correct_apply_ref(u, v, cu, cv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LEAF_SHAPES)
+def test_outer_update_bit_identical_to_plain(cuda, shape):
+    p, m, g = _leaf_tensors(shape, cuda, 3, seed=3)
+    n0 = ok.outer_update_2d.launches
+    got = ok.outer_update_2d(p, m, g, 0.7, 0.9, 0.447)
+    torch.cuda.synchronize()
+    assert ok.outer_update_2d.launches == n0 + 1
+    want = ok.outer_update_2d_ref(p, m, g, 0.7, 0.9, 0.447)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_per_leaf_heloco_arrival_launches_two_kernels_a_leaf(cuda):
+    """One arrival on a per-leaf kernel server launches block_stats and
+    correct_apply once per leaf, stacked or not, and no other kernel; its
+    state stays on the card and within 3e-5 of the packed server's."""
+    from repro_torch.async_engine.server import Synchronizer
+    from repro_torch.configs.base import OuterOptConfig
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    shapes = {"emb": (40, 30), "layers/w": (3, 4, 5), "layers/b": (3, 5),
+              "norm": (129,)}
+    init = {k: torch.randn(s, generator=gen, device=cuda)
+            for k, s in shapes.items()}
+    stacked = {"layers/w": 1, "layers/b": 1}
+    leaf = Synchronizer(init, OuterOptConfig(), 4, stacked_axes=stacked,
+                        use_kernel=True, packed=False)
+    packed = Synchronizer(init, OuterOptConfig(), 4, stacked_axes=stacked)
+    for step in range(3):
+        delta = {k: 0.01 * torch.randn(s, generator=gen, device=cuda)
+                 for k, s in shapes.items()}
+        kernels.reset_launch_counts()
+        leaf.on_arrival(delta, step, 0)
+        counts = kernels.launch_counts()
+        packed.on_arrival(delta, step, 0)
+        want = {k: 0 for k in counts}
+        want.update(block_stats=len(shapes), correct_apply=len(shapes))
+        assert counts == want
+    got, ref = leaf.state, packed.state
+    for k in shapes:
+        assert got.params[k].device.type == "cuda"
+        torch.testing.assert_close(got.params[k], ref.params[k], rtol=3e-5,
+                                   atol=3e-5)
+        torch.testing.assert_close(got.momentum[k], ref.momentum[k],
+                                   rtol=3e-5, atol=3e-5)

@@ -288,6 +288,17 @@ def test_port_server_refuses_what_it_does_not_run():
     sync = Synchronizer(init, OuterOptConfig(), n_workers=2, commit_batch=4)
     assert (sync.commit_batch, sync.pending) == (4, 0)
     assert sync.flush() == [] and sync.flush_totals["flushes"] == 0
+    # the per-leaf path and stacked layer axes since A16
+    # (tests/test_torch_leaf.py)
+    stacked = {"layers/w": 1, "layers/b": 1}
+    leaf = Synchronizer(init, OuterOptConfig(), n_workers=2,
+                        stacked_axes=stacked, use_kernel=True, packed=False)
+    assert (leaf.packed, leaf.use_kernel, leaf.stacked_axes) == (
+        False, True, stacked)
+    assert leaf.layout is None and leaf.t == 0
+    packed = Synchronizer(init, OuterOptConfig(), n_workers=2,
+                          stacked_axes=stacked)
+    assert packed.packed and packed.layout.n_blocks == len(init) + 4
     # the reference's telemetry switch waits for A10
     with pytest.raises(TypeError, match="telemetry"):
         Synchronizer(init, OuterOptConfig(), n_workers=2, telemetry=True)

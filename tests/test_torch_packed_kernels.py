@@ -30,7 +30,8 @@ from repro.kernels import packed as jpk
 from repro_torch import bridge
 from repro_torch.configs.base import HeLoCoConfig
 from repro_torch.core import packing
-from repro_torch.kernels import _build
+from repro_torch import kernels
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import packed as pk
 
 H = HeLoCoConfig()
@@ -188,13 +189,15 @@ def test_cpu_path_builds_nothing(monkeypatch):
         raise AssertionError("a CPU tensor must not build or load a kernel")
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(_build, "build_all", no_build)
-    before = dict(pk.launch_counts())
+    before = kernels.launch_counts()
     layout, u, v = _case()
     ub, vb = _bufs(layout, u, v)
     cu, cv = pk.branch_scalars(pk.packed_stats(ub, vb, layout), H)
     pk.packed_correct_outer(ub, vb, ub, cu, cv, layout.device_tables("cpu")[0],
                             0.7, 0.9, 1.0, with_stats=True)
-    assert pk.launch_counts() == before
+    ops.heloco_correct_block(ub, vb, H, stacked_axes=1)
+    ops.outer_update_block(ub, vb, ub, 0.7, 0.9, 1.0)
+    assert kernels.launch_counts() == before
     assert not _build._LIBS and "triton" not in sys.modules
 
 
