@@ -61,11 +61,32 @@ Phases, in order; any failure exits non-zero:
      staleness up to 3 with ``drop_stale_after=2``, fed to a packed server
      and a per-leaf kernel server: the same arrivals dropped, p and m within
      3e-5 after every arrival;
-  6. print the card's name and power limit, the kernel summary line, and
+  6. the per-tensor int8 entry points: ``kernels.ops.quantize_block`` and
+     ``dequantize_block`` over the 43 leaves of a full-width state, one
+     absmax, quantize_2d and dequantize_2d launch a leaf, each leaf bit for
+     bit against ``kernels/ref.py``'s ``ref_quantize``/``ref_dequantize``
+     (the three kernels themselves are held to their plain versions in the
+     kernel phase, on the largest leaf: a block on exact .5 ties, an
+     all-zero tensor, a clipped element, a NaN, an odd and an unaligned
+     length; flash_attention_fwd there too, bf16 within 2e-2 and fp32
+     within 2e-5 of its plain version at the serve shape (BH 32, S 1024,
+     D 32), at (BH 16, S 4096, D 128) and on a rectangular 128 x 384, causal
+     and not, timed beside ``scaled_dot_product_attention``);
+  7. serving: full-width tinygpt-15m in its compute dtype (bf16), prefill
+     of 4 prompts of 128 tokens and 24 greedy tokens over the KV cache,
+     then one prefill at 1024 (each timed 5 times, medians, and behind a
+     hold for the device's share): each prefill launches
+     flash_attention_fwd once per layer (4) and nothing else, decode
+     launches no kernel, logits are finite; fed the kernel path's greedy
+     tokens, the plain path (the flash kernel's plain version, on the card)
+     gives logits within 2e-2 of their largest |value| at every step, and
+     each greedy token is its argmax or tied with it within one bf16 step;
+  8. print the card's name and power limit, the kernel summary line, and
      the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device, or without the rest of the repository, it exits
-non-zero before printing any result.
+non-zero before printing any result: run alone, in a directory that holds
+no ``src/repro_torch``, it prints why to stderr and exits 3.
 """
 from __future__ import annotations
 
@@ -81,10 +102,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Datasheet peaks (NVIDIA H100 data sheet; dense, no sparsity): memory
-# bytes/s and fp32 (non-tensor-core) flop/s, by product name fragment.
-PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "": (3.35e12, 67e12)}
+# bytes/s, fp32 (non-tensor-core) flop/s and bf16 tensor-core flop/s, by
+# product name fragment.
+PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
+         "": (3.35e12, 67e12, 989e12)}
 
 ITERS = 30
+# time_ms's hold before each timed run: ~0.5 ms at the H100's ~2 GHz clock;
+# ~25 ms for a whole prefill or decode step, whose dispatch takes milliseconds
+HOLD_CYCLES = 1_000_000
+SERVE_HOLD_CYCLES = 50_000_000
 # the batched commit path's flush depth in the kernel phase
 K_MULTI = 4
 # the reference's per-arrival band between the per-leaf and packed servers
@@ -142,8 +169,31 @@ REPLACES = {
     "block_stats": "src/repro/kernels/heloco_correct.py:38",
     "correct_apply": "src/repro/kernels/heloco_correct.py:63",
     "outer_update_2d": "src/repro/kernels/outer_update.py:32",
+    "absmax": "src/repro/kernels/quantize.py:19",
+    "quantize_2d": "src/repro/kernels/quantize.py:45",
+    "dequantize_2d": "src/repro/kernels/quantize.py:63",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention.py:71",
 }
-LEAF_KERNELS = ("block_stats", "correct_apply", "outer_update_2d")
+SOURCE = {**dict.fromkeys(("block_stats", "correct_apply", "outer_update_2d"),
+                          "leaf"),
+          **dict.fromkeys(("absmax", "quantize_2d", "dequantize_2d"),
+                          "quantize"),
+          "flash_attention_fwd": "flash_attention"}
+INT8_KERNELS = ("absmax", "quantize_2d", "dequantize_2d")
+# the reference's flash tolerances (tests/test_kernels.py:125-160), and the
+# prefill logits of the kernel path against the plain path's, as a share of
+# their largest |value| (bf16 compute; tests/test_torch_serve.py's bound)
+TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL_LOGITS = 2e-2
+# flash_attention_fwd's cases: (BH, Sq, Skv, D), the serve shape first
+# (batch 4 x 8 heads, prompt 1024, tinygpt's head dim), the serve phase's
+# other prefill (prompt 128), and the rectangular one of the reference's
+# tests with q_chunk 32
+FLASH_SHAPES = ((32, 1024, 1024, 32), (32, 128, 128, 32),
+                (16, 4096, 4096, 128), (2, 128, 384, 64))
+# the serve phase: batch x prompt, greedy tokens, then one long prefill;
+# each timed as the median of ``repeats`` runs
+SERVE = dict(batch=4, prompt=128, gen=24, long_prompt=1024, repeats=5)
 # tinygpt-15m's 43 leaves: the per-leaf HeLoCo arrival launches the two
 # correction kernels once per leaf
 N_LEAVES = 43
@@ -169,9 +219,15 @@ def peaks_for(name: str):
     raise AssertionError("unreachable")
 
 
-def time_ms(fn, iters=ITERS, warmup=3):
-    """Median milliseconds of ``fn`` over ``iters`` runs, each bracketed by
-    its own CUDA events (the buffers exceed the 50 MB L2, so runs start cold)."""
+def time_ms(fn, iters=ITERS, warmup=3, hold=None):
+    """Median device milliseconds of ``fn`` over ``iters`` runs, each
+    bracketed by its own CUDA events (the buffers exceed the 50 MB L2, so
+    runs start cold). Before each run the stream is held busy for about
+    0.5 ms (``torch.cuda._sleep``), longer than the host takes to dispatch
+    a call of a few launches, so the events time the device's work and
+    not the host's dispatch gaps; a call whose dispatch outlasts the hold
+    (a loop of many launches) is timed with its host gaps, unless ``hold``
+    (cycles) outlasts it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -179,6 +235,7 @@ def time_ms(fn, iters=ITERS, warmup=3):
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold or HOLD_CYCLES)
         a.record()
         fn()
         b.record()
@@ -236,7 +293,8 @@ def check_update(name, torch, fn, state, want, stats_want):
     return check_sums(f"{name} stats", with_stats[-1], stats_want)
 
 
-def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops):
+def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
+                 bf16_flops):
     from repro_torch.configs.base import HeLoCoConfig
     R, B = layout.n_rows, layout.n_blocks
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -322,12 +380,16 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops):
     print("int8 sweeps agree: rowabs, quant and dequant bit-identical to "
           "their plain versions (ties to even, zero block, clip)")
 
-    def bound(nbytes, nflops):
-        t_b, t_f = nbytes / bw, nflops / flops
+    def bound(nbytes, nflops, peak=None):
+        """Bytes over the memory rate against operations over the peak
+        (fp32 FMA unless ``peak`` names another, the bf16 tensor cores')."""
+        t_b, t_f = nbytes / bw, nflops / (peak or flops)
         return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
     multi_rows = multi_phase(torch, pk, layout, dev, p, m, b, bound)
     leaf_rows = leaf_phase(torch, specs, dev, bound)
+    int8_rows = int8_kernel_phase(torch, specs, dev, bound)
+    flash_rows = flash_phase(torch, dev, bound, bf16_flops)
 
     n = R * 128
     plane, table_bytes = n * f4, R * 4
@@ -420,7 +482,7 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops):
         "branch_scalars_ms": time_ms(lambda: pk.branch_scalars(
             blocks, HeLoCoConfig())),
     }))
-    return rows + multi_rows + leaf_rows
+    return rows + multi_rows + leaf_rows + int8_rows + flash_rows
 
 
 def check_gram(name, got, want, k):
@@ -1013,11 +1075,375 @@ def replay_phase(torch):
                       "max_abs_diff_p_m": worst, "band": TOL_SERVERS}))
 
 
+def int8_kernel_phase(torch, specs, dev, bound):
+    """The per-tensor int8 kernels of ``csrc/quantize.cu`` on the largest
+    leaf (the tied embedding) held to their plain versions bit for bit: a
+    block on exact .5 ties (max|x| 63.5, so the scale is 0.5), an all-zero
+    tensor (the 1e-12 scale floor), a clipped case (quantize_2d given an
+    absmax of 2, a third of the elements beyond it), a NaN element, an odd length and an unaligned
+    view (the kernels' element-by-element tail and body); then timed, with
+    the library yardsticks. Returns their rows."""
+    from repro_torch.kernels import quantize as qk
+    n = max(t.numel() for t in specs.values())
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = 2.0 * torch.randn(n, generator=gen, device=dev)
+    x[:128] = (torch.arange(-64, 64, device=dev, dtype=torch.float32)
+               + 0.5) * 0.5
+    x[0] = 63.5
+
+    def same(a, b):
+        """Equal dtype, shape and values, NaN where the other has NaN."""
+        nan = a.isnan() & b.isnan()
+        return a.dtype == b.dtype and a.shape == b.shape and bool(
+            ((a == b) | nan).all())
+
+    def check(label, t, amax=None):
+        got = qk.absmax(t)
+        q, s = qk.quantize_2d(t, amax if amax is not None else got)
+        back = qk.dequantize_2d(q, s)
+        torch.cuda.synchronize()
+        want_q, want_s = qk.quantize_2d_ref(t, amax)
+        for name, a, b in (("absmax", got, qk.absmax_ref(t)),
+                           ("quantize_2d q", q, want_q),
+                           ("quantize_2d scale", s, want_s),
+                           ("dequantize_2d", back,
+                            qk.dequantize_2d_ref(want_q, want_s))):
+            assert same(a, b), (f"{name} ({label}) differs from the plain "
+                                f"version in {(a != b).sum().item()} entries")
+        return q, s
+
+    q, s = check("embedding, a tie block", x)
+    assert s.item() == 0.5 and q[1:5].tolist() == [-62, -62, -60, -60], \
+        "quantize_2d does not round half to even"
+    q0, s0 = check("all zero", torch.zeros(n, device=dev))
+    assert not q0.any() and s0.item() == (
+        torch.tensor(1e-12) / torch.tensor(127.0)).item(), s0
+    qc, _ = check("clipped", x, amax=torch.full((1,), 2.0, device=dev))
+    assert (qc.abs() == 127).sum().item() > 1000, "nothing clipped"
+    xn = x.clone()
+    xn[n // 2] = float("nan")
+    qn, sn = check("a NaN", xn)
+    assert sn.isnan().all() and not qn.any()
+    check("odd length", x[:n - 3])
+    check("unaligned view", x[1:])
+    print(f"int8 kernels agree on {n} elements: absmax, quantize_2d and "
+          "dequantize_2d bit-identical to their plain versions (ties to "
+          "even, zero tensor, clip, NaN, odd length, unaligned)")
+
+    amax = qk.absmax(x)
+    q, s = qk.quantize_2d(x, amax)
+    s0d = s.reshape(())
+    lib_deq = torch.mul(q, s0d)
+    assert same(lib_deq, qk.dequantize_2d_ref(q, s)), \
+        "the dequantize yardstick computes another function"
+    pair = {"pair_ms": time_ms(lambda: qk.dequantize_2d(
+                *qk.quantize_2d(x, amax))),
+            "library_pair_ms": time_ms(
+                lambda: torch.fake_quantize_per_tensor_affine(
+                    x, s0d, torch.zeros((), dtype=torch.int32, device=dev),
+                    -127, 127)),
+            "library_pair_call": "torch.fake_quantize_per_tensor_affine"}
+    f4 = 4
+    rows = []
+    for name, fn, plain, lib, call, nbytes, nflops in (
+            ("absmax", lambda: qk.absmax(x), lambda: qk.absmax_ref(x),
+             lambda: torch.linalg.vector_norm(x, float("inf")),
+             "torch.linalg.vector_norm(x, inf)", n * f4 + f4, 2 * n),
+            ("quantize_2d", lambda: qk.quantize_2d(x, amax),
+             lambda: qk.quantize_2d_ref(x, amax), None, None,
+             n * f4 + n + 2 * f4, 4 * n),
+            ("dequantize_2d", lambda: qk.dequantize_2d(q, s),
+             lambda: qk.dequantize_2d_ref(q, s), lambda: torch.mul(q, s0d),
+             "torch.mul(q, s): the same bits", n + n * f4 + f4, n)):
+        b_ms, by = bound(nbytes, nflops)
+        rows.append({"name": name, "ms": time_ms(fn),
+                     "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                     "bound_by": by, "max_abs_err": 0.0,
+                     "library_ms": time_ms(lib) if lib else None,
+                     "library_call": call, "bytes": nbytes, "flops": nflops,
+                     "n": n, **(pair if name != "absmax" else {})})
+    return rows
+
+
+def flash_flops(sq, skv, d, causal):
+    """Operations of the two products over the scores the mask keeps
+    (kv_idx <= q_idx on absolute indices): 2 * D each way per score."""
+    kept = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    return 4 * d * kept
+
+
+def flash_phase(torch, dev, bound, bf16_peak):
+    """flash_attention_fwd of ``csrc/flash_attention.cu`` against its plain
+    version, bf16 (tensor cores) within 2e-2 and fp32 (FMA) within 2e-5, at
+    FLASH_SHAPES, causal and not; then timed beside
+    ``scaled_dot_product_attention`` at each shape. Returns the serve
+    shape's bf16 causal row, the main path's, with the others under
+    ``cases``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases, errs = [], {}
+    for bh, sq, skv, d in FLASH_SHAPES:
+        base = [torch.randn((bh, s, d), generator=gen, device=dev)
+                for s in (sq, skv, skv)]
+        chunk = 32 if sq != skv else 128
+        for dtype in ("bfloat16", "float32"):
+            q, k, v = (t.to(getattr(torch, dtype)) for t in base)
+            for causal in (True, False):
+                got = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                             q_chunk=chunk)
+                want = fa.flash_attention_fwd_ref(q, k, v, causal)
+                torch.cuda.synchronize()
+                assert got.dtype == q.dtype and got.shape == q.shape
+                err = (got.float() - want.float()).abs().max().item()
+                tol = TOL_FLASH[dtype]
+                assert torch.allclose(got.float(), want.float(), rtol=tol,
+                                      atol=tol), (
+                    f"flash_attention_fwd {dtype} causal={causal} "
+                    f"({bh}, {sq}, {skv}, {d}) off its plain version by {err}")
+                errs[dtype] = max(errs.get(dtype, 0.0), err)
+                # the library call over (1, BH, S, D); is_causal keeps the
+                # top-left triangle, kv_idx <= q_idx on absolute indices
+                def sdpa(q=q, k=k, v=v, causal=causal):
+                    return F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], is_causal=causal)
+                lib_err = (sdpa()[0].float() - want.float()).abs().max()
+                assert lib_err.item() <= 2 * tol, \
+                    "the SDPA yardstick computes another function"
+                el = q.element_size()
+                nbytes = el * bh * d * (2 * sq + 2 * skv)
+                nflops = bh * flash_flops(sq, skv, d, causal)
+                peak = bf16_peak if dtype == "bfloat16" else None
+                b_ms, by = bound(nbytes, nflops, peak)
+                cases.append({
+                    "name": "flash_attention_fwd", "dtype": dtype,
+                    "causal": causal, "BH": bh, "Sq": sq, "Skv": skv, "D": d,
+                    "ms": time_ms(lambda: fa.flash_attention_fwd(
+                        q, k, v, causal=causal, q_chunk=chunk), iters=10),
+                    "plain_ms": time_ms(lambda: fa.flash_attention_fwd_ref(
+                        q, k, v, causal), iters=10),
+                    "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
+                    "library_ms": time_ms(sdpa, iters=10),
+                    "library_call": "torch.nn.functional."
+                                    "scaled_dot_product_attention",
+                    "bytes": nbytes, "flops": nflops})
+                print(json.dumps({"kernel": "flash_attention_fwd",
+                                  **{k: v for k, v in cases[-1].items()
+                                     if k != "name"}}))
+        del base, q, k, v, got, want
+    print(f"flash_attention_fwd agrees with its plain version: bf16 err "
+          f"{errs['bfloat16']:.3e} (tol {TOL_FLASH['bfloat16']}), fp32 err "
+          f"{errs['float32']:.3e} (tol {TOL_FLASH['float32']}), "
+          f"{len(cases)} cases")
+    main_row = dict(cases[0])
+    assert (main_row["dtype"], main_row["causal"]) == ("bfloat16", True)
+    main_row["max_abs_err"] = max(errs.values())
+    main_row["cases"] = [{k: c[k] for k in ("dtype", "causal", "BH", "Sq",
+                                             "Skv", "D", "ms", "plain_ms",
+                                             "bound_ms", "library_ms",
+                                             "max_abs_err")} for c in cases]
+    return [main_row]
+
+
+def int8_path_phase(torch, kernels, specs, dev):
+    """The per-tensor int8 entry points: ``ops.quantize_block`` and
+    ``ops.dequantize_block`` on each leaf of a full-width state, with the
+    counts set to 0 just before and read just after; each leaf bit for bit
+    against ``kernels/ref.py``. Returns the launches per kernel."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    state = {k: torch.randn(t.shape, generator=gen, device=dev)
+             for k, t in specs.items()}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = {}
+    for k, x in state.items():
+        q, s, n = ops.quantize_block(x)
+        out[k] = (q, s, n, ops.dequantize_block(q, s, tuple(x.shape)))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(dict.fromkeys(INT8_KERNELS, len(specs)))
+    assert counts == want, f"int8 path launched {counts}"
+    for k, x in state.items():
+        q, s, n, back = out[k]
+        rq, rs = ref.ref_quantize(x)
+        assert torch.equal(q, rq.reshape(-1)) and torch.equal(s, rs) and \
+            n.item() == x.numel(), k
+        assert torch.equal(back, ref.ref_dequantize(rq, rs)), k
+    print(f"int8 path: quantize_block + dequantize_block over {len(specs)} "
+          f"leaves, {counts['absmax']} absmax, {counts['quantize_2d']} "
+          f"quantize_2d and {counts['dequantize_2d']} dequantize_2d launches, "
+          "each leaf bit-identical to kernels/ref.py")
+    return {k: counts[k] for k in INT8_KERNELS}
+
+
+def serve_phase(torch, kernels, dev):
+    """Full-width tinygpt-15m in its compute dtype: prefill of
+    SERVE["batch"] prompts of SERVE["prompt"] tokens, SERVE["gen"] greedy
+    tokens, then one prefill at SERVE["long_prompt"]; each with the counts
+    set to 0 just before and read just after. Each prefill launches
+    flash_attention_fwd once per layer and nothing else, decode nothing;
+    logits finite. Then both paths, the kernel path and the plain path
+    (the flash kernel's plain version), are fed the kernel path's greedy
+    tokens: at the prefill and at every decode step their logits agree
+    within TOL_LOGITS of their largest |value|, and each greedy token is
+    the plain path's, or tied with it (within one step of the compute
+    dtype at the top logit: random bf16 logits tie, and a tie may break
+    either way). Each run is timed SERVE["repeats"] times (medians).
+    Returns flash_attention_fwd's launches and the prefills they served."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_lib
+    cfg = get_config("tinygpt-15m")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    prompts = {s: torch.randint(0, cfg.vocab_size, (SERVE["batch"], s),
+                                generator=torch.Generator().manual_seed(s)
+                                ).to(dev)
+               for s in (SERVE["prompt"], SERVE["long_prompt"])}
+
+    def plain_flash(q, k, v, *, causal=True, q_chunk=128, kv_chunk=128):
+        return fa.flash_attention_fwd_ref(q, k, v, causal)
+
+    def run(prompt, gen, plain=False):
+        """One prefill and ``gen`` greedy tokens through the launcher's
+        steps, the launches of each read apart; ``plain``: prefill
+        attention through the flash kernel's plain version."""
+        kernel = attn_lib.flash_attention_fwd
+        if plain:
+            attn_lib.flash_attention_fwd = plain_flash
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            logits, caches, t_prefill = serve.prefill(model, params, prompt,
+                                                      gen)
+            at_prefill = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            tokens, t_decode = serve.decode(model, params, logits, caches,
+                                            prompt.shape[1], gen)
+            at_decode = kernels.launch_counts()
+        finally:
+            attn_lib.flash_attention_fwd = kernel
+        return {"logits": logits, "tokens": tokens, "at_prefill": at_prefill,
+                "at_decode": at_decode, "prefill_ms": 1e3 * t_prefill,
+                "decode_ms": 1e3 * t_decode}
+
+    def teacher_forced(prompt, tokens, plain):
+        """The logits of the prefill and of each decode step fed
+        ``tokens`` (the kernel path's greedy choices), on the kernel path
+        or the plain one."""
+        kernel = attn_lib.flash_attention_fwd
+        if plain:
+            attn_lib.flash_attention_fwd = plain_flash
+        try:
+            s, gen = prompt.shape[1], tokens.shape[1]
+            logits, caches = model.prefill(params, prompt, s + gen)
+            out = [logits]
+            for i in range(gen - 1):
+                logits, caches = model.decode(params, tokens[:, i], caches,
+                                              s + i)
+                out.append(logits)
+        finally:
+            attn_lib.flash_attention_fwd = kernel
+        return out
+
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    one_prefill = {**none, "flash_attention_fwd": cfg.n_layers}
+    launches = prefills = 0
+    for s in prompts:                                # CUDA/cuBLAS warm-up
+        run(prompts[s], 2)
+        run(prompts[s], 2, plain=True)
+    for s, gen in ((SERVE["prompt"], SERVE["gen"]),
+                   (SERVE["long_prompt"], 1)):
+        runs = [run(prompts[s], gen) for _ in range(SERVE["repeats"])]
+        got = runs[0]
+        for r in runs:
+            assert r["at_prefill"] == one_prefill, \
+                f"prefill {s} launched {r['at_prefill']}"
+            assert r["at_decode"] == none, f"decode launched {r['at_decode']}"
+            assert torch.equal(r["tokens"], got["tokens"]), \
+                f"prompt {s}: greedy tokens not repeatable"
+            launches += r["at_prefill"]["flash_attention_fwd"]
+            prefills += 1
+        logits = got["logits"]
+        assert logits.dtype == getattr(torch, cfg.compute_dtype) and \
+            torch.isfinite(logits).all(), f"prefill {s}: logits not finite"
+        plains = [run(prompts[s], gen, plain=True)
+                  for _ in range(SERVE["repeats"])]
+        plain = plains[0]
+        for r in plains:
+            assert r["at_prefill"] == none == r["at_decode"], r
+        # both paths fed the kernel path's greedy tokens, step by step
+        forced, forced_plain = (teacher_forced(prompts[s], got["tokens"], p)
+                                for p in (False, True))
+        errs, ties = [], 0
+        for i, (lk, lp) in enumerate(zip(forced, forced_plain)):
+            tok = got["tokens"][:, i]
+            assert torch.isfinite(lk).all() and torch.equal(
+                lk.argmax(-1), tok), f"step {i}: kernel path not repeatable"
+            lk, lp = lk.float(), lp.float()
+            err = (lk - lp).abs().max().item()
+            scale = lp.abs().max().item()
+            assert err <= TOL_LOGITS * scale, (
+                f"prompt {s} step {i}: kernel path's logits off the plain "
+                f"path's by {err} (scale {scale})")
+            top = lp.max(-1).values
+            step = torch.finfo(logits.dtype).eps * torch.exp2(
+                torch.floor(torch.log2(top.abs())))
+            chosen = lp.gather(1, tok[:, None])[:, 0]
+            assert (chosen >= top - step).all(), (
+                f"prompt {s} step {i}: the kernel path's greedy tokens "
+                f"{tok.tolist()} are not the plain path's "
+                f"{lp.argmax(-1).tolist()}, nor tied with them")
+            ties += int((lp.argmax(-1) != tok).sum())
+            errs.append(err)
+        def med(rs, key):
+            return statistics.median(r[key] for r in rs)
+
+        # the device's share: the same prefill and one decode step timed
+        # behind a hold that outlasts their dispatch (device time, no gaps)
+        caches = model.prefill(params, prompts[s], s + gen)[1]
+        device = {
+            "prefill": time_ms(lambda: model.prefill(params, prompts[s],
+                                                     s + gen),
+                               iters=5, warmup=1, hold=SERVE_HOLD_CYCLES),
+            "decode_step": time_ms(lambda: model.decode(
+                params, got["tokens"][:, 0], caches, s), iters=5, warmup=1,
+                hold=SERVE_HOLD_CYCLES)}
+
+        row = {"prompt": s, "batch": SERVE["batch"], "gen": gen,
+               "repeats": SERVE["repeats"],
+               "prefill_ms": med(runs, "prefill_ms"),
+               "plain_prefill_ms": med(plains, "prefill_ms"),
+               "decode_ms_per_token": (med(runs, "decode_ms") / (gen - 1)
+                                       if gen > 1 else None),
+               "plain_decode_ms_per_token": (
+                   med(plains, "decode_ms") / (gen - 1) if gen > 1 else None),
+               "device_prefill_ms": device["prefill"],
+               "device_decode_step_ms": device["decode_step"],
+               "logits_max_abs_diff": max(errs), "band": TOL_LOGITS,
+               "greedy_tokens": got["tokens"].numel(),
+               "greedy_ties_taken_otherwise": ties,
+               "free_running_tokens_equal": torch.equal(got["tokens"],
+                                                        plain["tokens"]),
+               "tokens": got["tokens"][:2].tolist()}
+        print(json.dumps({"serve": f"tinygpt-15m full width, "
+                                   f"{cfg.compute_dtype}", **row}))
+    return launches, prefills
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT} holds no src/repro_torch: run the script "
+              "from a checkout of the repository", file=sys.stderr)
+        return 3
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.core import compression
@@ -1030,7 +1456,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    bw, flops = peaks_for(name)
+    bw, flops, bf16_flops = peaks_for(name)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -1047,7 +1473,8 @@ def main() -> int:
     layout = build_layout(specs)
     assert (layout.n_rows, layout.n_blocks) == (125_128, 43), layout.n_rows
     dev = torch.device("cuda")
-    rows = kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops)
+    rows = kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
+                        bf16_flops)
     t0 = time.perf_counter()
     totals = slice_phase(torch, all_kernels)
     print(f"slice phase: {time.perf_counter() - t0:.1f}s")
@@ -1058,12 +1485,22 @@ def main() -> int:
     t0 = time.perf_counter()
     replay_phase(torch)
     print(f"replay phase: {time.perf_counter() - t0:.1f}s")
+    # the int8 kernels' path is the per-tensor entry points: launches per
+    # leaf of one quantize + dequantize pass
+    for k, launches in int8_path_phase(torch, all_kernels, specs,
+                                       dev).items():
+        totals[k] = [launches, N_LEAVES]
+    t0 = time.perf_counter()
+    # flash_attention_fwd's path is serving: launches per prefill
+    totals["flash_attention_fwd"] = list(serve_phase(torch, all_kernels, dev))
+    print(f"serve phase: {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for r in rows:
         launches, arrivals = totals[r["name"]]
         assert launches > 0, f"{r['name']} was not launched on its path"
-        shape = {k: r[k] for k in ("R", "blocks", "n", "L") if k in r}
+        shape = {k: r[k] for k in ("R", "blocks", "n", "L", "BH", "Sq",
+                                   "Skv", "D", "dtype") if k in r}
         print(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"],
                           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                           "bound_by": r["bound_by"], "bytes": r["bytes"],
@@ -1074,9 +1511,10 @@ def main() -> int:
                           **shape}))
         pair = {k: r[k] for k in ("pair_ms", "library_pair_ms",
                                   "library_pair_call") if k in r}
-        extra = {k: r[k] for k in ("sequential_ms", "K", "max_rel_err")
-                 if k in r}
-        source = "leaf" if r["name"] in LEAF_KERNELS else "packed"
+        extra = {k: r[k] for k in ("sequential_ms", "K", "max_rel_err",
+                                   "dtype", "causal", "BH", "Sq", "D",
+                                   "cases") if k in r}
+        source = SOURCE.get(r["name"], "packed")
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}.cu",

@@ -119,15 +119,17 @@ def block_correct(delta: Mapping[str, torch.Tensor],
     stacked_axes: path -> number of leading layer axes of that leaf (absent:
     none); each layer of a stacked leaf is its own block. use_kernel: correct
     each leaf through the per-leaf kernels (``kernels/ops.py``), two
-    launches a leaf whatever its layer count."""
+    launches a leaf whatever its layer count, with the branch scalars of
+    all blocks in one ``branch_scalars`` call."""
     stacked_axes = stacked_axes or {}
+    if use_kernel:
+        keys = list(delta)
+        return dict(zip(keys, ops.heloco_correct_leaves(
+            [delta[k] for k in keys], [momentum[k] for k in keys], h,
+            [int(stacked_axes.get(k, 0)) for k in keys])))
     out = {}
     for k, d in delta.items():
         nax = int(stacked_axes.get(k, 0))
-        if use_kernel:
-            out[k] = ops.heloco_correct_block(d, momentum[k], h,
-                                              stacked_axes=nax)
-            continue
         blocks = math.prod(d.shape[:nax])
         rows = _correct_rows(d.float().reshape(blocks, -1),
                              momentum[k].float().reshape(blocks, -1), h)

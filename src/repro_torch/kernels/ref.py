@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.configs.base import HeLoCoConfig
 from repro_torch.core.heloco import correct_block
+from repro_torch.kernels.quantize import QMAX, SCALE_FLOOR
 
 
 def ref_heloco_correct(delta: torch.Tensor, mom: torch.Tensor,
@@ -26,3 +27,18 @@ def ref_outer_update(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
     m_new = float(f(mu)) * m.float() + float(f(1.0 - mu)) * gf
     p_new = p.float() - float(f(eta)) * (gf + float(f(mu)) * m_new)
     return p_new.to(p.dtype), m_new
+
+
+def ref_quantize(x: torch.Tensor):
+    """Per-tensor int8: (q int8 of x's shape, scale 0-d fp32), scale =
+    max(max|x|, 1e-12) / 127 and q = clip(round(x / scale), -127, 127),
+    with IEEE divisions; a NaN quotient gives 0."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(), SCALE_FLOOR) / torch.tensor(
+        float(QMAX), device=x.device)
+    q = torch.clamp(torch.round(xf / scale), -QMAX, QMAX)
+    return torch.nan_to_num(q, nan=0.0).to(torch.int8), scale
+
+
+def ref_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale

@@ -16,7 +16,13 @@ per-row and per-block sums, which the kernel adds in a shuffle tree, each
 within 1e-5 of its own scale: sqrt(uu*vv) for a dot product, the value
 itself for a sum of squares. The per-leaf kernels (csrc/leaf.cu) are held
 the same way: correct_apply and outer_update bit for bit, block_stats
-within 1e-5 of its own scale.
+within 1e-5 of its own scale. The per-tensor int8 kernels (csrc/quantize.cu)
+bit for bit (a max is exact in any order; one IEEE division and a round
+half to even, one product back). flash_attention_fwd
+(csrc/flash_attention.cu) within the reference's own bands of its plain
+version: 2e-5 in fp32, 2e-2 in bf16 (tests/test_kernels.py:125-160); a
+full-width prefill's logits within 2e-2 of their largest |value| of the
+plain path's (tests/test_torch_serve.py's bf16 bound).
 """
 import numpy as np
 import pytest
@@ -27,7 +33,9 @@ from repro_torch import kernels
 from repro_torch.core import compression, packing
 from repro_torch.kernels import heloco_correct as hk
 from repro_torch.kernels import outer_update as ok
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import packed as pk
+from repro_torch.kernels import quantize as qk
 
 H = HeLoCoConfig()
 
@@ -517,3 +525,127 @@ def test_per_leaf_heloco_arrival_launches_two_kernels_a_leaf(cuda):
                                    atol=3e-5)
         torch.testing.assert_close(got.momentum[k], ref.momentum[k],
                                    rtol=3e-5, atol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# per-tensor int8 (csrc/quantize.cu)
+# ---------------------------------------------------------------------------
+
+def _int8_input(case, n, dev):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = 3.0 * torch.randn(n + 1, generator=gen, device=dev)
+    if case == "ties":
+        k = min(n, 128)
+        x[:k] = (torch.arange(k, device=dev, dtype=torch.float32) - 64 + 0.5) \
+            * 0.5
+        x[0] = 63.5
+    elif case == "zero":
+        x.zero_()
+    elif case == "nan":
+        x[n // 2] = float("nan")
+    # "unaligned": a view one element in, so the kernels take no vector body
+    return x[1:] if case == "unaligned" else x[:n]
+
+
+def _same(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "ties", "zero", "nan",
+                                  "unaligned"])
+@pytest.mark.parametrize("n", [1, 7, 4096, 4099, 1_000_003])
+def test_int8_kernels_bit_identical_to_plain(cuda, n, case):
+    x = _int8_input(case, n, cuda)
+    n0 = (qk.absmax.launches, qk.quantize_2d.launches,
+          qk.dequantize_2d.launches)
+    amax = qk.absmax(x)
+    q, s = qk.quantize_2d(x, amax)
+    back = qk.dequantize_2d(q, s)
+    clipped = qk.quantize_2d(x, torch.full((1,), 1.0, device=cuda))
+    torch.cuda.synchronize()
+    assert (qk.absmax.launches, qk.quantize_2d.launches,
+            qk.dequantize_2d.launches) == (n0[0] + 1, n0[1] + 2, n0[2] + 1)
+    assert _same(amax, qk.absmax_ref(x))
+    want_q, want_s = qk.quantize_2d_ref(x)
+    assert _same(q, want_q) and _same(s, want_s)
+    assert _same(back, qk.dequantize_2d_ref(want_q, want_s))
+    for a, b in zip(clipped, qk.quantize_2d_ref(
+            x, torch.full((1,), 1.0, device=cuda))):
+        assert _same(a, b)
+    if case == "ties" and n >= 128:
+        assert s.item() == 0.5 and q[1:5].tolist() == [-62, -62, -60, -60]
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_fwd (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("shape", [(3, 256, 256), (2, 200, 200),
+                                   (2, 128, 384)],
+                         ids=["square", "ragged", "rectangular"])
+def test_flash_attention_matches_plain(cuda, shape, d, dtype, causal):
+    bh, sq, skv = shape
+    gen = torch.Generator(device=cuda).manual_seed(d + sq)
+    q = torch.randn((bh, sq, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((bh, skv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    chunk = sq if sq == 200 else 32
+    n0 = fa.flash_attention_fwd.launches
+    got = fa.flash_attention_fwd(q, k, v, causal=causal, q_chunk=chunk,
+                                 kv_chunk=chunk if sq == skv else 128)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), fa.flash_attention_fwd_ref(
+        q, k, v, causal).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_run(cuda):
+    q = torch.zeros((2, 64, 16), device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, q, q)
+    h = torch.zeros((2, 64, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(h, h, h)
+
+
+@pytest.mark.cuda
+def test_full_width_prefill_launches_flash_once_per_layer(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_lib
+    cfg = get_config("tinygpt-15m")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 128),
+                            generator=torch.Generator().manual_seed(1)).to(cuda)
+    kernels.reset_launch_counts()
+    logits, caches = model.prefill(params, prompts, 130)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    assert counts == {**want, "flash_attention_fwd": cfg.n_layers}
+    assert torch.isfinite(logits).all() and logits.dtype == torch.bfloat16
+    kernels.reset_launch_counts()
+    step, _ = model.decode(params, logits.argmax(-1), caches, 128)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == want and torch.isfinite(step).all()
+    kernel = attn_lib.flash_attention_fwd
+    attn_lib.flash_attention_fwd = (
+        lambda q, k, v, *, causal=True, q_chunk=128, kv_chunk=128:
+        fa.flash_attention_fwd_ref(q, k, v, causal))
+    try:
+        plain, _ = model.prefill(params, prompts, 130)
+    finally:
+        attn_lib.flash_attention_fwd = kernel
+    err = (logits.float() - plain.float()).abs().max().item()
+    assert err <= 2e-2 * plain.float().abs().max().item(), err
