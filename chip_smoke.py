@@ -5,7 +5,11 @@
 
 Phases, in order; any failure exits non-zero:
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
-     parallel) and print the build seconds and the compiler's report;
+     parallel) and print the build seconds and the compiler's report; for
+     the flash kernels, each one's registers, shared memory and spills
+     from ``-Xptxas -v``, and its instruction counts from ``cuobjdump
+     -sass``: every bf16 kernel must hold HGMMA (wgmma) and UTMALDG (TMA
+     loads), every fp32 kernel HMMA (3xTF32 ``mma.sync``);
   2. at the slice's shape (full-width tinygpt-15m packed: R = 125,128 rows
      in 43 blocks) hold each kernel against its plain PyTorch version
      (plain, stats and in-place variants; the accumulator kernel under a
@@ -70,8 +74,10 @@ Phases, in order; any failure exits non-zero:
      all-zero tensor, a clipped element, a NaN, an odd and an unaligned
      length; flash_attention_fwd there too, bf16 within 2e-2 and fp32
      within 2e-5 of its plain version at the serve shape (BH 32, S 1024,
-     D 32), at (BH 16, S 4096, D 128) and on a rectangular 128 x 384, causal
-     and not, timed beside ``scaled_dot_product_attention``);
+     D 32), the prompt-128 shape, at (BH 16, S 4096, D 128) and on a
+     rectangular 128 x 384, causal and not, timed beside
+     ``scaled_dot_product_attention``, with each case's ratio to it and
+     its share of the bound);
   7. serving: full-width tinygpt-15m in its compute dtype (bf16), prefill
      of 4 prompts of 128 tokens and 24 greedy tokens over the KV cache,
      then one prefill at 1024 (each timed 5 times, medians, and behind a
@@ -93,6 +99,9 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -102,10 +111,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Datasheet peaks (NVIDIA H100 data sheet; dense, no sparsity): memory
-# bytes/s, fp32 (non-tensor-core) flop/s and bf16 tensor-core flop/s, by
-# product name fragment.
-PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
-         "": (3.35e12, 67e12, 989e12)}
+# bytes/s, fp32 (non-tensor-core) flop/s, bf16 and TF32 tensor-core flop/s,
+# by product name fragment.
+PEAKS = {"PCIe": (2.0e12, 51e12, 756e12, 378e12),
+         "NVL": (3.9e12, 60e12, 835e12, 417e12),
+         "": (3.35e12, 67e12, 989e12, 495e12)}
 
 ITERS = 30
 # time_ms's hold before each timed run: ~0.5 ms at the H100's ~2 GHz clock;
@@ -191,6 +201,11 @@ TOL_LOGITS = 2e-2
 # tests with q_chunk 32
 FLASH_SHAPES = ((32, 1024, 1024, 32), (32, 128, 128, 32),
                 (16, 4096, 4096, 128), (2, 128, 384, 64))
+# the flash kernels' mangled names (route, D, 64-row q tiles per CTA), and
+# a SASS line's opcode
+FLASH_KERNEL = re.compile(r"flash_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d)E")
+SASS_OP = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 # the serve phase: batch x prompt, greedy tokens, then one long prefill;
 # each timed as the median of ``repeats`` runs
 SERVE = dict(batch=4, prompt=128, gen=24, long_prompt=1024, repeats=5)
@@ -294,7 +309,7 @@ def check_update(name, torch, fn, state, want, stats_want):
 
 
 def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
-                 bf16_flops):
+                 bf16_flops, tf32_flops):
     from repro_torch.configs.base import HeLoCoConfig
     R, B = layout.n_rows, layout.n_blocks
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -389,7 +404,10 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
     multi_rows = multi_phase(torch, pk, layout, dev, p, m, b, bound)
     leaf_rows = leaf_phase(torch, specs, dev, bound)
     int8_rows = int8_kernel_phase(torch, specs, dev, bound)
-    flash_rows = flash_phase(torch, dev, bound, bf16_flops)
+    # the fp32 route runs 3xTF32: three TF32 products per operation, or
+    # one fp32 FMA where that would be faster
+    flash_rows = flash_phase(torch, dev, bound, bf16_flops,
+                             max(flops, tf32_flops / 3))
 
     n = R * 128
     plane, table_bytes = n * f4, R * 4
@@ -1172,13 +1190,14 @@ def flash_flops(sq, skv, d, causal):
     return 4 * d * kept
 
 
-def flash_phase(torch, dev, bound, bf16_peak):
+def flash_phase(torch, dev, bound, bf16_peak, fp32_peak):
     """flash_attention_fwd of ``csrc/flash_attention.cu`` against its plain
-    version, bf16 (tensor cores) within 2e-2 and fp32 (FMA) within 2e-5, at
+    version, bf16 (wgmma) within 2e-2 and fp32 (3xTF32) within 2e-5, at
     FLASH_SHAPES, causal and not; then timed beside
-    ``scaled_dot_product_attention`` at each shape. Returns the serve
-    shape's bf16 causal row, the main path's, with the others under
-    ``cases``."""
+    ``scaled_dot_product_attention`` at each shape, with the ratio to it and
+    the share of the bound (operations at ``bf16_peak`` or ``fp32_peak``).
+    Returns the serve shape's bf16 causal row, the main path's, with the
+    others under ``cases``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1213,20 +1232,27 @@ def flash_phase(torch, dev, bound, bf16_peak):
                 el = q.element_size()
                 nbytes = el * bh * d * (2 * sq + 2 * skv)
                 nflops = bh * flash_flops(sq, skv, d, causal)
-                peak = bf16_peak if dtype == "bfloat16" else None
+                peak = bf16_peak if dtype == "bfloat16" else fp32_peak
                 b_ms, by = bound(nbytes, nflops, peak)
+                ms = time_ms(lambda: fa.flash_attention_fwd(
+                    q, k, v, causal=causal, q_chunk=chunk), iters=10)
+                lib_ms = time_ms(sdpa, iters=10)
                 cases.append({
                     "name": "flash_attention_fwd", "dtype": dtype,
                     "causal": causal, "BH": bh, "Sq": sq, "Skv": skv, "D": d,
-                    "ms": time_ms(lambda: fa.flash_attention_fwd(
-                        q, k, v, causal=causal, q_chunk=chunk), iters=10),
+                    "ms": ms,
                     "plain_ms": time_ms(lambda: fa.flash_attention_fwd_ref(
                         q, k, v, causal), iters=10),
                     "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
-                    "library_ms": time_ms(sdpa, iters=10),
+                    "library_ms": lib_ms,
                     "library_call": "torch.nn.functional."
                                     "scaled_dot_product_attention",
+                    "vs_library": ms / lib_ms, "bound_share": b_ms / ms,
                     "bytes": nbytes, "flops": nflops})
+                print(f"flash {dtype} causal={causal} ({bh}, {sq}, {skv}, "
+                      f"{d}): {ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+                      f"({ms / lib_ms:.2f}x), bound {b_ms:.4f} ms ({by}), "
+                      f"{b_ms / ms:.1%} of it; err {err:.2e}")
                 print(json.dumps({"kernel": "flash_attention_fwd",
                                   **{k: v for k, v in cases[-1].items()
                                      if k != "name"}}))
@@ -1241,8 +1267,76 @@ def flash_phase(torch, dev, bound, bf16_peak):
     main_row["cases"] = [{k: c[k] for k in ("dtype", "causal", "BH", "Sq",
                                              "Skv", "D", "ms", "plain_ms",
                                              "bound_ms", "library_ms",
+                                             "vs_library", "bound_share",
                                              "max_abs_err")} for c in cases]
     return [main_row]
+
+
+def _cuobjdump():
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = [os.path.join(CUDA_HOME, "bin", "cuobjdump")] if CUDA_HOME else []
+    found.append(shutil.which("cuobjdump"))
+    try:
+        import triton
+        found.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in found if c and os.path.isfile(c)), None)
+
+
+def flash_build_report(log, lib):
+    """Each flash kernel's registers, shared memory and spills from
+    ``-Xptxas -v`` (and any wgmma serialisation it reports), and its static
+    instruction counts from ``cuobjdump -sass`` of the built library. Fails
+    unless every bf16 kernel holds HGMMA (wgmma) and UTMALDG (TMA loads)
+    and every fp32 kernel HMMA (the 3xTF32 ``mma.sync``) and UTMALDG, or if
+    ``cuobjdump`` is missing."""
+    def route(line):
+        m = FLASH_KERNEL.search(line)
+        return m and (("bf16" if m.group(1) != "f" else "fp32")
+                      + f" D={m.group(2)} q{64 * int(m.group(3))}")
+    if log == "cached":
+        print("flash kernels: built before this run, no ptxas report")
+    name = None
+    for line in log.splitlines():
+        if "C7512" in line and route(line):
+            print(f"ptxas {route(line)}: {line.split(':', 1)[1].strip()}")
+        elif "Compiling entry function" in line:
+            name = route(line)
+        elif name and "spill stores" in line:
+            print(f"ptxas {name}: {line.strip()}")
+        elif name and "registers" in line:
+            print(f"ptxas {name}: {line.split(':', 1)[1].strip()}")
+            name = None
+    tool = _cuobjdump()
+    assert tool, ("cuobjdump not found (CUDA_HOME/bin, PATH, triton): the "
+                  "flash kernels' SASS cannot be checked for HGMMA")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = route(line)
+            if name:
+                counts[name] = {}
+            continue
+        m = SASS_OP.search(line)
+        if name and m:
+            op = m.group(1).split(".")[0]
+            counts[name][op] = counts[name].get(op, 0) + 1
+    # bf16 and fp32 at D 32, 64, 128 with 64-row q tiles; bf16 D 128 also
+    # with 128-row ones
+    assert len(counts) == 7, sorted(counts)
+    for name, c in sorted(counts.items()):
+        print(f"sass {name}: " + ", ".join(
+            f"{op} {c.get(op, 0)}" for op in
+            ("HGMMA", "HMMA", "UTMALDG", "LDS", "FFMA", "MUFU")))
+        need = ("HGMMA", "UTMALDG") if name.startswith("bf16") else (
+            "HMMA", "UTMALDG")
+        assert all(c.get(op, 0) > 0 for op in need), (name, c)
+    print(f"flash kernels: HGMMA and UTMALDG in every bf16 kernel, HMMA and "
+          f"UTMALDG in every fp32 kernel ({tool} -sass)")
 
 
 def int8_path_phase(torch, kernels, specs, dev):
@@ -1456,17 +1550,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    bw, flops, bf16_flops = peaks_for(name)
+    bw, flops, bf16_flops, tf32_flops = peaks_for(name)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
     t0 = time.perf_counter()
-    for src, (secs, log) in _build.build_all().items():
+    logs = _build.build_all()
+    for src, (secs, log) in logs.items():
         print(f"build {src}.cu: {secs:.1f}s")
         print(log.strip())
     print(f"build phase: {time.perf_counter() - t0:.1f}s")
+    flash_build_report(logs["flash_attention"][1],
+                       _build.target("flash_attention"))
 
     specs = Model(get_config("tinygpt-15m")).param_specs()
     assert len(specs) == N_LEAVES, len(specs)
@@ -1474,7 +1571,7 @@ def main() -> int:
     assert (layout.n_rows, layout.n_blocks) == (125_128, 43), layout.n_rows
     dev = torch.device("cuda")
     rows = kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
-                        bf16_flops)
+                        bf16_flops, tf32_flops)
     t0 = time.perf_counter()
     totals = slice_phase(torch, all_kernels)
     print(f"slice phase: {time.perf_counter() - t0:.1f}s")

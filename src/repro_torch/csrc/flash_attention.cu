@@ -1,54 +1,91 @@
 // Hopper (sm_90a) attention forward of prefill: softmax(q k^T * D^-0.5) v
 // over (BH, S, D) tensors, with the online softmax of flash attention.
 //
-// flash_attention_fwd  replaces src/repro/kernels/flash_attention.py:
-//                       flash_attention_fwd (Pallas _flash_fwd_kernel). Per
-//                       q tile the kernel keeps the running max m (from
-//                       -1e30), the running sum l (from 0) and an fp32
-//                       accumulator across the kv tiles, rescales them by
-//                       alpha = exp(m_prev - m_new) at each tile, and
-//                       finishes with acc / max(l, 1e-30), as the Pallas
-//                       body does. The causal mask is kv_idx <= q_idx on
-//                       absolute indices, with no offset when Sq != Skv (the
-//                       reference's rule). kv tiles that lie wholly above the
-//                       diagonal are skipped: every row has kv 0 valid, so
-//                       such a tile would add p = 0 at alpha = 1.
+// flash_attention_fwd  replaces src/repro/kernels/flash_attention.py:71,
+//                       flash_attention_fwd (Pallas _flash_fwd_kernel). A q
+//                       tile keeps the running max m (from -1e30), the
+//                       running sum l (from 0) and an fp32 accumulator
+//                       across kv tiles, rescales them by exp(m_prev - m_new)
+//                       at each tile, and ends with acc / max(l, 1e-30), as
+//                       the Pallas body does. The causal mask is kv_idx <=
+//                       q_idx on absolute indices, with no offset when Sq !=
+//                       Skv (the reference's rule). kv tiles wholly above a
+//                       q tile's last row are skipped: every row has kv 0
+//                       valid, so such a tile would add p = 0 at alpha = 1.
 //   The TPU kernel walks the kv grid axis in order on one core and carries
-//   (m, l, acc) in VMEM scratch; here one CTA owns a q tile and loops over
-//   the kv tiles itself, with K and V staged in shared memory.
+//   (m, l, acc) in VMEM scratch; here one CTA owns a 64-row q tile and walks
+//   its kv tiles itself.
 //
-// Two routes, chosen by the inputs' type:
-//   bf16  tensor cores: mma.sync.m16n8k16 bf16 x bf16 -> fp32. A CTA of 4
-//         warps owns 64 q rows (16 per warp, Q held in registers as mma A
-//         fragments, loaded once with ldmatrix); each kv tile of 64 rows is
-//         staged in shared memory with cp.async, two buffers deep, so tile
-//         t + 1 loads while tile t is used (rows padded by 16 bytes, so
-//         ldmatrix is free of bank conflicts). S = Q K^T comes from
-//         ldmatrix'd K fragments; P V from ldmatrix.trans'd V fragments.
-//         Scores are scaled into the log2 domain (exp2), and the mask is
-//         computed only on tiles that cross a warp's diagonal or the end.
-//         P stays fp32 in the softmax and in l; for the P V product each p
-//         is split into bf16 hi + lo (hi = bf16(p), lo = bf16(p - hi)) and
-//         both halves go through the tensor cores, so P enters the product
-//         with 16 significant bits rather than bf16's 8.
-//   fp32  SIMT, fp32 FMA (TF32 mma keeps 10 bits and cannot hold the
-//         reference's 2e-5): a CTA of 128 threads owns 32 q rows, 4 threads
-//         a row, each thread holding D/4 interleaved dims (d = g + 4 i) of q
-//         and of the accumulator; a score is the 4 threads' partial dot
-//         products added with two shuffles. kv tiles of 32 rows.
+// Bound on this card: bytes at D = 32 (the serve shape, BH 32, S 1024, bf16,
+// causal: 8.4 MB of q, k, v and out, 2.5 us at 3.35 TB/s, against 2.15 GFLOP
+// of the two products, 2.2 us at 989 TFLOP/s bf16), operations at D = 128
+// (BH 16, S 4096, causal: 68.7 GFLOP, 69 us in bf16). What decides the time
+// at D = 32 is neither: the exp of each score (one per 2 x 32 multiply-adds)
+// and the chain of kv tiles that the last q tile of a causal head walks. At
+// D = 128 with many q tiles, besides the tensor cores, the K and V tiles
+// that every CTA reads again from L2 (1.09 GB at BH 16, S 4096, causal,
+// with 64-row q tiles).
 //
-// Bound: at the serve shape (BH 32 = 4 x 8 heads, S 1024, D 32, bf16,
-// causal) 8.4 MB of q, k, v and out, 2.5 us at 3.35 TB/s, and 2.15 GFLOP of
-// the two products over the S (S + 1) / 2 unmasked scores, 2.2 us at 989
-// TFLOP/s bf16. At D 32 the exp of each score, not the products, takes
-// most of the time (one exp per 2 x 32 multiply-adds).
+// One design for both routes. A CTA is one producer warp and two consumer
+// warpgroups (288 threads) on one 64-row q tile, or on a 128-row one (below):
+//   * The producer loads Q once, then K and V tile by tile (64 rows each)
+//     with TMA into a ring of stages in shared memory, with a full and an
+//     empty mbarrier per stage. The tensor maps are 3-D (D, S, BH), so TMA
+//     zero-fills rows past Sq or Skv within a head; the mask is computed only
+//     on tiles that cross a warp's diagonal or the end of Skv. Each box is
+//     at most 128 bytes wide and written with the matching swizzle (64-byte
+//     rows at bf16 D = 32, 128-byte rows otherwise; D = 128 bf16 is two
+//     64-column boxes, fp32 is D / 32 boxes of 32 columns).
+//   * The two consumer warpgroups split the kv walk: warpgroup w takes tiles
+//     w, w + 2, ..., so the heaviest q tile's chain of tiles is halved. Each
+//     keeps its own (m, l, acc); at the end warpgroup 1 hands its state to
+//     warpgroup 0 through shared memory and warpgroup 0 merges the two in a
+//     fixed order and writes the output: two launches on the same inputs
+//     give the same bits.
+//   * bf16 at D = 128, where the 64-row q tiles outnumber the SMs (more
+//     than one wave at one CTA per SM), takes 128-row q tiles instead: each
+//     warpgroup owns 64 rows and walks every kv tile up to its own last
+//     row, and the two share each K and V stage, so the tiles are read from
+//     L2 half as often; there is no merge.
+//   * The grid is one CTA per (q tile, head), ordered heaviest first: the
+//     largest q-tile index of every head is scheduled before any smaller
+//     one, so where the grid is more than one wave the short causal tiles
+//     fill the tail.
+//   * Scores are scaled into the log2 domain (exp2). A warp owns 16 q rows;
+//     a thread holds the same (row, column) pairs of the score tile and of
+//     the output accumulator in both routes, so the softmax, the merge and
+//     the epilogue are shared.
 //
-// The source is built with --fmad=false like the others; the dot products
-// call fmaf explicitly, so the fp32 route still multiplies and adds in one
-// rounding.
+// The routes, chosen by the inputs' type:
+//   bf16  wgmma. S = Q K^T is wgmma m64n64k16 with A = Q and B = the K tile,
+//         both from shared memory, K-major as stored. P V is wgmma with A =
+//         P from registers (the score accumulator's layout is the A
+//         fragment's) and B = the V tile read MN-major through the
+//         descriptor's transpose bit (m64n32k16 at D = 32, m64n64k16 per
+//         64-column box otherwise). P stays fp32 in the softmax and in l,
+//         and enters P V rounded to bf16, as in SDPA. A bf16 hi + lo split
+//         of P (16 significant bits, two P V products) was measured against
+//         it on the card (PERF.md): largest errors 7.8e-3 against 1.6e-2
+//         over the card tests' shapes, both inside the reference's 2e-2
+//         band; the serving checks passed with both; P as bf16 alone took
+//         0.78x the time at BH 16, S 4096, D 128, causal.
+//   fp32  3xTF32 on the tensor cores, mma.sync m16n8k8. Each operand x is
+//         split into big = tf32(x) (round to nearest, ties away) and small =
+//         x - big, and big*small + small*big + big*big is summed in fp32 for
+//         both Q K^T and P V: about 21 significant bits per product, inside
+//         the reference's 2e-5 band, where one TF32 product keeps 10. SIMT
+//         fp32 FMA would load one shared-memory word per FMA; here one
+//         fragment load feeds a 16 x 8 x 8 product. Fragments are read from
+//         the TMA-swizzled tiles without bank conflicts: Q and K in k order
+//         (c, c + 4), V in the permuted k order (2c, 2c + 1) that matches the
+//         score accumulator's columns, so P needs no shuffle.
 //
-// C interface for ctypes; every entry point returns cudaGetLastError().
+// The source is built with --fmad=false like the others.
+//
+// C interface for ctypes; every entry point returns cudaGetLastError(), or
+// a CUDA error code when a tensor map cannot be made.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,392 +97,699 @@ constexpr float kLFloor = 1e-30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// ---------------------------------------------------------------------------
-// bf16 route
-// ---------------------------------------------------------------------------
+constexpr int kTile = 64;                    // rows of a q or kv tile
+constexpr int kConsumers = 2;                // warpgroups on alternate kv tiles
+constexpr int kThreads = kConsumers * 128 + 32;   // and one producer warp
 
-constexpr int kBr = 64;            // q rows per CTA, 16 per warp
-constexpr int kBc = 64;            // kv rows per tile
-constexpr int kThreadsB = 128;     // 4 warps
+// Per (element type, D): the TMA box width in columns (128 bytes at most,
+// the widest swizzle), the ring's depth and the CTAs wanted per SM.
+template <typename T, int D>
+struct Cfg;
 
-// Shared-memory row stride of a (rows, D) bf16 tile, in elements.
 template <int D>
-__host__ __device__ constexpr int row_stride() { return D + 8; }
+struct Cfg<__nv_bfloat16, D> {
+  static constexpr int kEs = 2;
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kStages = 4;
+  static constexpr int kMinBlocks = D == 32 ? 2 : 1;
+};
 
-// Q, and two buffers each of K and V: tile t + 1 loads while tile t is used.
 template <int D>
-__host__ __device__ constexpr int smem_bytes_bf16() {
-  return (kBr + 4 * kBc) * row_stride<D>() * 2;
-}
+struct Cfg<float, D> {
+  static constexpr int kEs = 4;
+  static constexpr int kBoxCols = 32;
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr int kMinBlocks = 1;
+};
+
+// QT: 64-row q tiles per CTA (1: the warpgroups split the kv walk of one;
+// 2: each warpgroup owns one and walks every kv tile).
+template <typename T, int D, int QT>
+struct Geom {
+  using C = Cfg<T, D>;
+  static constexpr int kRowBytes = C::kBoxCols * C::kEs;   // 64 or 128
+  static constexpr int kBoxBytes = kTile * kRowBytes;
+  static constexpr int kBoxes = D / C::kBoxCols;
+  static constexpr int kTileBytes = kTile * D * C::kEs;
+  // Q, then per stage a K tile and a V tile; 1024 bytes to align the base
+  static constexpr int kSmem = 1024 + kTileBytes * (QT + 2 * C::kStages);
+  // the merge's scratch (warpgroup 1's acc, m and l) reuses the tiles
+  static_assert((D / 2 + 4) * 128 * 4 <= kTileBytes * (QT + 2 * C::kStages),
+                "merge scratch does not fit");
+  static_assert(kSmem <= 232448, "shared memory per block");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte copy global -> shared; zero-fills when !valid (src not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-                   "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+// ---------------------------------------------------------------------------
+// mbarrier, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-// Waits until at most N of this thread's committed groups are in flight.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spins until the phase of parity ``parity`` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map at (c0, c1, c2) into shared memory; the bytes
+// are counted on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// 2^x in one MUFU op (flushes results below 2^-126 to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bar.sync on barrier 1 by the two consumer warpgroups only.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Commits the issued wgmmas as one group and waits for it.
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins registers that an asynchronous wgmma reads or writes to this point
+// of the program, so the compiler neither reads them early nor reuses them.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, swizzle (1: 128-byte, 2: 64-byte).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+
+// d (+)= A B, m64 n64 k16: A and B from shared memory, both K-major;
+// d is overwritten when scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0; "
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+// d += A B, m64 n64 k16: A (bf16 pairs) from registers, B from shared
+// memory, MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                            uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, "
+      "1, 1; "
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// c += a b, a: 16x16 bf16 (row), b: 16x8 bf16 (col), c: 16x8 fp32.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+// d += A B, m64 n32 k16: A (bf16 pairs) from registers, B from shared
+// memory, MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1; "
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 route: wgmma
+// ---------------------------------------------------------------------------
+
+// (x, y) -> a bf16 pair, x in the low half (the lower k index of an A
+// fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+struct Bf16Tile {
+  using G = Geom<__nv_bfloat16, D, 1>;
+  static constexpr uint32_t kSwizzle = G::kRowBytes == 64 ? 2 : 1;
+  static constexpr uint32_t kCore = 8 * G::kRowBytes;   // 8 rows of a box
+
+  // s = Q K^T (unscaled) over the tile: D / 16 k16 steps. A k step moves
+  // 32 bytes along a swizzled row, or to the next box at D = 128.
+  static __device__ __forceinline__ void scores(float* s, uint32_t sq,
+                                                uint32_t sk, int, int) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * G::kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n64(s, smem_desc(sq + off, 16, kCore, kSwizzle),
+                   smem_desc(sk + off, 16, kCore, kSwizzle), kk > 0);
+    }
+    wgmma_commit_wait();
+    fence_regs<32>(s);
+  }
+
+  // acc += P V: P (fp32, the score layout) rounded to bf16 A fragments, V
+  // MN-major; a k16 step is 16 rows of V, 2 cores. Both byte offsets are
+  // the 8-row core stride: along MN one box spans the instruction's N.
+  static __device__ __forceinline__ void pv(float* acc, const float* p,
+                                            uint32_t sv, int, int) {
+    uint32_t pa[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+        pa[4 * kk + r] = pack_bf16(p[i], p[i + 1]);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int b = 0; b < G::kBoxes; ++b) {
+        const uint64_t dv = smem_desc(
+            sv + b * G::kBoxBytes + kk * 2 * kCore, kCore, kCore, kSwizzle);
+        if constexpr (D == 32)
+          wgmma_rs_n32(acc, &pa[4 * kk], dv);
+        else
+          wgmma_rs_n64(acc + 32 * b, &pa[4 * kk], dv);
+      }
+    }
+    wgmma_commit_wait();
+    fence_regs<D / 2>(acc);
+    fence_regs<16>(pa);
+  }
+
+  static __device__ __forceinline__ void store(__nv_bfloat16* out, float x,
+                                               float y) {
+    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(x, y);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// fp32 route: 3xTF32 mma.sync
+// ---------------------------------------------------------------------------
+
+// x = big + small with big = tf32(x), rounded to nearest, ties away (the
+// rounding of cvt.rna.tf32.f32); small = x - big is exact. The tensor core
+// reads small's top 19 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t* big,
+                                           uint32_t* small) {
+  const uint32_t b = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  *big = b;
+  *small = __float_as_uint(x - __uint_as_float(b));
+}
+
+// c += a b, a: 16x8 tf32 (row), b: 8x8 tf32 (col), c: 16x8 fp32.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) -> bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi.x, y - hi.y);
-// x goes to the low half (the lower column of an mma fragment).
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t* hi,
-                                           uint32_t* lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  *hi = as_u32(h);
-  *lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// Loads rows [row0, row0 + rows) of a (n_rows, D) bf16 matrix into a
-// shared tile of stride row_stride<D>(), zero-filling rows past n_rows.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n_rows) {
-  constexpr int kChunks = D / 8;   // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreadsB) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool ok = row0 + r < n_rows;
-    cp_async16(dst + r * row_stride<D>() + col,
-               src + static_cast<size_t>(ok ? row0 + r : 0) * D + col, ok);
-  }
+// c += a b in 3xTF32: the two cross products first, then big x big.
+__device__ __forceinline__ void mma_3xtf32(float* c, const float* a,
+                                           float b0, float b1) {
+  uint32_t ab[4], as[4], bb[2], bs[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], &ab[i], &as[i]);
+  split_tf32(b0, &bb[0], &bs[0]);
+  split_tf32(b1, &bb[1], &bs[1]);
+  mma_tf32(c, as, bb[0], bb[1]);
+  mma_tf32(c, ab, bs[0], bs[1]);
+  mma_tf32(c, ab, bb[0], bb[1]);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsB)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int sq, int skv, int causal,
-                  float scale) {
-  constexpr int S = row_stride<D>();
-  constexpr int kSteps = D / 16;   // k16 steps of Q K^T
-  constexpr int kDBlocks = D / 8;  // n8 blocks of the output
-  constexpr int kNBlocks = kBc / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBr * S;        // two buffers of kBc rows
-  __nv_bfloat16* sV = sK + 2 * kBc * S;    // two buffers of kBc rows
+struct F32Tile {
+  // Element (r, c) of a TMA tile of 128-byte swizzled boxes of 32 columns:
+  // the 16-byte chunk (c % 32) / 4 of row r sits at chunk ((c % 32) / 4) ^
+  // (r % 8).
+  static __device__ __forceinline__ float at(const unsigned char* tile, int r,
+                                             int c) {
+    return *reinterpret_cast<const float*>(
+        tile + (c >> 5) * (kTile * 128) + r * 128 +
+        ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2));
+  }
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBr;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t base_q = static_cast<size_t>(bh) * sq * D;
-  const size_t base_kv = static_cast<size_t>(bh) * skv * D;
+  static __device__ __forceinline__ const unsigned char* ptr(uint32_t a) {
+    extern __shared__ unsigned char smem_raw[];
+    return smem_raw + (a - smem_u32(smem_raw));
+  }
 
-  // Q and the first K, V tile in one group
-  load_tile<D, kBr>(sQ, q + base_q, q0, sq);
-  load_tile<D, kBc>(sK, k + base_kv, 0, skv);
-  load_tile<D, kBc>(sV, v + base_kv, 0, skv);
-  cp_async_commit();
-  uint32_t qf[kSteps][4];
-  const float scale2 = scale * kLog2e;   // scores in the log2 domain
-
-  float acc[kDBlocks][4];
+  // s = Q K^T (unscaled): warp wq's 16 rows against the tile's 64 rows; a
+  // k8 step reads Q and K columns 8 kk + c and 8 kk + c + 4.
+  static __device__ __forceinline__ void scores(float* s, uint32_t sq,
+                                                uint32_t sk, int wq,
+                                                int lane) {
+    const unsigned char* tq = ptr(sq);
+    const unsigned char* tk = ptr(sk);
+    const int g = lane >> 2, c = lane & 3;
 #pragma unroll
-  for (int db = 0; db < kDBlocks; ++db)
-    acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.0f;
-  // this thread's two rows: fragment entries 0, 1 and 2, 3
-  const int row_a = q0 + warp * 16 + (lane >> 2);
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.0f, 0.0f};   // this thread's columns; quad-summed last
-
-  int n_tiles = (skv + kBc - 1) / kBc;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBr - 1) / kBc + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kBc;
-    const __nv_bfloat16* tK = sK + (t & 1) * kBc * S;
-    const __nv_bfloat16* tV = sV + (t & 1) * kBc * S;
-    if (t + 1 < n_tiles) {   // the next tile into the other buffer
-      load_tile<D, kBc>(sK + ((t + 1) & 1) * kBc * S, k + base_kv, kv0 + kBc,
-                        skv);
-      load_tile<D, kBc>(sV + ((t + 1) & 1) * kBc * S, v + base_kv, kv0 + kBc,
-                        skv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+#pragma unroll 2
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int col = 8 * kk + c;
+      const int r = 16 * wq + g;
+      const float a[4] = {at(tq, r, col), at(tq, r + 8, col),
+                          at(tq, r, col + 4), at(tq, r + 8, col + 4)};
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+        mma_3xtf32(&s[4 * nb], a, at(tk, 8 * nb + g, col),
+                   at(tk, 8 * nb + g, col + 4));
     }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * S + kk * 16 +
-                                ((lane >> 4) << 3));
-    }
+  }
 
-    float s[kNBlocks][4];
+  // acc += P V: the k order of each 8-row block of V is permuted so that
+  // k = c, c + 4 are kv rows 2c, 2c + 1, the columns this thread holds of
+  // P; the A fragment is then P's own registers.
+  static __device__ __forceinline__ void pv(float* acc, const float* p,
+                                            uint32_t sv, int, int lane) {
+    const unsigned char* tv = ptr(sv);
+    const int g = lane >> 2, c = lane & 3;
 #pragma unroll
-    for (int nb = 0; nb < kNBlocks; ++nb)
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.0f;
+    for (int j = 0; j < 8; ++j) {
+      const float a[4] = {p[4 * j], p[4 * j + 2], p[4 * j + 1], p[4 * j + 3]};
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-#pragma unroll
-      for (int nb2 = 0; nb2 < kNBlocks / 2; ++nb2) {
-        const int mi = lane >> 3;
-        uint32_t b[4];
-        ldmatrix_x4(b, tK + (nb2 * 16 + (lane & 7) + ((mi >> 1) << 3)) * S +
-                           kk * 16 + ((mi & 1) << 3));
-        mma_bf16(s[2 * nb2], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * nb2 + 1], qf[kk], b[2], b[3]);
-      }
+      for (int db = 0; db < D / 8; ++db)
+        mma_3xtf32(&acc[4 * db], a, at(tv, 8 * j + 2 * c, 8 * db + g),
+                   at(tv, 8 * j + 2 * c + 1, 8 * db + g));
     }
+  }
 
-    // the mask only where the tile crosses this warp's diagonal or the end
-    const bool edge = kv0 + kBc > skv ||
-                      (causal && kv0 + kBc - 1 > q0 + warp * 16);
+  static __device__ __forceinline__ void store(float* out, float x, float y) {
+    *reinterpret_cast<float2*>(out) = make_float2(x, y);
+  }
+};
+
+template <typename T, int D>
+struct Route;
+template <int D>
+struct Route<__nv_bfloat16, D> : Bf16Tile<D> {};
+template <int D>
+struct Route<float, D> : F32Tile<D> {};
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+// One thread's rows: row_a and row_a + 8 of warp wq's 16 rows of the 64
+// that start at r0.
+struct Rows {
+  int r0, wq, lane, row_a, skv, causal;
+  float scale2;   // D^-0.5 log2(e): scores in the log2 domain
+
+  // The online-softmax step of kv tile t on the raw scores s, in place (s
+  // -> p): the mask only where the tile crosses this warp's diagonal or
+  // the end (masked scores at -1e30), the new running max, p = 2^(s scale2
+  // - m) in one FMA and one MUFU op, l. Returns in alpha the factor that
+  // rescales the accumulator's rows.
+  __device__ __forceinline__ void softmax(float* s, float* m_run,
+                                          float* l_run, float* alpha,
+                                          int t) const {
+    const int kv0 = t * kTile;
+    const bool edge = kv0 + kTile > skv ||
+                      (causal && kv0 + kTile - 1 > r0 + wq * 16);
     float m_cur[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int nb = 0; nb < kNBlocks; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nb][e] * scale2;
-        if (edge) {
-          const int col = kv0 + nb * 8 + 2 * (lane & 3) + (e & 1);
-          const int row = row_a + ((e >> 1) << 3);
-          x = col < skv && (!causal || col <= row) ? x : kNegInf;
-        }
-        s[nb][e] = x;
-        m_cur[e >> 1] = fmaxf(m_cur[e >> 1], x);
+    for (int i = 0; i < 32; ++i) {
+      if (edge) {
+        const int col = kv0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const int row = row_a + (((i >> 1) & 1) << 3);
+        s[i] = col < skv && (!causal || col <= row) ? s[i] : kNegInf;
       }
+      m_cur[(i >> 1) & 1] = fmaxf(m_cur[(i >> 1) & 1], s[i]);
     }
-    float alpha[2];
+    float neg_m[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m_cur[i] = fmaxf(m_cur[i], __shfl_xor_sync(kFullMask, m_cur[i], 1));
-      m_cur[i] = fmaxf(m_cur[i], __shfl_xor_sync(kFullMask, m_cur[i], 2));
-      const float m_new = fmaxf(m_run[i], m_cur[i]);
-      alpha[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
+    for (int h = 0; h < 2; ++h) {
+      m_cur[h] = fmaxf(m_cur[h], __shfl_xor_sync(kFullMask, m_cur[h], 1));
+      m_cur[h] = fmaxf(m_cur[h], __shfl_xor_sync(kFullMask, m_cur[h], 2));
+      const float m_new = fmaxf(m_run[h], m_cur[h] * scale2);
+      alpha[h] = ex2(m_run[h] - m_new);
+      m_run[h] = m_new;
+      neg_m[h] = -m_new;
     }
     float psum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int nb = 0; nb < kNBlocks; ++nb) {
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(__fmaf_rn(s[i], scale2, neg_m[(i >> 1) & 1]));
+      psum[(i >> 1) & 1] += s[i];
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nb][e] = exp2f(s[nb][e] - m_run[e >> 1]);
-        psum[e >> 1] += s[nb][e];
+    for (int h = 0; h < 2; ++h) l_run[h] = alpha[h] * l_run[h] + psum[h];
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void rescale(float* acc, const float* alpha) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+
+template <typename T, int D, int QT>
+__global__ void __launch_bounds__(kThreads, Cfg<T, D>::kMinBlocks)
+flash_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+             int bh_count, int sq, int skv, int causal, float scale) {
+  using C = Cfg<T, D>;
+  using G = Geom<T, D, QT>;
+  using R = Route<T, D>;
+  constexpr int S = C::kStages;
+  __shared__ __align__(8) uint64_t bars[2 * S + 1];   // full, empty, Q
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // sQ; the stages follow
+
+  // heaviest first: the last q tile of every head before any earlier one
+  const int n_q = (sq + QT * kTile - 1) / (QT * kTile);
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x) / bh_count;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int q0 = qt * QT * kTile;
+  const int n_kv = (skv + kTile - 1) / kTile;
+  // kv tiles of the CTA's last q row; the causal walk stops there
+  const int n_tiles = causal ? min(n_kv, (q0 + QT * kTile - 1) / kTile + 1)
+                             : n_kv;
+
+  const uint32_t full0 = smem_u32(&bars[0]);
+  const uint32_t empty0 = smem_u32(&bars[S]);
+  const uint32_t qbar = smem_u32(&bars[2 * S]);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      // every thread of the warpgroups that read the stage
+      mbar_init(empty0 + 8 * s, QT * 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto k_tile = [&](int t) {
+    return base + G::kTileBytes * (QT + 2 * (t % S));
+  };
+
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= kConsumers * 128) {   // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(qbar, QT * G::kTileBytes);
+#pragma unroll
+      for (int h = 0; h < QT; ++h)
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b)
+          tma_load(base + h * G::kTileBytes + b * G::kBoxBytes, &tq,
+                   b * C::kBoxCols, q0 + h * kTile, bh, qbar);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % S;
+        mbar_wait(empty0 + 8 * st, ((t / S) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * st, 2 * G::kTileBytes);
+#pragma unroll
+        for (int b = 0; b < G::kBoxes; ++b) {
+          tma_load(k_tile(t) + b * G::kBoxBytes, &tk, b * C::kBoxCols,
+                   t * kTile, bh, full0 + 8 * st);
+          tma_load(k_tile(t) + G::kTileBytes + b * G::kBoxBytes, &tv,
+                   b * C::kBoxCols, t * kTile, bh, full0 + 8 * st);
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + psum[i];
-#pragma unroll
-    for (int db = 0; db < kDBlocks; ++db) {
-      acc[db][0] *= alpha[0];
-      acc[db][1] *= alpha[0];
-      acc[db][2] *= alpha[1];
-      acc[db][3] *= alpha[1];
-    }
+    return;
+  }
 
-    // acc += P V: P's C fragments are the A fragments of the product
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int wq = tid >> 5;   // this warp's 16 rows of the warpgroup's 64
+  const int r0 = q0 + (QT == 2 ? wg * kTile : 0);   // the warpgroup's rows
+  const Rows rows{r0, wq, lane, r0 + wq * 16 + (lane >> 2), skv, causal,
+                  scale * kLog2e};
+  // QT 1: alternate tiles of the CTA's walk; QT 2: every tile up to this
+  // warpgroup's own last row (a skipped last tile is never waited on)
+  const int first = QT == 1 ? wg : 0, step = QT == 1 ? kConsumers : 1;
+  const int end = QT == 2 && causal ? min(n_tiles, (r0 + kTile - 1) / kTile + 1)
+                                    : n_tiles;
+  const uint32_t sq_tile = base + (QT == 2 ? wg * G::kTileBytes : 0);
+
+  // s[4 j + e] and acc[4 j + e]: rows row_a + 8 (e >> 1), columns
+  // 8 j + 2 (lane % 4) + (e & 1) of the score tile and of the output
+  float s[32], acc[D / 2], alpha[2];
 #pragma unroll
-    for (int kk = 0; kk < kBc / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], &hi[0], &lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], &hi[1], &lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], &hi[2], &lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], &hi[3], &lo[3]);
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
 #pragma unroll
-      for (int db2 = 0; db2 < kDBlocks / 2; ++db2) {
-        const int mi = lane >> 3;
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, tV + (kk * 16 + (lane & 7) + ((mi & 1) << 3)) *
-                                      S + db2 * 16 + ((mi >> 1) << 3));
-        mma_bf16(acc[2 * db2], hi, b[0], b[1]);
-        mma_bf16(acc[2 * db2], lo, b[0], b[1]);
-        mma_bf16(acc[2 * db2 + 1], hi, b[2], b[3]);
-        mma_bf16(acc[2 * db2 + 1], lo, b[2], b[3]);
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.0f, 0.0f};   // this thread's columns; quad-summed last
+
+  mbar_wait(qbar, 0);
+  for (int t = first; t < end; t += step) {
+    mbar_wait(full0 + 8 * (t % S), (t / S) & 1);
+    R::scores(s, sq_tile, k_tile(t), wq, lane);
+    rows.softmax(s, m_run, l_run, alpha, t);
+    rescale<D / 2>(acc, alpha);
+    R::pv(acc, s, k_tile(t) + G::kTileBytes, wq, lane);
+    mbar_arrive(empty0 + 8 * (t % S));
+  }
+
+  if constexpr (QT == 1) {
+    // Merge: warpgroup 1's state through shared memory (the tiles are all
+    // read), into warpgroup 0's, in this order.
+    float* scratch = reinterpret_cast<float*>(smem_raw + (base - raw));
+    consumers_sync();
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) scratch[i * 128 + tid] = acc[i];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        scratch[(D / 2 + h) * 128 + tid] = m_run[h];
+        scratch[(D / 2 + 2 + h) * 128 + tid] = l_run[h];
       }
     }
-    __syncthreads();   // this buffer is refilled at iteration t + 1
-  }
-
+    consumers_sync();
+    if (wg == 1) return;
+    float f0[2], f1[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(kFullMask, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(kFullMask, l_run[i], 2);
-    l_run[i] = fmaxf(l_run[i], kLFloor);
+    for (int h = 0; h < 2; ++h) {
+      const float m1 = scratch[(D / 2 + h) * 128 + tid];
+      const float m = fmaxf(m_run[h], m1);
+      f0[h] = ex2(m_run[h] - m);
+      f1[h] = ex2(m1 - m);
+      l_run[h] =
+          l_run[h] * f0[h] + scratch[(D / 2 + 2 + h) * 128 + tid] * f1[h];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      acc[i] = acc[i] * f0[h] + scratch[i * 128 + tid] * f1[h];
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row_a + 8 * i;
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(kFullMask, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(kFullMask, l_run[h], 2);
+    l_run[h] = fmaxf(l_run[h], kLFloor);
+    const int row = rows.row_a + 8 * h;
     if (row >= sq) continue;
-    __nv_bfloat16* out = o + base_q + static_cast<size_t>(row) * D;
+    T* out = o + (static_cast<size_t>(bh) * sq + row) * D + 2 * (lane & 3);
 #pragma unroll
-    for (int db = 0; db < kDBlocks; ++db) {
-      const __nv_bfloat162 val = __floats2bfloat162_rn(
-          acc[db][2 * i] / l_run[i], acc[db][2 * i + 1] / l_run[i]);
-      *reinterpret_cast<__nv_bfloat162*>(out + db * 8 + 2 * (lane & 3)) = val;
-    }
+    for (int j = 0; j < D / 8; ++j)
+      R::store(out + 8 * j, acc[4 * j + 2 * h] / l_run[h],
+               acc[4 * j + 2 * h + 1] / l_run[h]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// fp32 route
+// Host side
 // ---------------------------------------------------------------------------
 
-constexpr int kRowsF = 32;                 // q rows per CTA
-constexpr int kTpr = 4;                    // threads per q row
-constexpr int kThreadsF = kRowsF * kTpr;   // 128
-constexpr int kBcF = 32;                   // kv rows per tile
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
 
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int row0, int n_rows) {
-  constexpr int kVec = D / 4;
-  for (int c = threadIdx.x; c < kBcF * kVec; c += kThreadsF) {
-    const int r = c / kVec;
-    const int row = row0 + r;
-    const float4 val = row < n_rows
-        ? reinterpret_cast<const float4*>(src + static_cast<size_t>(row) * D)[c % kVec]
-        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    reinterpret_cast<float4*>(dst)[c] = val;
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsF)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int sq,
-                 int skv, int causal, float scale) {
-  constexpr int E = D / kTpr;      // dims per thread: g + kTpr * i
-  __shared__ __align__(16) float sK[kBcF * D];
-  __shared__ __align__(16) float sV[kBcF * D];
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRowsF;
-  const int g = threadIdx.x % kTpr;
-  const int row = q0 + threadIdx.x / kTpr;
-  const bool row_ok = row < sq;
-  const size_t base_q = static_cast<size_t>(bh) * sq * D;
-  const size_t base_kv = static_cast<size_t>(bh) * skv * D;
-  const float* qrow = q + base_q + static_cast<size_t>(row_ok ? row : 0) * D;
-
-  float qr[E], acc[E];
-#pragma unroll
-  for (int i = 0; i < E; ++i) {
-    qr[i] = row_ok ? qrow[g + kTpr * i] : 0.0f;
-    acc[i] = 0.0f;
-  }
-  float m_run = kNegInf, l_run = 0.0f;
-
-  int n_tiles = (skv + kBcF - 1) / kBcF;
-  if (causal) n_tiles = min(n_tiles, (q0 + kRowsF - 1) / kBcF + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kBcF;
-    __syncthreads();
-    load_tile_f32<D>(sK, k + base_kv, kv0, skv);
-    load_tile_f32<D>(sV, v + base_kv, kv0, skv);
-    __syncthreads();
-
-    float s[kBcF];
-    float m_cur = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBcF; ++j) {
-      float dot = 0.0f;
-#pragma unroll
-      for (int i = 0; i < E; ++i) dot = fmaf(qr[i], sK[j * D + g + kTpr * i], dot);
-      dot += __shfl_xor_sync(kFullMask, dot, 1);
-      dot += __shfl_xor_sync(kFullMask, dot, 2);
-      const int col = kv0 + j;
-      const bool ok = col < skv && (!causal || col <= row);
-      s[j] = ok ? dot * scale : kNegInf;
-      m_cur = fmaxf(m_cur, s[j]);
-    }
-    const float m_new = fmaxf(m_run, m_cur);
-    const float alpha = expf(m_run - m_new);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kBcF; ++j) {
-      s[j] = expf(s[j] - m_new);
-      psum += s[j];
-    }
-    l_run = alpha * l_run + psum;
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < E; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBcF; ++j) {
-#pragma unroll
-      for (int i = 0; i < E; ++i)
-        acc[i] = fmaf(s[j], sV[j * D + g + kTpr * i], acc[i]);
-    }
-  }
-  if (!row_ok) return;
-  const float l = fmaxf(l_run, kLFloor);
-  float* out = o + base_q + static_cast<size_t>(row) * D;
-#pragma unroll
-  for (int i = 0; i < E; ++i) out[g + kTpr * i] = acc[i] / l;
+// The (D, s, bh) tensor at ptr, boxes of kBoxCols x 64 rows x 1 head.
+template <typename T, int D>
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh,
+              int s) {
+  using C = Cfg<T, D>;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * C::kEs,
+                                 static_cast<cuuint64_t>(s) * D * C::kEs};
+  const cuuint32_t box[3] = {C::kBoxCols, kTile, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map,
+                C::kEs == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                3, const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Geom<T, D, 1>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
-                int sq, int skv, int causal, float scale, cudaStream_t s) {
-  constexpr int bytes = smem_bytes_bf16<D>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <typename T, int D, int QT>
+int launch_grid(const CUtensorMap& tq, const CUtensorMap& tk,
+                const CUtensorMap& tv, void* o, int bh, int sq, int skv,
+                int causal, float scale, cudaStream_t stream) {
+  const long long blocks =
+      static_cast<long long>((sq + QT * kTile - 1) / (QT * kTile)) * bh;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = Geom<T, D, QT>::kSmem;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_kernel<T, D, QT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBr - 1) / kBr, bh);
-  flash_bf16_kernel<D><<<grid, kThreadsB, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      skv, causal, scale);
+  flash_kernel<T, D, QT><<<static_cast<unsigned>(blocks), kThreads, bytes,
+                           stream>>>(tq, tk, tv, static_cast<T*>(o), bh, sq,
+                                     skv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-               int sq, int skv, int causal, float scale, cudaStream_t s) {
-  const dim3 grid((sq + kRowsF - 1) / kRowsF, bh);
-  flash_f32_kernel<D><<<grid, kThreadsF, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, causal,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int sq, int skv, int causal, float scale, int sms,
+           cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!make_map<T, D>(encode, &tq, q, bh, sq) ||
+      !make_map<T, D>(encode, &tk, k, bh, skv) ||
+      !make_map<T, D>(encode, &tv, v, bh, skv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // bf16 at D = 128 is bound by operations, and where its 64-row tiles
+  // fill more than one wave (one CTA per SM) the kv tiles that every CTA
+  // re-reads from L2 set the pace: 128-row q tiles read them half as often.
+  // Otherwise the two warpgroups split one q tile's walk.
+  const long long tiles = static_cast<long long>((sq + kTile - 1) / kTile) * bh;
+  if constexpr (sizeof(T) == 2 && D == 128) {
+    if (tiles > sms)
+      return launch_grid<T, D, 2>(tq, tk, tv, o, bh, sq, skv, causal, scale,
+                                  stream);
+  }
+  return launch_grid<T, D, 1>(tq, tk, tv, o, bh, sq, skv, causal, scale,
+                              stream);
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
+             int sq, int skv, int d, int causal, float scale, int sms,
+             void* stream) {
+  if (bh == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch<T, 32>(q, k, v, o, bh, sq, skv, causal, scale, sms, s);
+    case 64:
+      return launch<T, 64>(q, k, v, o, bh, sq, skv, causal, scale, sms, s);
+    case 128:
+      return launch<T, 128>(q, k, v, o, bh, sq, skv, causal, scale, sms, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -454,33 +798,19 @@ extern "C" {
 
 // q, o: (bh, sq, d); k, v: (bh, skv, d); contiguous, 16-byte aligned, all
 // bf16 (flash_fwd_bf16) or all fp32 (flash_fwd_f32); d in {32, 64, 128};
-// bh <= 65535; scale = d^-0.5 as fp32.
+// skv >= 1; scale = d^-0.5 as fp32; sms = the device's SM count.
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    int bh, int sq, int skv, int d, int causal, float scale,
                    int sms, void* stream) {
-  (void)sms;
-  if (bh == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch_bf16<32>(q, k, v, o, bh, sq, skv, causal, scale, s);
-    case 64: return launch_bf16<64>(q, k, v, o, bh, sq, skv, causal, scale, s);
-    case 128: return launch_bf16<128>(q, k, v, o, bh, sq, skv, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, skv, d, causal, scale,
+                                 sms, stream);
 }
 
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   int bh, int sq, int skv, int d, int causal, float scale,
                   int sms, void* stream) {
-  (void)sms;
-  if (bh == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch_f32<32>(q, k, v, o, bh, sq, skv, causal, scale, s);
-    case 64: return launch_f32<64>(q, k, v, o, bh, sq, skv, causal, scale, s);
-    case 128: return launch_f32<128>(q, k, v, o, bh, sq, skv, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<float>(q, k, v, o, bh, sq, skv, d, causal, scale, sms,
+                         stream);
 }
 
 }  // extern "C"

@@ -8,11 +8,12 @@ reference's signature and divisibility check; the CUDA kernel
 (``csrc/flash_attention.cu``) tiles by its own sizes and masks the ragged
 edge itself.
 
-The wrapper launches the kernel for CUDA tensors (bf16 on the tensor cores,
-fp32 on fp32 FMA; D in {32, 64, 128}) and raises on anything else; it runs
-the plain PyTorch version (``flash_attention_fwd_ref``, a masked fp32
-softmax) only for tensors on the CPU. It counts its launches in
-``flash_attention_fwd.launches``.
+The wrapper launches the kernel for CUDA tensors (bf16 through wgmma, fp32
+as 3xTF32 on the tensor cores; D in {32, 64, 128}) and raises on anything
+else; it runs the plain PyTorch version (``flash_attention_fwd_ref``, a
+masked fp32 softmax) only for tensors on the CPU. It counts its launches in
+``flash_attention_fwd.launches``. ``flash_attention_fwd_tiled`` repeats the
+kernel's walk over tiles in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+TILE = 64   # q rows per CTA and kv rows per tile of the CUDA kernel
+LOG2E = 1.4426950408889634
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 _ARGS = [_ptr] * 4 + [_int] * 5 + [ctypes.c_float, _int, _ptr]
@@ -50,6 +53,57 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(ki > qi, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_fwd_tiled(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              split: bool = True) -> torch.Tensor:
+    """The CUDA kernel's walk in fp32: q tiles of TILE rows, each with its
+    kv tiles of TILE rows (those wholly above a causal tile's last row
+    skipped) and a running (m, l, acc) from (-1e30, 0, 0) rescaled at every
+    tile in the log2 domain; then acc / max(l, 1e-30) in q's dtype. With
+    ``split`` (the kernel's two warpgroups on one q tile) the kv tiles go
+    alternately to two states and the second is merged into the first;
+    without, one state walks them all (a warpgroup that owns its q tile).
+    Only the tests call it."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    scale2 = float(np.float32(np.float32(d ** -0.5) * np.float32(LOG2E)))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty_like(q)
+    n_kv = -(-skv // TILE)
+    for q0 in range(0, sq, TILE):
+        rows = torch.arange(q0, min(q0 + TILE, sq), device=q.device)
+        n_tiles = min(n_kv, q0 // TILE + 1) if causal else n_kv
+        states = []
+        for first in ((0, 1) if split else (0,)):
+            m = torch.full((bh, len(rows)), NEG_INF, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((bh, len(rows), d), device=q.device)
+            for t in range(first, n_tiles, 2 if split else 1):
+                kv = slice(t * TILE, min((t + 1) * TILE, skv))
+                s = torch.einsum("bqd,bkd->bqk", qf[:, q0:q0 + len(rows)],
+                                 kf[:, kv]) * scale2
+                if causal:
+                    cols = torch.arange(kv.start, kv.stop, device=q.device)
+                    s = s.masked_fill(cols[None, :] > rows[:, None], NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = alpha * l + p.sum(-1)
+                acc = alpha[..., None] * acc + torch.einsum(
+                    "bqk,bkd->bqd", p, vf[:, kv])
+                m = m_new
+            states.append((m, l, acc))
+        m, l, acc = states[0]
+        if split:
+            m1, l1, a1 = states[1]
+            m_new = torch.maximum(m, m1)
+            f0, f1 = torch.exp2(m - m_new), torch.exp2(m1 - m_new)
+            l, acc = l * f0 + l1 * f1, acc * f0[..., None] + a1 * f1[..., None]
+        out[:, q0:q0 + len(rows)] = (acc / l.clamp_min(1e-30)[..., None]).to(
+            q.dtype)
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

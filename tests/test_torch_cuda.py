@@ -587,25 +587,49 @@ def test_int8_kernels_bit_identical_to_plain(cuda, n, case):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-@pytest.mark.parametrize("shape", [(3, 256, 256), (2, 200, 200),
-                                   (2, 128, 384)],
-                         ids=["square", "ragged", "rectangular"])
+@pytest.mark.parametrize("shape", [
+    (3, 256, 256), (2, 200, 200), (2, 128, 384), (2, 320, 320),
+    (2, 1000, 1000), (2, 200, 1000), (2, 1000, 200), (16, 2048, 2048),
+    (2, 1, 300), (40, 1000, 1000), (70, 200, 1000)],
+    ids=["square", "ragged", "rectangular", "odd_kv_tiles", "ragged_1000",
+         "sq_lt_skv", "sq_gt_skv", "multi_wave", "one_row",
+         "multi_wave_ragged", "multi_wave_sq_lt_skv"])
 def test_flash_attention_matches_plain(cuda, shape, d, dtype, causal):
+    """The kernel's edges: an odd number of kv tiles (the two warpgroups get
+    unequal halves), ragged Sq and Skv, causal with Sq < Skv and Sq > Skv,
+    grids of more than one wave (bf16 D = 128 there takes 128-row q tiles,
+    one per warpgroup), one query row."""
     bh, sq, skv = shape
     gen = torch.Generator(device=cuda).manual_seed(d + sq)
     q = torch.randn((bh, sq, d), generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn((bh, skv, d), generator=gen, device=cuda).to(dtype)
             for _ in range(2))
-    chunk = sq if sq == 200 else 32
     n0 = fa.flash_attention_fwd.launches
-    got = fa.flash_attention_fwd(q, k, v, causal=causal, q_chunk=chunk,
-                                 kv_chunk=chunk if sq == skv else 128)
+    got = fa.flash_attention_fwd(q, k, v, causal=causal, q_chunk=sq,
+                                 kv_chunk=skv)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == n0 + 1
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), fa.flash_attention_fwd_ref(
         q, k, v, causal).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_attention_same_bits_twice(cuda, dtype):
+    """The two warpgroups' states merge in a fixed order: two launches on
+    the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((4, 1000, 64), generator=gen,
+                           device=cuda).to(dtype) for _ in range(3))
+    for causal in (True, False):
+        a = fa.flash_attention_fwd(q, k, v, causal=causal, q_chunk=1000,
+                                   kv_chunk=1000)
+        b = fa.flash_attention_fwd(q, k, v, causal=causal, q_chunk=1000,
+                                   kv_chunk=1000)
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ prefill_attend``: heads grouped into (B*H, S, D), kv heads broadcast for
 GQA) against the reference's ``attend``.
 
 The CUDA kernel is held to the plain version on the card
-(tests/test_torch_cuda.py).
+(tests/test_torch_cuda.py); its walk over tiles (two partial states on
+alternate kv tiles, merged in a fixed order) is modelled in plain PyTorch
+by ``flash_attention_fwd_tiled`` and held here to the Pallas interpreter.
 
 Tolerances: the reference's own (tests/test_kernels.py:125-160), 2e-5 in
 fp32 and 2e-2 in bf16: the same function summed in another order (the
@@ -66,6 +68,29 @@ def test_flash_fwd_rectangular_matches_pallas_interpreter(causal):
                      interpret=True)
     got = fa.flash_attention_fwd(tq, tk, tv, causal=causal, q_chunk=32,
                                  kv_chunk=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL[False])
+
+
+@pytest.mark.parametrize("shape", [(2, 320, 320), (2, 200, 200),
+                                   (2, 128, 384)],
+                         ids=["square", "ragged", "rectangular"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("split", [True, False], ids=["split", "whole"])
+def test_flash_tiled_walk_matches_pallas_interpreter(split, causal, d,
+                                                     shape):
+    """The kernel's walks in fp32, the kv walk split between two states and
+    merged, or whole: 5 kv tiles (odd, unequal halves), a ragged last tile
+    of 8 rows, and Sq != Skv with absolute causal indices; within 2e-5 of
+    the Pallas kernel."""
+    bh, sq, skv = shape
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(
+        [(bh, sq, d), (bh, skv, d), (bh, skv, d)], False, seed=d + sq)
+    q_chunk, kv_chunk = (32, 128) if sq != skv else (sq, skv)
+    want = jax_flash(jq, jk, jv, causal=causal, q_chunk=q_chunk,
+                     kv_chunk=kv_chunk, interpret=True)
+    got = fa.flash_attention_fwd_tiled(tq, tk, tv, causal, split)
+    assert got.shape == (bh, sq, d) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL[False])
 
 
