@@ -2,14 +2,20 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only int8
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero (``--only int8`` runs the
+int8 kernels' checks and times of phase 2, the card's read, write and copy
+times at the same size, phase 6 and the int8 build report, in that order,
+and prints no contract lines):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
      from ``-Xptxas -v``, and its instruction counts from ``cuobjdump
      -sass``: every bf16 kernel must hold HGMMA (wgmma) and UTMALDG (TMA
-     loads), every fp32 kernel HMMA (3xTF32 ``mma.sync``);
+     loads), every fp32 kernel HMMA (3xTF32 ``mma.sync``); the same for
+     the int8 quantize and dequantize kernels, each of which must hold
+     128-bit global loads and stores (LDG/STG .128);
   2. at the slice's shape (full-width tinygpt-15m packed: R = 125,128 rows
      in 43 blocks) hold each kernel against its plain PyTorch version
      (plain, stats and in-place variants; the accumulator kernel under a
@@ -26,7 +32,9 @@ Phases, in order; any failure exits non-zero:
      four stacked blocks (L = 4; for correct_apply one block in each branch
      of Alg. 2: keep, anti, weak, degenerate) and on an odd length) and time
      both with CUDA events (median of 30 runs after a warm-up), beside one
-     PyTorch library call where there is one (one fake-quantize call against
+     PyTorch library call where there is one (``quantize_per_channel`` and
+     ``quantize_per_tensor`` beside the int8 quant sweeps, with how many
+     int8 values they give otherwise; one fake-quantize call against
      the int8 quant + dequant pair's sum; one ``torch.bmm`` over a
      pre-stacked basis for the Gram; ``torch.mm(S, S.T)`` over a pre-stacked
      (2, n) S for block_stats; ``torch.add(u, v, alpha=cv)`` for
@@ -68,11 +76,14 @@ Phases, in order; any failure exits non-zero:
   6. the per-tensor int8 entry points: ``kernels.ops.quantize_block`` and
      ``dequantize_block`` over the 43 leaves of a full-width state, one
      absmax, quantize_2d and dequantize_2d launch a leaf, each leaf bit for
-     bit against ``kernels/ref.py``'s ``ref_quantize``/``ref_dequantize``
-     (the three kernels themselves are held to their plain versions in the
-     kernel phase, on the largest leaf: a block on exact .5 ties, an
-     all-zero tensor, a clipped element, a NaN, an odd and an unaligned
-     length; flash_attention_fwd there too, bf16 within 2e-2 and fp32
+     bit against ``kernels/ref.py``'s ``ref_quantize``/``ref_dequantize``;
+     the pass's device and host time (the three kernels themselves are held
+     to their plain versions in the kernel phase, and timed there with
+     their inputs rotating over copies that exceed L2, on the largest leaf: a
+     block on exact .5 ties, an all-zero tensor, a clipped element, a NaN,
+     an odd and an unaligned length, lengths 15-17, q offset by 1-3 bytes,
+     quotients next to half-integers;
+     flash_attention_fwd there too, bf16 within 2e-2 and fp32
      within 2e-5 of its plain version at the serve shape (BH 32, S 1024,
      D 32), the prompt-128 shape, at (BH 16, S 4096, D 128) and on a
      rectangular 128 x 384, causal and not, timed beside
@@ -97,6 +108,7 @@ no ``src/repro_torch``, it prints why to stderr and exits 3.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import os
@@ -204,6 +216,8 @@ FLASH_SHAPES = ((32, 1024, 1024, 32), (32, 128, 128, 32),
 # the flash kernels' mangled names (route, D, 64-row q tiles per CTA), and
 # a SASS line's opcode
 FLASH_KERNEL = re.compile(r"flash_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d)E")
+# the per-tensor int8 sweeps' kernel names in the compiler's report and SASS
+INT8_SWEEP = re.compile(r"\d(quant_kernel|dequant_kernel)E")
 SASS_OP = re.compile(
     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 # the serve phase: batch x prompt, greedy tokens, then one long prefill;
@@ -236,13 +250,16 @@ def peaks_for(name: str):
 
 def time_ms(fn, iters=ITERS, warmup=3, hold=None):
     """Median device milliseconds of ``fn`` over ``iters`` runs, each
-    bracketed by its own CUDA events (the buffers exceed the 50 MB L2, so
-    runs start cold). Before each run the stream is held busy for about
-    0.5 ms (``torch.cuda._sleep``), longer than the host takes to dispatch
-    a call of a few launches, so the events time the device's work and
-    not the host's dispatch gaps; a call whose dispatch outlasts the hold
-    (a loop of many launches) is timed with its host gaps, unless ``hold``
-    (cycles) outlasts it."""
+    bracketed by its own CUDA events. Before each run the stream is held
+    busy for about 0.5 ms (``torch.cuda._sleep``), longer than the host
+    takes to dispatch a call of a few launches, so the events time the
+    device's work and not the host's dispatch gaps; a call whose dispatch
+    outlasts the hold (a loop of many launches) is timed with its host
+    gaps, unless ``hold`` (cycles) outlasts it. Runs follow each other as
+    in a stream of calls: the writes of one drain from L2 during the next.
+    Inputs larger than the 50 MB L2 are read from memory; a caller whose
+    inputs fit L2 passes an ``fn`` that rotates over copies of them
+    (``rotating``), or the run reads what the run before left in L2."""
     import torch
     for _ in range(warmup):
         fn()
@@ -257,6 +274,14 @@ def time_ms(fn, iters=ITERS, warmup=3, hold=None):
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def rotating(t, copies):
+    """A callable that returns ``t`` and ``copies - 1`` clones of it in
+    turn: timed calls that take their input from it find it in memory, not
+    in L2, when the copies together exceed the L2."""
+    ring = itertools.cycle([t] + [t.clone() for _ in range(copies - 1)])
+    return lambda: next(ring)
 
 
 def sum_errors(got, want):
@@ -306,6 +331,16 @@ def check_update(name, torch, fn, state, want, stats_want):
                 f"{name} {label} output {i} differs from the plain version by "
                 f"{(g - w).abs().max().item()}")
     return check_sums(f"{name} stats", with_stats[-1], stats_want)
+
+
+def bound_of(bw, flops):
+    """``bound(nbytes, nflops, peak=None)``: (ms, what bounds it), bytes over
+    the memory rate ``bw`` against operations over the peak (fp32 FMA,
+    ``flops``, unless ``peak`` names another, the bf16 tensor cores')."""
+    def bound(nbytes, nflops, peak=None):
+        t_b, t_f = nbytes / bw, nflops / (peak or flops)
+        return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+    return bound
 
 
 def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
@@ -395,12 +430,7 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
     print("int8 sweeps agree: rowabs, quant and dequant bit-identical to "
           "their plain versions (ties to even, zero block, clip)")
 
-    def bound(nbytes, nflops, peak=None):
-        """Bytes over the memory rate against operations over the peak
-        (fp32 FMA unless ``peak`` names another, the bf16 tensor cores')."""
-        t_b, t_f = nbytes / bw, nflops / (peak or flops)
-        return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
-
+    bound = bound_of(bw, flops)
     multi_rows = multi_phase(torch, pk, layout, dev, p, m, b, bound)
     leaf_rows = leaf_phase(torch, specs, dev, bound)
     int8_rows = int8_kernel_phase(torch, specs, dev, bound)
@@ -413,18 +443,27 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
     plane, table_bytes = n * f4, R * 4
     outs = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(b))
     # the library yardsticks of the int8 sweeps, timed only: one call each
-    # for rowabs and dequant (int8 times fp32 promotes to fp32), and one
-    # fake-quantize call for the quant + dequant pair, set against the
-    # pair's sum; PyTorch has no call for the int8 quant alone
+    # for rowabs, quant and dequant (int8 times fp32 promotes to fp32), and
+    # one fake-quantize call for the quant + dequant pair, set against the
+    # pair's sum. quant's is torch.quantize_per_channel on the same (R, 128)
+    # x with its per-row scales, made on the card before the timing; qint8
+    # clamps at -128 where the kernel clips at -127 (the last block's clip)
     s_rows = scale[rb.long()].contiguous()
     zeros = torch.zeros(R, dtype=torch.int32, device=dev)
+    s_double, row_zeros = s_rows.double(), zeros.long()
+    per_channel, pc_call, pc_differ = quantized_yardstick(
+        lambda: torch.quantize_per_channel(x, s_double, row_zeros, 0,
+                                           torch.qint8),
+        "torch.quantize_per_channel(x, s[:, None], 0, 0, torch.qint8)", q)
     library = {
         "packed_rowabs": lambda: torch.linalg.vector_norm(
             x, float("inf"), dim=1),
+        "packed_quant": per_channel,
         "packed_dequant": lambda: torch.mul(q, s_rows[:, None]),
     }
-    library_call = {
+    calls = {
         "packed_rowabs": "torch.linalg.vector_norm(x, inf, dim=1)",
+        "packed_quant": pc_call,
         "packed_dequant": "torch.mul(q, s[:, None])"}
     assert torch.equal(library["packed_dequant"](),
                        pk.packed_dequant_ref(q, scale, rb)), \
@@ -468,9 +507,11 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
         rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
                      "library_ms": time_ms(lib) if lib else None,
-                     "library_call": library_call.get(name),
+                     "library_call": calls.get(name),
                      **(pair if name in ("packed_quant", "packed_dequant")
                         else {}),
+                     **({"library_int8_differ": pc_differ}
+                        if name == "packed_quant" else {}),
                      "bytes": nbytes, "flops": nflops, "R": R, "blocks": B})
     # off the main path or around the kernels: reported, not in the summary
     st_bytes = 5 * plane + table_bytes + 2 * B * f4 + R * 4 * f4
@@ -1098,9 +1139,17 @@ def int8_kernel_phase(torch, specs, dev, bound):
     leaf (the tied embedding) held to their plain versions bit for bit: a
     block on exact .5 ties (max|x| 63.5, so the scale is 0.5), an all-zero
     tensor (the 1e-12 scale floor), a clipped case (quantize_2d given an
-    absmax of 2, a third of the elements beyond it), a NaN element, an odd length and an unaligned
-    view (the kernels' element-by-element tail and body); then timed, with
-    the library yardsticks. Returns their rows."""
+    absmax of 2, a third of the elements beyond it), a NaN element, an odd
+    length, an x offset by one element, lengths 15, 16 and 17 (around one
+    16-element unit of the vector body), q offset by 1, 2 and 3 bytes
+    (the kernels' element-by-element tail and path) and quotients next to
+    every half-integer at two scales (``quantize.near_half_quotients``);
+    then timed, with the library yardsticks (``quantize_per_tensor`` for
+    quantize_2d, and the count of int8 values where it differs). Each
+    timed call takes its input from a rotation of copies (x: 3 of 51.5 MB,
+    q: 8 of 12.9 MB), so that it reads it from memory, as the bounds count
+    it, and not from L2, where the call before would leave q. Returns their
+    rows."""
     from repro_torch.kernels import quantize as qk
     n = max(t.numel() for t in specs.values())
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1144,9 +1193,23 @@ def int8_kernel_phase(torch, specs, dev, bound):
     assert sn.isnan().all() and not qn.any()
     check("odd length", x[:n - 3])
     check("unaligned view", x[1:])
+    for m in (15, 16, 17):                   # around one 16-element unit
+        check(f"length {m}", x[:m])
+    for off in (1, 2, 3):                    # q not 16-byte aligned
+        view = q[off:]
+        assert same(qk.dequantize_2d(view, s),
+                    qk.dequantize_2d_ref(view, s)), \
+            f"dequantize_2d (q offset by {off} bytes) differs"
+    # quotients next to every half-integer: where the body's x * (1/s)
+    # hands over to the IEEE division
+    for sv in (0.37, 7.77e-9):
+        check(f"quotients near half-integers, s {sv}",
+              qk.near_half_quotients(sv, dev),
+              torch.full((1,), 127.0 * sv, device=dev))
     print(f"int8 kernels agree on {n} elements: absmax, quantize_2d and "
           "dequantize_2d bit-identical to their plain versions (ties to "
-          "even, zero tensor, clip, NaN, odd length, unaligned)")
+          "even, zero tensor, clip, NaN, odd length, unaligned x, lengths "
+          "15-17, q offset by 1-3 bytes, quotients near half-integers)")
 
     amax = qk.absmax(x)
     q, s = qk.quantize_2d(x, amax)
@@ -1154,24 +1217,33 @@ def int8_kernel_phase(torch, specs, dev, bound):
     lib_deq = torch.mul(q, s0d)
     assert same(lib_deq, qk.dequantize_2d_ref(q, s)), \
         "the dequantize yardstick computes another function"
+    xs, qs = rotating(x, 3), rotating(q, 8)
     pair = {"pair_ms": time_ms(lambda: qk.dequantize_2d(
-                *qk.quantize_2d(x, amax))),
+                *qk.quantize_2d(xs(), amax))),
             "library_pair_ms": time_ms(
                 lambda: torch.fake_quantize_per_tensor_affine(
-                    x, s0d, torch.zeros((), dtype=torch.int32, device=dev),
+                    xs(), s0d, torch.zeros((), dtype=torch.int32, device=dev),
                     -127, 127)),
             "library_pair_call": "torch.fake_quantize_per_tensor_affine"}
+    # quantize_2d's yardstick: torch.quantize_per_tensor, the scale handed
+    # over as a host value read before the timing; PyTorch multiplies by a
+    # rounded 1/s where the kernel divides, so the int8 values may differ
+    s_host = s.item()
+    per_tensor, call, differ = quantized_yardstick(
+        lambda: torch.quantize_per_tensor(xs(), s_host, 0, torch.qint8),
+        "torch.quantize_per_tensor(x, s, 0, torch.qint8)", q)
     f4 = 4
     rows = []
     for name, fn, plain, lib, call, nbytes, nflops in (
-            ("absmax", lambda: qk.absmax(x), lambda: qk.absmax_ref(x),
-             lambda: torch.linalg.vector_norm(x, float("inf")),
+            ("absmax", lambda: qk.absmax(xs()), lambda: qk.absmax_ref(xs()),
+             lambda: torch.linalg.vector_norm(xs(), float("inf")),
              "torch.linalg.vector_norm(x, inf)", n * f4 + f4, 2 * n),
-            ("quantize_2d", lambda: qk.quantize_2d(x, amax),
-             lambda: qk.quantize_2d_ref(x, amax), None, None,
+            ("quantize_2d", lambda: qk.quantize_2d(xs(), amax),
+             lambda: qk.quantize_2d_ref(xs(), amax), per_tensor, call,
              n * f4 + n + 2 * f4, 4 * n),
-            ("dequantize_2d", lambda: qk.dequantize_2d(q, s),
-             lambda: qk.dequantize_2d_ref(q, s), lambda: torch.mul(q, s0d),
+            ("dequantize_2d", lambda: qk.dequantize_2d(qs(), s),
+             lambda: qk.dequantize_2d_ref(qs(), s),
+             lambda: torch.mul(qs(), s0d),
              "torch.mul(q, s): the same bits", n + n * f4 + f4, n)):
         b_ms, by = bound(nbytes, nflops)
         rows.append({"name": name, "ms": time_ms(fn),
@@ -1179,8 +1251,21 @@ def int8_kernel_phase(torch, specs, dev, bound):
                      "bound_by": by, "max_abs_err": 0.0,
                      "library_ms": time_ms(lib) if lib else None,
                      "library_call": call, "bytes": nbytes, "flops": nflops,
-                     "n": n, **(pair if name != "absmax" else {})})
+                     "n": n, **(pair if name != "absmax" else {}),
+                     **({"library_int8_differ": differ}
+                        if name == "quantize_2d" else {})})
     return rows
+
+
+def quantized_yardstick(fn, call, want):
+    """A deprecated quantized-tensor call as a yardstick, timed only: (fn,
+    call, how many of its int8 values differ from ``want``); or, where the
+    card's PyTorch refuses it, (None, its error in its own words, None)."""
+    try:
+        got = fn().int_repr()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{call} refused: {str(e).splitlines()[0]}", None
+    return fn, call, int((got != want).sum())
 
 
 def flash_flops(sq, skv, d, causal):
@@ -1285,19 +1370,12 @@ def _cuobjdump():
     return next((c for c in found if c and os.path.isfile(c)), None)
 
 
-def flash_build_report(log, lib):
-    """Each flash kernel's registers, shared memory and spills from
-    ``-Xptxas -v`` (and any wgmma serialisation it reports), and its static
-    instruction counts from ``cuobjdump -sass`` of the built library. Fails
-    unless every bf16 kernel holds HGMMA (wgmma) and UTMALDG (TMA loads)
-    and every fp32 kernel HMMA (the 3xTF32 ``mma.sync``) and UTMALDG, or if
-    ``cuobjdump`` is missing."""
-    def route(line):
-        m = FLASH_KERNEL.search(line)
-        return m and (("bf16" if m.group(1) != "f" else "fp32")
-                      + f" D={m.group(2)} q{64 * int(m.group(3))}")
+def ptxas_report(log, route, label):
+    """Print each kernel's registers, shared memory and spills from the
+    ``-Xptxas -v`` log, and any wgmma serialisation it reports, for the
+    kernels ``route`` names (a name or None)."""
     if log == "cached":
-        print("flash kernels: built before this run, no ptxas report")
+        print(f"{label}: built before this run, no ptxas report")
     name = None
     for line in log.splitlines():
         if "C7512" in line and route(line):
@@ -1309,12 +1387,18 @@ def flash_build_report(log, lib):
         elif name and "registers" in line:
             print(f"ptxas {name}: {line.split(':', 1)[1].strip()}")
             name = None
+
+
+def sass_counts(lib, route):
+    """Static instruction counts, opcode with its modifiers, of each kernel
+    of the built library ``lib`` that ``route`` names (``cuobjdump -sass``;
+    fails if ``cuobjdump`` is missing)."""
     tool = _cuobjdump()
     assert tool, ("cuobjdump not found (CUDA_HOME/bin, PATH, triton): the "
-                  "flash kernels' SASS cannot be checked for HGMMA")
+                  "kernels' SASS cannot be checked")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts = {}
+    counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = route(line)
@@ -1323,8 +1407,28 @@ def flash_build_report(log, lib):
             continue
         m = SASS_OP.search(line)
         if name and m:
-            op = m.group(1).split(".")[0]
-            counts[name][op] = counts[name].get(op, 0) + 1
+            counts[name][m.group(1)] = counts[name].get(m.group(1), 0) + 1
+    return counts
+
+
+def flash_build_report(log, lib):
+    """Each flash kernel's registers, shared memory and spills from
+    ``-Xptxas -v`` (and any wgmma serialisation it reports), and its static
+    instruction counts from ``cuobjdump -sass`` of the built library. Fails
+    unless every bf16 kernel holds HGMMA (wgmma) and UTMALDG (TMA loads)
+    and every fp32 kernel HMMA (the 3xTF32 ``mma.sync``) and UTMALDG, or if
+    ``cuobjdump`` is missing."""
+    def route(line):
+        m = FLASH_KERNEL.search(line)
+        return m and (("bf16" if m.group(1) != "f" else "fp32")
+                      + f" D={m.group(2)} q{64 * int(m.group(3))}")
+    ptxas_report(log, route, "flash kernels")
+    counts = {}
+    for name, ops in sass_counts(lib, route).items():
+        counts[name] = {}
+        for op, k in ops.items():
+            base = op.split(".")[0]
+            counts[name][base] = counts[name].get(base, 0) + k
     # bf16 and fp32 at D 32, 64, 128 with 64-row q tiles; bf16 D 128 also
     # with 128-row ones
     assert len(counts) == 7, sorted(counts)
@@ -1336,24 +1440,54 @@ def flash_build_report(log, lib):
             "HMMA", "UTMALDG")
         assert all(c.get(op, 0) > 0 for op in need), (name, c)
     print(f"flash kernels: HGMMA and UTMALDG in every bf16 kernel, HMMA and "
-          f"UTMALDG in every fp32 kernel ({tool} -sass)")
+          f"UTMALDG in every fp32 kernel ({_cuobjdump()} -sass)")
+
+
+def int8_build_report(log, lib):
+    """The quantize and dequantize kernels' registers, shared memory and
+    spills from ``-Xptxas -v``, and their global and shared loads and
+    stores from ``cuobjdump -sass``. Fails unless each holds 128-bit global
+    loads and stores (``LDG.E.128``, ``STG.E.128`` or their ``.EF`` and
+    ``.CONSTANT`` forms): the 16-byte streaming body of ``csrc/quantize.cu``."""
+    def route(line):
+        m = INT8_SWEEP.search(line)
+        return m and m.group(1)
+    ptxas_report(log, route, "int8 kernels")
+    counts = sass_counts(lib, route)
+    assert sorted(counts) == ["dequant_kernel", "quant_kernel"], sorted(counts)
+    for name, c in sorted(counts.items()):
+        print(f"sass {name}: " + ", ".join(
+            f"{op} {k}" for op, k in sorted(c.items())
+            if op.startswith(("LDG", "STG", "LDS", "STS"))))
+        for kind in ("LDG", "STG"):
+            assert any(op.startswith(kind) and ".128" in op for op in c), (
+                f"{name} holds no 128-bit {kind}: {c}")
+    print("int8 kernels: 128-bit global loads and stores (LDG/STG .128) in "
+          "quant_kernel and dequant_kernel")
 
 
 def int8_path_phase(torch, kernels, specs, dev):
     """The per-tensor int8 entry points: ``ops.quantize_block`` and
     ``ops.dequantize_block`` on each leaf of a full-width state, with the
     counts set to 0 just before and read just after; each leaf bit for bit
-    against ``kernels/ref.py``. Returns the launches per kernel."""
+    against ``kernels/ref.py``. Then the pass is timed: its device time
+    (behind a hold that outlasts its dispatch) and its host time to a
+    synchronised end, medians of 10. Returns the launches per kernel."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(6)
     state = {k: torch.randn(t.shape, generator=gen, device=dev)
              for k, t in specs.items()}
+
+    def one_pass():
+        out = {}
+        for k, x in state.items():
+            q, s, n = ops.quantize_block(x)
+            out[k] = (q, s, n, ops.dequantize_block(q, s, tuple(x.shape)))
+        return out
+
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    out = {}
-    for k, x in state.items():
-        q, s, n = ops.quantize_block(x)
-        out[k] = (q, s, n, ops.dequantize_block(q, s, tuple(x.shape)))
+    out = one_pass()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     want = dict.fromkeys(counts, 0)
@@ -1369,7 +1503,45 @@ def int8_path_phase(torch, kernels, specs, dev):
           f"leaves, {counts['absmax']} absmax, {counts['quantize_2d']} "
           f"quantize_2d and {counts['dequantize_2d']} dequantize_2d launches, "
           "each leaf bit-identical to kernels/ref.py")
+    device_ms = time_ms(one_pass, iters=10, warmup=1, hold=SERVE_HOLD_CYCLES)
+    host_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_pass()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    print(json.dumps({"int8_path": "quantize_block + dequantize_block over "
+                                   f"the {len(specs)} leaves, full width",
+                      "device_ms": device_ms,
+                      "host_ms": statistics.median(host_ms),
+                      "launches": sum(counts.values())}))
     return {k: counts[k] for k in INT8_KERNELS}
+
+
+def int8_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only int8``: the int8 kernel phase (its checks and its times,
+    one JSON line a kernel), the card's own rates on the same 51.5 MB (a
+    read: ``x.sum()``; a write: a zero fill; both: a copy; timed as the
+    kernels are, x rotating over 3 copies), the 43-leaf int8 pass, and last the
+    int8 kernels' build report and SASS check. It measures the kernels of
+    ``src/`` beside this script: run from a copy of the repository whose
+    kernel was edited, it times the edit."""
+    for r in int8_kernel_phase(torch, specs, dev, bound):
+        print(json.dumps(r))
+    n = max(t.numel() for t in specs.values())
+    xs = rotating(torch.randn(n, device=dev), 3)
+
+    def copy():
+        x = xs()
+        return torch.empty_like(x).copy_(x)
+    print(json.dumps({"card_rates_at_n": n,
+                      "sum_ms": time_ms(lambda: xs().sum()),
+                      "fill_ms": time_ms(lambda: torch.empty(
+                          n, device=dev).zero_()),
+                      "copy_ms": time_ms(copy)}))
+    int8_path_phase(torch, kernels, specs, dev)
+    int8_build_report(log, lib)
 
 
 def serve_phase(torch, kernels, dev):
@@ -1529,7 +1701,14 @@ def serve_phase(torch, kernels, dev):
     return launches, prefills
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "NVIDIA GPU.")
+    ap.add_argument("--only", choices=("int8",),
+                    help="run one phase: build quantize.cu, check and time "
+                         "the per-tensor int8 kernels (int8_only)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1557,19 +1736,25 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(["quantize"] if args.only else _build.SOURCES)
     for src, (secs, log) in logs.items():
         print(f"build {src}.cu: {secs:.1f}s")
         print(log.strip())
     print(f"build phase: {time.perf_counter() - t0:.1f}s")
-    flash_build_report(logs["flash_attention"][1],
-                       _build.target("flash_attention"))
-
     specs = Model(get_config("tinygpt-15m")).param_specs()
     assert len(specs) == N_LEAVES, len(specs)
+    dev = torch.device("cuda")
+    if args.only:
+        int8_only(torch, all_kernels, specs, dev, bound_of(bw, flops),
+                  logs["quantize"][1], _build.target("quantize"))
+        print(smi)
+        return 0
+    flash_build_report(logs["flash_attention"][1],
+                       _build.target("flash_attention"))
+    int8_build_report(logs["quantize"][1], _build.target("quantize"))
+
     layout = build_layout(specs)
     assert (layout.n_rows, layout.n_blocks) == (125_128, 43), layout.n_rows
-    dev = torch.device("cuda")
     rows = kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
                         bf16_flops, tf32_flops)
     t0 = time.perf_counter()
@@ -1610,7 +1795,7 @@ def main() -> int:
                                   "library_pair_call") if k in r}
         extra = {k: r[k] for k in ("sequential_ms", "K", "max_rel_err",
                                    "dtype", "causal", "BH", "Sq", "D",
-                                   "cases") if k in r}
+                                   "cases", "library_int8_differ") if k in r}
         source = SOURCE.get(r["name"], "packed")
         kernels.append({
             "name": r["name"], "route": "cuda",

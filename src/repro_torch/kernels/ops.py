@@ -79,10 +79,11 @@ def quantize_block(x: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-tensor int8 of one tensor in two launches (absmax, quantize).
     Returns (q: the n elements flat, int8; scale: 0-d fp32; n: (1,) int32),
-    all on ``x``'s device. The reference's q is the same values padded with
-    zeros to its (R, 128) tiling."""
+    all on ``x``'s device, n filled there so that the host does not wait on
+    the stream. The reference's q is the same values padded with zeros to
+    its (R, 128) tiling."""
     q, scale = qk.quantize_2d(x.float().contiguous())
-    n = torch.tensor([x.numel()], dtype=torch.int32, device=x.device)
+    n = torch.full((1,), x.numel(), dtype=torch.int32, device=x.device)
     return q.reshape(-1), scale.reshape(()), n
 
 

@@ -17,8 +17,9 @@ within 1e-5 of its own scale: sqrt(uu*vv) for a dot product, the value
 itself for a sum of squares. The per-leaf kernels (csrc/leaf.cu) are held
 the same way: correct_apply and outer_update bit for bit, block_stats
 within 1e-5 of its own scale. The per-tensor int8 kernels (csrc/quantize.cu)
-bit for bit (a max is exact in any order; one IEEE division and a round
-half to even, one product back). flash_attention_fwd
+bit for bit (a max is exact in any order; the IEEE quotient, or x times
+the rounded 1/s where that rounds alike, and a round half to even; one
+product back). flash_attention_fwd
 (csrc/flash_attention.cu) within the reference's own bands of its plain
 version: 2e-5 in fp32, 2e-2 in bf16 (tests/test_kernels.py:125-160); a
 full-width prefill's logits within 2e-2 of their largest |value| of the
@@ -555,8 +556,13 @@ def _same(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["plain", "ties", "zero", "nan",
                                   "unaligned"])
-@pytest.mark.parametrize("n", [1, 7, 4096, 4099, 1_000_003])
-def test_int8_kernels_bit_identical_to_plain(cuda, n, case):
+@pytest.mark.parametrize("n", [1, 7, 15, 16, 17, 4096, 4099, 1_000_003,
+                               4_800_015, 4_800_017, 12_865_792])
+def test_per_tensor_int8_kernels_bit_identical_to_plain(cuda, n, case):
+    """The edges of the vector body's 16-element units (15, 16, 17), runs
+    of 16k +- 1 elements longer than one wave of the grid (4,325,376
+    elements on 132 SMs), the embedding's length; dequantize_2d also on q
+    offset by 1, 2 and 3 bytes (no vector body)."""
     x = _int8_input(case, n, cuda)
     n0 = (qk.absmax.launches, qk.quantize_2d.launches,
           qk.dequantize_2d.launches)
@@ -576,6 +582,24 @@ def test_int8_kernels_bit_identical_to_plain(cuda, n, case):
         assert _same(a, b)
     if case == "ties" and n >= 128:
         assert s.item() == 0.5 and q[1:5].tolist() == [-62, -62, -60, -60]
+    padded = torch.cat([q, torch.zeros(3, dtype=torch.int8, device=cuda)])
+    for off in (1, 2, 3):
+        view = padded[off:off + n]
+        assert _same(qk.dequantize_2d(view, s), qk.dequantize_2d_ref(view, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.37, 1.0 / 3.0, 0.0123, 7.77e-9])
+def test_quantize_2d_near_half_integer_quotients(cuda, scale):
+    """quantize_2d's body rounds x * (1/s) and leaves the IEEE division to
+    the quotients within |q0| * 2^-21 of a half-integer: near every one,
+    in the body and on the element path (x offset by one), bit for bit."""
+    x = qk.near_half_quotients(scale, cuda, random=1 << 20)
+    amax = torch.full((1,), 127.0 * scale, device=cuda)
+    for t in (x, x[1:]):
+        got, want = qk.quantize_2d(t, amax), qk.quantize_2d_ref(t, amax)
+        torch.cuda.synchronize()
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
 
 
 # ---------------------------------------------------------------------------

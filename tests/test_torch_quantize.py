@@ -109,3 +109,83 @@ def test_quantize_given_absmax_clips_and_wrappers_count_nothing_on_cpu():
         qk.absmax(x.double())
     with pytest.raises(ValueError):
         qk.dequantize_2d(q, torch.ones(2))
+
+
+# the wave of an H100 SXM at 6 and 8 resident CTAs of 256 threads on 132
+# SMs, and one smaller
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 4_099, 1_000_003,
+                               12_865_792])
+def test_int8_sweep_plan_covers_every_element_once(n, offset):
+    """``quantize.plan``'s (grid, units), walked as csrc/quantize.cu's
+    sweeps walk them: in trip t CTA b's body units [(t * grid + b) * 256,
+    ... + 256), 16 elements each, then the elements from 16 * units on over
+    every thread of the grid, a stride of grid * 256. Every element once;
+    the grid at most one wave, its trips as many as a full wave's and none
+    short by a CTA's units. With x offset by 1-3 elements (not 16-byte
+    aligned) there is no body."""
+    x = torch.empty(n + 3)[offset:offset + n]
+    q = torch.empty(n, dtype=torch.int8)
+    aligned = qk._aligned((x, 16), (q, 16))
+    assert aligned == (offset == 0) or n == 0    # an empty view: no data
+    for wave in (1056, 792, 264):
+        grid, units = qk.plan(n, aligned, wave)
+        assert units == (n // qk.UNIT if aligned else 0)
+        work, lanes = -(-n // qk.UNIT), grid * qk.THREADS
+        trips = max(1, -(-work // lanes))
+        assert 1 <= grid <= wave
+        assert trips == max(1, -(-work // (qk.THREADS * wave)))
+        assert trips * lanes - work < trips * qk.THREADS or work == 0
+        seen = []
+        for t in range(-(-units // lanes)):
+            ub = t * lanes + np.arange(lanes)
+            ub = ub[ub < units]
+            seen.append((qk.UNIT * ub[:, None] + np.arange(qk.UNIT)).ravel())
+        start = qk.UNIT * units
+        assert n - start < qk.UNIT or not aligned
+        for trip in range(-(-(n - start) // lanes)):
+            i = start + trip * lanes + np.arange(lanes)
+            seen.append(i[i < n])
+        cover = np.bincount(np.concatenate(seen + [np.zeros(0, int)]),
+                            minlength=n)
+        assert len(cover) == n and (cover == 1).all()
+
+
+def _rint_quotient(x, s):
+    """csrc/quantize.cu:rint_quotient in numpy float32: q0 = x * r with r =
+    1 / s rounded, rint(q0), and the IEEE quotient's rint where q0 lies
+    within |q0| * 2^-21 of a half-integer. Returns (result, where the
+    division decided)."""
+    f = np.float32
+    q0 = x * (f(1) / s)
+    k = np.rint(q0)
+    near = np.abs(np.abs(q0 - k) - f(0.5)) <= np.abs(q0) * f(2.0 ** -21)
+    return np.where(near, np.rint(x / s), k), near
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_rint_quotient_rule_equals_the_ieee_division(seed):
+    """The quantize body's rounding rule, in numpy float32 as the kernel
+    computes it (one rounding an operation, no fused multiply-add), gives
+    rint(x / s) of the IEEE quotient for every quotient next to each
+    half-integer up to 127.5 and for random ones, at the scales of the
+    card tests, the scale floor 1e-12 / 127 and 40 scales from 1e-14 to
+    1e30. The data reaches the rule's hard cases: x * r alone rounds apart
+    from the division on some of them, and the division decides there."""
+    rng = np.random.default_rng(seed)
+    scales = np.concatenate([[0.37, 1.0 / 3.0, 0.0123, 7.77e-9, 0.5,
+                              1e-12 / 127],
+                             10.0 ** rng.uniform(-14, 30, 40)])
+    apart = decided = 0
+    for s in scales.astype(np.float32):
+        x = qk.near_half_quotients(float(s), "cpu", random=1 << 12,
+                                   seed=seed).numpy()
+        x = np.concatenate([x, (rng.uniform(-3e5, 3e5, 1 << 12)
+                                * s).astype(np.float32)])
+        assert x.dtype == np.float32 and np.isfinite(x).all()
+        want = np.rint(x / s)
+        got, near = _rint_quotient(x, s)
+        np.testing.assert_array_equal(got, want, err_msg=f"scale {s}")
+        apart += int((np.rint(x * (np.float32(1) / s)) != want).sum())
+        decided += int(near.sum())
+    assert 0 < apart <= decided
