@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only int8
+    python3 chip_smoke.py --only leaf
 
 Phases, in order; any failure exits non-zero (``--only int8`` runs the
 int8 kernels' checks and times of phase 2, the card's read, write and copy
 times at the same size, phase 6 and the int8 build report, in that order,
-and prints no contract lines):
+and prints no contract lines; ``--only leaf`` the same for the per-leaf
+kernels: their checks and times of phase 2 with the 43-leaf correction
+pass, the card's rates, phase 4 and the leaf build report):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
      from ``-Xptxas -v``, and its instruction counts from ``cuobjdump
      -sass``: every bf16 kernel must hold HGMMA (wgmma) and UTMALDG (TMA
      loads), every fp32 kernel HMMA (3xTF32 ``mma.sync``); the same for
-     the int8 quantize and dequantize kernels, each of which must hold
-     128-bit global loads and stores (LDG/STG .128);
+     the int8 quantize and dequantize kernels, and the per-leaf
+     correct_apply (one block, stacked) and outer_update kernels, each of
+     which must hold 128-bit global loads and stores (LDG/STG .128), with
+     the resident CTAs an SM of the leaf kernels;
   2. at the slice's shape (full-width tinygpt-15m packed: R = 125,128 rows
      in 43 blocks) hold each kernel against its plain PyTorch version
      (plain, stats and in-place variants; the accumulator kernel under a
@@ -28,14 +33,18 @@ and prints no contract lines):
      is a delayed-Nesterov boundary; the multi-Gram sweep's per-row and
      per-block sums; the per-leaf kernels of ``csrc/leaf.cu`` on the
      largest leaf, the tied embedding (50257 x 256): block_stats within
-     TOL_SUM, correct_apply and outer_update_2d bit for bit, each also on
-     four stacked blocks (L = 4; for correct_apply one block in each branch
-     of Alg. 2: keep, anti, weak, degenerate) and on an odd length) and time
-     both with CUDA events (median of 30 runs after a warm-up), beside one
-     PyTorch library call where there is one (``quantize_per_channel`` and
-     ``quantize_per_tensor`` beside the int8 quant sweeps, with how many
-     int8 values they give otherwise; one fake-quantize call against
-     the int8 quant + dequant pair's sum; one ``torch.bmm`` over a
+     TOL_SUM, correct_apply and outer_update_2d bit for bit (outer_update_2d
+     also in place), each also on four stacked blocks (L = 4, of n / 4 and
+     of 4097; for correct_apply one block in each branch of Alg. 2: keep,
+     anti, weak, degenerate), on an odd length, on views offset by 1-3
+     elements and on lengths 15-17) and time both with CUDA events
+     (median of 30 runs after a warm-up; the per-leaf and int8 kernels and
+     their yardsticks with each input rotating over copies that together
+     exceed L2), beside one PyTorch library call where there is one
+     (``quantize_per_channel`` and ``quantize_per_tensor`` beside the int8
+     quant sweeps, with how many int8 values they give otherwise; one
+     fake-quantize call against the int8 quant + dequant pair's sum; one
+     ``torch.bmm`` over a
      pre-stacked basis for the Gram; ``torch.mm(S, S.T)`` over a pre-stacked
      (2, n) S for block_stats; ``torch.add(u, v, alpha=cv)`` for
      correct_apply with cu = 1; ``torch._fused_sgd_`` with Nesterov and
@@ -131,7 +140,8 @@ PEAKS = {"PCIe": (2.0e12, 51e12, 756e12, 378e12),
 
 ITERS = 30
 # time_ms's hold before each timed run: ~0.5 ms at the H100's ~2 GHz clock;
-# ~25 ms for a whole prefill or decode step, whose dispatch takes milliseconds
+# ~25 ms for a whole prefill or decode step or a 43-leaf pass, whose
+# dispatch takes milliseconds
 HOLD_CYCLES = 1_000_000
 SERVE_HOLD_CYCLES = 50_000_000
 # the batched commit path's flush depth in the kernel phase
@@ -218,6 +228,10 @@ FLASH_SHAPES = ((32, 1024, 1024, 32), (32, 128, 128, 32),
 FLASH_KERNEL = re.compile(r"flash_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d)E")
 # the per-tensor int8 sweeps' kernel names in the compiler's report and SASS
 INT8_SWEEP = re.compile(r"\d(quant_kernel|dequant_kernel)E")
+# the per-leaf elementwise sweeps' kernel names (correct_apply's template
+# argument: stacked blocks or not)
+LEAF_SWEEP = re.compile(r"\d(correct_apply_kernel|outer_update_kernel)"
+                        r"(?:ILb([01])E)?E")
 SASS_OP = re.compile(
     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 # the serve phase: batch x prompt, greedy tokens, then one long prefill;
@@ -731,10 +745,16 @@ def branch_blocks(torch, u4, gen):
 def leaf_phase(torch, specs, dev, bound):
     """The per-leaf kernels of ``csrc/leaf.cu`` on the largest leaf (the
     tied embedding) held to their plain versions: block_stats within
-    TOL_SUM, correct_apply and outer_update_2d bit for bit, as one block,
-    as four stacked blocks (one in each branch of Alg. 2 for the
-    correction) and on an odd length; then timed, with the library
-    yardsticks and the 43-leaf correction pass. Returns their rows."""
+    TOL_SUM, correct_apply and outer_update_2d bit for bit (outer_update_2d
+    also in place, its outputs p and m themselves), as one block, as four
+    stacked blocks (one in each branch of Alg. 2 for the correction) of the
+    embedding's n / 4 and of an odd 4097 elements (the sweeps' float4
+    straddle the blocks' boundaries), on an odd length, on views offset by
+    1-3 elements (no 16-byte alignment: the element-by-element path) and on
+    lengths 15, 16 and 17 (around one 16-element unit of the sweeps'
+    body); then timed, with the library yardsticks, each input rotating
+    over three copies that together exceed the 50 MB L2, and the 43-leaf
+    correction pass. Returns their rows."""
     from repro_torch.configs.base import HeLoCoConfig
     from repro_torch.core.heloco import block_correct
     from repro_torch.kernels import heloco_correct as hk
@@ -744,15 +764,19 @@ def leaf_phase(torch, specs, dev, bound):
     shape = tuple(max(specs.values(), key=lambda t: t.numel()).shape)
     n = math.prod(shape)
     gen = torch.Generator(device=dev).manual_seed(2)
-    u, v, p, m, g = (torch.randn(n, generator=gen, device=dev)
+    u, v, p, m, g = (torch.randn(n + 3, generator=gen, device=dev)
                      for _ in range(5))
     eta, mu, rho = 0.7, 0.9, 0.5
-    odd = n - 3
-    cases = {"one block": (1, n), "4 stacked blocks": (4, n // 4),
-             "odd length": (1, odd)}
+    # label: (blocks, block length, offset of the views in elements)
+    cases = {"one block": (1, n, 0), "4 stacked blocks": (4, n // 4, 0),
+             "4 stacked blocks of 4097": (4, 4097, 0),
+             "odd length": (1, n - 3, 0),
+             **{f"offset by {o}": (1, n, o) for o in (1, 2, 3)},
+             **{f"length {k}": (1, k, 0) for k in (15, 16, 17)}}
     errs, rels = [], []
-    for label, (blocks, k) in cases.items():
-        U, V = u[:blocks * k].view(blocks, k), v[:blocks * k].view(blocks, k)
+    for label, (blocks, k, off) in cases.items():
+        sl = slice(off, off + blocks * k)
+        U, V = u[sl].view(blocks, k), v[sl].view(blocks, k)
         if blocks == 4:
             V = branch_blocks(torch, U, gen)
         stats = hk.block_stats(U, V)
@@ -774,67 +798,81 @@ def leaf_phase(torch, specs, dev, bound):
         torch.cuda.synchronize()
         assert torch.equal(got, hk.correct_apply_ref(U, V, cu, cv)), \
             f"correct_apply ({label}) differs from the plain version"
-        sl = slice(0, blocks * k)
         args = [t[sl].view(blocks, k) for t in (p, m, g)]
         if label == "one block":
             args = [t.view(shape) for t in args]
         got = ok.outer_update_2d(*args, eta, mu, rho)
+        pm = [t.clone() for t in args[:2]]
+        ok.outer_update_2d(*pm, args[2], eta, mu, rho, out=pm)
         torch.cuda.synchronize()
         want = ok.outer_update_2d_ref(*args, eta, mu, rho)
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
-            f"outer_update_2d ({label}) differs from the plain version"
+        for how, outs in (("", got), (" in place", pm)):
+            assert all(torch.equal(a, b) for a, b in zip(outs, want)), \
+                f"outer_update_2d{how} ({label}) is not its plain version"
     print(f"leaf kernels agree on {shape} = {n} elements, as one block, four "
-          f"stacked blocks (keep, anti, weak, degenerate) and {odd} "
-          f"elements: block_stats err {max(errs):.3e} absolute, "
+          "stacked blocks (keep, anti, weak, degenerate) of n / 4 and of "
+          f"4097, an odd length, views offset by 1-3 elements and lengths "
+          f"15-17: block_stats err {max(errs):.3e} absolute, "
           f"{max(rels):.3e} of its own scale (each sum within {TOL_SUM} of "
-          "it), correct_apply and outer_update_2d "
+          "it), correct_apply and outer_update_2d (also in place) "
           "bit-identical to their plain versions")
 
     # timed on the embedding as one block; correct_apply at cu = 1, the
     # function of one torch.add (keep, anti and degenerate have cu = 1)
-    U, V = u.view(1, n), v.view(1, n)
+    U, V = u[:n].view(1, n), v[:n].view(1, n)
     cu = torch.ones(1, device=dev)
     cv = torch.full((1,), -0.3, device=dev)
-    S = torch.stack([u, v])
+    S = torch.stack([U[0], V[0]])
     gram = torch.mm(S, S.T)
     check_sums("torch.mm yardstick", torch.stack(
         [gram[0, 1], gram[0, 0], gram[1, 1]])[None], hk.block_stats(U, V))
-    lib_add = torch.add(u, v, alpha=-0.3)
+    lib_add = torch.add(U[0], V[0], alpha=-0.3)
     assert torch.allclose(lib_add, hk.correct_apply(U, V, cu, cv)[0],
                           rtol=1e-6, atol=1e-6), \
         "the correct_apply yardstick computes another function"
-    P, M, G = (t.view(shape) for t in (p, m, g))
+    P, M, G = (t[:n].view(shape) for t in (p, m, g))
     # outer_update_2d at rho = 1 is one Nesterov SGD step with dampening mu:
     # m' = mu m + (1 - mu) g, p' = p - eta (g + mu m'), in place on p and m
     # (the same 3 reads and 2 writes); ATen's fused kernel takes its scalars
     # in double, so it is held to the plain version within a few ulps
     P1, M1 = P.clone(), M.clone()
-
-    def fused_sgd():
-        torch._fused_sgd_([P1], [G], [M1], weight_decay=0.0, momentum=mu,
-                          lr=eta, dampening=mu, nesterov=True, maximize=False,
-                          is_first_step=False)
-
-    fused_sgd()
+    torch._fused_sgd_([P1], [G], [M1], weight_decay=0.0, momentum=mu, lr=eta,
+                      dampening=mu, nesterov=True, maximize=False,
+                      is_first_step=False)
     for got, want in zip((P1, M1), ok.outer_update_2d_ref(P, M, G, eta, mu,
                                                           1.0)):
         assert torch.allclose(got, want, rtol=1e-6, atol=1e-6), \
             "the outer_update_2d yardstick computes another function"
+    # each timed call takes its inputs from rotations of three copies, so
+    # that it reads them from memory, as the bounds count them
+    us, vs, ss = rotating(U, 3), rotating(V, 3), rotating(S, 3)
+    ps, ms, gs = rotating(P, 3), rotating(M, 3), rotating(G, 3)
+    ps1, ms1 = rotating(P1, 3), rotating(M1, 3)
+
+    def fused_sgd():
+        torch._fused_sgd_([ps1()], [gs()], [ms1()], weight_decay=0.0,
+                          momentum=mu, lr=eta, dampening=mu, nesterov=True,
+                          maximize=False, is_first_step=False)
+
+    def mm():
+        x = ss()
+        return torch.mm(x, x.T)
+
     f4 = 4
     rows = []
     for name, fn, plain, lib, call, nbytes, nflops, err in (
-            ("block_stats", lambda: hk.block_stats(U, V),
-             lambda: hk.block_stats_ref(U, V), lambda: torch.mm(S, S.T),
+            ("block_stats", lambda: hk.block_stats(us(), vs()),
+             lambda: hk.block_stats_ref(us(), vs()), mm,
              "torch.mm(S, S.T) over a pre-stacked (2, n) S = [u; v] (the "
              "stack not timed)", 2 * n * f4 + 3 * f4, 6 * n, max(errs)),
-            ("correct_apply", lambda: hk.correct_apply(U, V, cu, cv),
-             lambda: hk.correct_apply_ref(U, V, cu, cv),
-             lambda: torch.add(u, v, alpha=-0.3),
+            ("correct_apply", lambda: hk.correct_apply(us(), vs(), cu, cv),
+             lambda: hk.correct_apply_ref(us(), vs(), cu, cv),
+             lambda: torch.add(us()[0], vs()[0], alpha=-0.3),
              "torch.add(u, v, alpha=cv), the same function at cu = 1",
              3 * n * f4 + 2 * f4, 3 * n, 0.0),
-            ("outer_update_2d", lambda: ok.outer_update_2d(P, M, G, eta, mu,
-                                                           rho),
-             lambda: ok.outer_update_2d_ref(P, M, G, eta, mu, rho),
+            ("outer_update_2d", lambda: ok.outer_update_2d(
+                ps(), ms(), gs(), eta, mu, rho),
+             lambda: ok.outer_update_2d_ref(ps(), ms(), gs(), eta, mu, rho),
              fused_sgd,
              "torch._fused_sgd_ (nesterov, dampening = momentum = mu, "
              "lr = eta) in place on clones of p and m, the same function at "
@@ -847,7 +885,7 @@ def leaf_phase(torch, specs, dev, bound):
                      "library_call": call, "bytes": nbytes, "flops": nflops,
                      "n": n, "L": 1})
     rows[0]["max_rel_err"] = max(rels)
-    del S, gram, lib_add, P1, M1
+    del S, gram, lib_add, P1, M1, us, vs, ss, ps, ms, gs, ps1, ms1
     # the 43-leaf correction pass of one per-leaf HeLoCo arrival
     delta = {k: torch.randn(t.shape, generator=gen, device=dev)
              for k, t in specs.items()}
@@ -860,12 +898,16 @@ def leaf_phase(torch, specs, dev, bound):
             hk.block_stats(a, b)
             hk.correct_apply(a, b, cu, cv)
 
+    def device_ms(fn):
+        """Device time of a pass whose dispatch outlasts the default hold."""
+        return time_ms(fn, iters=10, warmup=1, hold=SERVE_HOLD_CYCLES)
+
     print(json.dumps({
         "op": f"block_correct over {len(specs)} leaves = block_stats + "
-              "branch_scalars + correct_apply per leaf",
-        "ms": time_ms(lambda: block_correct(delta, mom, h, use_kernel=True)),
-        "plain_ms": time_ms(lambda: block_correct(delta, mom, h)),
-        "kernels_only_ms": time_ms(kernels_only),
+              "branch_scalars + correct_apply per leaf (device time)",
+        "ms": device_ms(lambda: block_correct(delta, mom, h, use_kernel=True)),
+        "plain_ms": device_ms(lambda: block_correct(delta, mom, h)),
+        "kernels_only_ms": device_ms(kernels_only),
         "elements": sum(t.numel() for t in specs.values())}))
     return rows
 
@@ -1443,18 +1485,16 @@ def flash_build_report(log, lib):
           f"UTMALDG in every fp32 kernel ({_cuobjdump()} -sass)")
 
 
-def int8_build_report(log, lib):
-    """The quantize and dequantize kernels' registers, shared memory and
+def wide_access_report(log, lib, route, names, label):
+    """The kernels ``route`` names: their registers, shared memory and
     spills from ``-Xptxas -v``, and their global and shared loads and
-    stores from ``cuobjdump -sass``. Fails unless each holds 128-bit global
-    loads and stores (``LDG.E.128``, ``STG.E.128`` or their ``.EF`` and
-    ``.CONSTANT`` forms): the 16-byte streaming body of ``csrc/quantize.cu``."""
-    def route(line):
-        m = INT8_SWEEP.search(line)
-        return m and m.group(1)
-    ptxas_report(log, route, "int8 kernels")
+    stores from ``cuobjdump -sass``. Fails unless the library holds exactly
+    the kernels ``names`` and each holds 128-bit global loads and stores
+    (``LDG.E.128``, ``STG.E.128`` or their ``.EF`` and ``.CONSTANT``
+    forms): a 16-byte streaming body."""
+    ptxas_report(log, route, label)
     counts = sass_counts(lib, route)
-    assert sorted(counts) == ["dequant_kernel", "quant_kernel"], sorted(counts)
+    assert sorted(counts) == sorted(names), sorted(counts)
     for name, c in sorted(counts.items()):
         print(f"sass {name}: " + ", ".join(
             f"{op} {k}" for op, k in sorted(c.items())
@@ -1462,8 +1502,36 @@ def int8_build_report(log, lib):
         for kind in ("LDG", "STG"):
             assert any(op.startswith(kind) and ".128" in op for op in c), (
                 f"{name} holds no 128-bit {kind}: {c}")
-    print("int8 kernels: 128-bit global loads and stores (LDG/STG .128) in "
-          "quant_kernel and dequant_kernel")
+    print(f"{label}: 128-bit global loads and stores (LDG/STG .128) in "
+          + ", ".join(sorted(names)))
+
+
+def int8_build_report(log, lib):
+    """``wide_access_report`` of the int8 quantize and dequantize kernels
+    (``csrc/quantize.cu``)."""
+    def route(line):
+        m = INT8_SWEEP.search(line)
+        return m and m.group(1)
+    wide_access_report(log, lib, route, ("quant_kernel", "dequant_kernel"),
+                       "int8 kernels")
+
+
+def leaf_build_report(log, lib):
+    """``wide_access_report`` of the per-leaf elementwise kernels
+    (``csrc/leaf.cu``: correct_apply on one block and on stacked blocks,
+    outer_update), then the resident CTAs of 256 threads an SM of each
+    from the CUDA occupancy query."""
+    from repro_torch.kernels import heloco_correct as hk
+
+    def route(line):
+        m = LEAF_SWEEP.search(line)
+        return m and m.group(1) + {None: "", "0": "[one block]",
+                                   "1": "[stacked]"}[m.group(2)]
+    names = ("correct_apply_kernel[one block]",
+             "correct_apply_kernel[stacked]", "outer_update_kernel")
+    wide_access_report(log, lib, route, names, "leaf kernels")
+    print("leaf kernels, resident CTAs an SM: " + ", ".join(
+        f"{k} {c}" for k, c in zip(names, hk.ctas_per_sm(0))))
 
 
 def int8_path_phase(torch, kernels, specs, dev):
@@ -1519,17 +1587,10 @@ def int8_path_phase(torch, kernels, specs, dev):
     return {k: counts[k] for k in INT8_KERNELS}
 
 
-def int8_only(torch, kernels, specs, dev, bound, log, lib):
-    """``--only int8``: the int8 kernel phase (its checks and its times,
-    one JSON line a kernel), the card's own rates on the same 51.5 MB (a
-    read: ``x.sum()``; a write: a zero fill; both: a copy; timed as the
-    kernels are, x rotating over 3 copies), the 43-leaf int8 pass, and last the
-    int8 kernels' build report and SASS check. It measures the kernels of
-    ``src/`` beside this script: run from a copy of the repository whose
-    kernel was edited, it times the edit."""
-    for r in int8_kernel_phase(torch, specs, dev, bound):
-        print(json.dumps(r))
-    n = max(t.numel() for t in specs.values())
+def card_rates(torch, n, dev):
+    """The card's own rates on n fp32 elements, timed as the kernels are
+    (x rotating over 3 copies): a read (``x.sum()``), a write (a zero
+    fill) and both (a copy); one JSON line."""
     xs = rotating(torch.randn(n, device=dev), 3)
 
     def copy():
@@ -1540,8 +1601,34 @@ def int8_only(torch, kernels, specs, dev, bound, log, lib):
                       "fill_ms": time_ms(lambda: torch.empty(
                           n, device=dev).zero_()),
                       "copy_ms": time_ms(copy)}))
+
+
+def int8_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only int8``: the int8 kernel phase (its checks and its times,
+    one JSON line a kernel), the card's own rates on the same 51.5 MB
+    (``card_rates``), the 43-leaf int8 pass, and last the int8 kernels'
+    build report and SASS check. It measures the kernels of ``src/``
+    beside this script: run from a copy of the repository whose kernel was
+    edited, it times the edit."""
+    for r in int8_kernel_phase(torch, specs, dev, bound):
+        print(json.dumps(r))
+    card_rates(torch, max(t.numel() for t in specs.values()), dev)
     int8_path_phase(torch, kernels, specs, dev)
     int8_build_report(log, lib)
+
+
+def leaf_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only leaf``: the per-leaf kernel phase (its checks, its times,
+    one JSON line a kernel, and the 43-leaf correction pass), the card's
+    own rates at the embedding's n (``card_rates``), the single-tensor
+    pass, and last the leaf kernels' build report and SASS check. As
+    ``int8_only``, it measures the kernels of ``src/`` beside this
+    script."""
+    for r in leaf_phase(torch, specs, dev, bound):
+        print(json.dumps(r))
+    card_rates(torch, max(t.numel() for t in specs.values()), dev)
+    single_tensor_phase(torch, kernels, specs, dev)
+    leaf_build_report(log, lib)
 
 
 def serve_phase(torch, kernels, dev):
@@ -1705,9 +1792,11 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "NVIDIA GPU.")
-    ap.add_argument("--only", choices=("int8",),
-                    help="run one phase: build quantize.cu, check and time "
-                         "the per-tensor int8 kernels (int8_only)")
+    ap.add_argument("--only", choices=tuple(ONLY),
+                    help="run one phase: int8 builds quantize.cu, checks and "
+                         "times the per-tensor int8 kernels (int8_only); "
+                         "leaf builds leaf.cu, checks and times the per-leaf "
+                         "kernels (leaf_only)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1736,7 +1825,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["quantize"] if args.only else _build.SOURCES)
+    logs = _build.build_all([ONLY[args.only][0]] if args.only
+                            else _build.SOURCES)
     for src, (secs, log) in logs.items():
         print(f"build {src}.cu: {secs:.1f}s")
         print(log.strip())
@@ -1745,13 +1835,15 @@ def main(argv=None) -> int:
     assert len(specs) == N_LEAVES, len(specs)
     dev = torch.device("cuda")
     if args.only:
-        int8_only(torch, all_kernels, specs, dev, bound_of(bw, flops),
-                  logs["quantize"][1], _build.target("quantize"))
+        src, run_only = ONLY[args.only]
+        run_only(torch, all_kernels, specs, dev, bound_of(bw, flops),
+                 logs[src][1], _build.target(src))
         print(smi)
         return 0
     flash_build_report(logs["flash_attention"][1],
                        _build.target("flash_attention"))
     int8_build_report(logs["quantize"][1], _build.target("quantize"))
+    leaf_build_report(logs["leaf"][1], _build.target("leaf"))
 
     layout = build_layout(specs)
     assert (layout.n_rows, layout.n_blocks) == (125_128, 43), layout.n_rows
@@ -1813,6 +1905,10 @@ def main(argv=None) -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
+
+
+# --only: the source each one-phase run builds, and the phase
+ONLY = {"int8": ("quantize", int8_only), "leaf": ("leaf", leaf_only)}
 
 
 if __name__ == "__main__":

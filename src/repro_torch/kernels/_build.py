@@ -109,6 +109,18 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def ctas_per_sm(query, index: int, count: int) -> Tuple[int, ...]:
+    """The resident CTAs one SM of CUDA device ``index`` holds of each of
+    ``count`` kernels, from the C occupancy query ``query`` (``count`` int
+    pointers)."""
+    ctas = [ctypes.c_int() for _ in range(count)]
+    with torch.cuda.device(index):
+        err = query(*(ctypes.byref(c) for c in ctas))
+    if err != 0:
+        raise RuntimeError(f"{query.__name__}: CUDA error {err}")
+    return tuple(c.value for c in ctas)
+
+
 def check_cuda(*tensors: torch.Tensor):
     """Tensors a kernel reads element by element: on the card, contiguous."""
     for t in tensors:

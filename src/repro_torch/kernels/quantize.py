@@ -12,15 +12,15 @@ padded to the reference's (R, 128) TPU tiling; q has x's shape. The names
 are the reference's.
 
 Each sweep is bound by bytes: 5 a element, 64.3 MB and 0.0192 ms at 3.35
-TB/s for the tied embedding of tinygpt-15m (n = 12,865,792). ``plan``
-sizes the launch: a body of 16-element units, 16 bytes of int8 and 64 of
-fp32 a lane, walked grid-stride by at most one resident wave (the CTAs an
-SM holds, read once from the CUDA occupancy query, times the SMs) in
-whole waves; the elements after it, or all of an unaligned tensor, one by
-one. On an NVIDIA H100 80GB HBM3 at a 700 W power limit, timed as in a
-stream of calls that read their inputs from memory, that walk runs
-quantize_2d in 0.0251 ms (76 % of the bound) and dequantize_2d in 0.0280
-(68 %), and the pair in 0.0447 against
+TB/s for the tied embedding of tinygpt-15m (n = 12,865,792).
+``tiling.plan`` sizes the launch: a body of 16-element units, 16 bytes of
+int8 and 64 of fp32 a lane, walked grid-stride by at most one resident
+wave (the CTAs an SM holds, read once from the CUDA occupancy query, times
+the SMs) in whole waves; the elements after it, or all of an unaligned
+tensor, one by one. On an NVIDIA H100 80GB HBM3 at a 700 W power limit,
+timed as in a stream of calls that read their inputs from memory, that
+walk runs quantize_2d in 0.0251 ms (76 % of the bound) and dequantize_2d
+in 0.0280 (68 %), and the pair in 0.0447 against
 ``torch.fake_quantize_per_tensor_affine``'s 0.052; the design and its
 alternatives are in ``csrc/quantize.cu``.
 
@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.packing import true_div
 from repro_torch.kernels import _build
+from repro_torch.kernels.tiling import aligned, plan
 
 _ptr = ctypes.c_void_p
 _n = ctypes.c_longlong
@@ -53,10 +54,6 @@ _SIGNATURES = {
 # 16 each), and CTAs that fill the card (8 per SM)
 _MIN_CHUNK = 4096
 _CTAS_PER_SM = 8
-# quantize_2d / dequantize_2d: elements a lane takes per trip of the
-# vector body, and threads per CTA (csrc/quantize.cu's kUnit, kThreads)
-UNIT = 16
-THREADS = 256
 SCALE_FLOOR = 1e-12
 QMAX = 127
 
@@ -66,40 +63,13 @@ def _lib():
     return _build.bind("quantize", _SIGNATURES)
 
 
-def _aligned(*pairs) -> int:
-    """1 if each (tensor, bytes) pointer is a multiple of its bytes: the
-    kernels' vector body may run."""
-    return int(all(t.data_ptr() % b == 0 for t, b in pairs))
-
-
 @functools.cache
 def _waves(index: int) -> Tuple[int, int]:
     """CTAs of one resident wave of the quantize and the dequantize sweep on
     CUDA device ``index``: the CTAs one SM holds of each, times the SMs."""
-    quant, dequant = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(index):
-        err = _lib().quantize_ctas_per_sm(ctypes.byref(quant),
-                                          ctypes.byref(dequant))
-    if err != 0:
-        raise RuntimeError(f"quantize_ctas_per_sm: CUDA error {err}")
     sms = _build.sm_count(index)
-    return quant.value * sms, dequant.value * sms
-
-
-def plan(n: int, aligned: bool, wave: int) -> Tuple[int, int]:
-    """(grid, units) of one int8 sweep over n elements. ``units``: the
-    16-element units of the vector body, ``n // 16`` when x and q are
-    16-byte aligned, else 0. The body is a grid-stride walk: in trip t CTA
-    b takes the units ``[(t * grid + b) * 256, ... + 256)``; the elements
-    from ``16 * units`` on (all n when units = 0) then go one by one over
-    every thread of the grid. ``grid``: at most one resident wave (``wave``
-    CTAs), the fewest CTAs that cover the work in the trips a full wave
-    would take, so that the trips are whole waves but for less than one
-    CTA's units each; at least 1."""
-    units = n // UNIT if aligned else 0
-    work = -(-n // UNIT)
-    trips = max(1, -(-work // (THREADS * wave)))
-    return max(1, -(-work // (THREADS * trips))), units
+    return tuple(c * sms for c in _build.ctas_per_sm(
+        _lib().quantize_ctas_per_sm, index, 2))
 
 
 def _check(x: torch.Tensor, dtype: torch.dtype, name: str):
@@ -137,7 +107,7 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
             if chunks > 1 else out)
     _build.launch("absmax", _lib().absmax_f32, x.device, x.data_ptr(),
                   part.data_ptr(), out.data_ptr(), n, chunks,
-                  _aligned((x, 16)))
+                  aligned((x, 16)))
     absmax.launches += 1
     return out
 
@@ -180,7 +150,7 @@ def quantize_2d(x: torch.Tensor, amax: Optional[torch.Tensor] = None
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty(1, dtype=torch.float32, device=x.device)
     n = x.numel()
-    grid, units = plan(n, _aligned((x, 16), (q, 16)),
+    grid, units = plan(n, aligned((x, 16), (q, 16)),
                        _waves(x.device.index)[0])
     _build.launch("quantize_2d", _lib().quantize_f32, x.device, x.data_ptr(),
                   amax.data_ptr(), q.data_ptr(), scale.data_ptr(), n, units,
@@ -211,7 +181,7 @@ def dequantize_2d(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     _build.check_cuda(q, scale)
     x = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     n = q.numel()
-    grid, units = plan(n, _aligned((q, 16), (x, 16)),
+    grid, units = plan(n, aligned((q, 16), (x, 16)),
                        _waves(q.device.index)[1])
     _build.launch("dequantize_2d", _lib().dequantize_f32, q.device,
                   q.data_ptr(), scale.data_ptr(), x.data_ptr(), n, units,

@@ -442,16 +442,21 @@ def test_batched_scenario_on_the_card_matches_golden(cuda, name):
 # The per-leaf kernels (csrc/leaf.cu)
 # ---------------------------------------------------------------------------
 
-# (L, n): one block and stacked ones, n odd and around the 4 x 256 elements
-# a thread group covers per step and the 4096 of a statistics chunk, up to
-# tinygpt-15m's embedding leaf (50257 x 256)
-LEAF_SHAPES = [(1, 7), (1, 1023), (1, 1025), (4, 4097), (3, 128_003),
-               (1, 12_865_792)]
+# (L, n): one block and stacked ones, n odd, around one 16-element unit of
+# the elementwise sweeps' body (15-17), around the 4096 of a statistics
+# chunk, and stacked blocks whose boundaries fall inside a float4 (4097,
+# 128003), up to tinygpt-15m's embedding leaf (50257 x 256)
+LEAF_SHAPES = [(1, 7), (1, 15), (1, 16), (1, 17), (1, 1023), (1, 1025),
+               (4, 4097), (3, 128_003), (1, 12_865_792)]
 
 
-def _leaf_tensors(shape, dev, n, seed=0):
+def _leaf_tensors(shape, dev, n, seed=0, offset=0):
+    """n random (L, n) fp32 tensors; with an offset, views that many
+    elements into their storage (not 16-byte aligned for 1-3)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn(shape, generator=gen, device=dev) for _ in range(n)]
+    size = shape[0] * shape[1]
+    return [torch.randn(size + offset, generator=gen, device=dev)[offset:]
+            .view(shape) for _ in range(n)]
 
 
 @pytest.mark.cuda
@@ -468,12 +473,16 @@ def test_block_stats_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
 @pytest.mark.parametrize("shape", LEAF_SHAPES)
-def test_correct_apply_bit_identical_to_plain(cuda, shape):
-    u, v = _leaf_tensors(shape, cuda, 2, seed=1)
+def test_correct_apply_bit_identical_to_plain(cuda, shape, offset):
+    """Every block its own (cu, cv); a float4 of the body that straddles
+    two blocks (n % 4 != 0) must take each element's own."""
+    u, v = _leaf_tensors(shape, cuda, 2, seed=1, offset=offset)
     gen = torch.Generator(device=cuda).manual_seed(2)
     cu = torch.rand(shape[0], generator=gen, device=cuda) + 0.5
     cv = torch.rand(shape[0], generator=gen, device=cuda) - 0.5
+    assert len(set(cu.tolist())) == len(set(cv.tolist())) == shape[0]
     n0 = hk.correct_apply.launches
     got = hk.correct_apply(u, v, cu, cv)
     torch.cuda.synchronize()
@@ -482,14 +491,20 @@ def test_correct_apply_bit_identical_to_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
 @pytest.mark.parametrize("shape", LEAF_SHAPES)
-def test_outer_update_bit_identical_to_plain(cuda, shape):
-    p, m, g = _leaf_tensors(shape, cuda, 3, seed=3)
+def test_outer_update_bit_identical_to_plain(cuda, shape, offset, in_place):
+    """New outputs, or in place: out=(p, m), each element read and then
+    written by one thread."""
+    p, m, g = _leaf_tensors(shape, cuda, 3, seed=3, offset=offset)
+    want = ok.outer_update_2d_ref(p, m, g, 0.7, 0.9, 0.447)
     n0 = ok.outer_update_2d.launches
-    got = ok.outer_update_2d(p, m, g, 0.7, 0.9, 0.447)
+    got = ok.outer_update_2d(p, m, g, 0.7, 0.9, 0.447,
+                             out=(p, m) if in_place else None)
     torch.cuda.synchronize()
     assert ok.outer_update_2d.launches == n0 + 1
-    want = ok.outer_update_2d_ref(p, m, g, 0.7, 0.9, 0.447)
+    assert (got[0].data_ptr() == p.data_ptr()) == in_place
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 

@@ -23,6 +23,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quantize as qk
+from repro_torch.kernels import tiling
 from test_kernels import SHAPES
 
 
@@ -117,7 +118,7 @@ def test_quantize_given_absmax_clips_and_wrappers_count_nothing_on_cpu():
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 4_099, 1_000_003,
                                12_865_792])
 def test_int8_sweep_plan_covers_every_element_once(n, offset):
-    """``quantize.plan``'s (grid, units), walked as csrc/quantize.cu's
+    """``tiling.plan``'s (grid, units), walked as csrc/quantize.cu's
     sweeps walk them: in trip t CTA b's body units [(t * grid + b) * 256,
     ... + 256), 16 elements each, then the elements from 16 * units on over
     every thread of the grid, a stride of grid * 256. Every element once;
@@ -126,23 +127,23 @@ def test_int8_sweep_plan_covers_every_element_once(n, offset):
     aligned) there is no body."""
     x = torch.empty(n + 3)[offset:offset + n]
     q = torch.empty(n, dtype=torch.int8)
-    aligned = qk._aligned((x, 16), (q, 16))
+    aligned = tiling.aligned((x, 16), (q, 16))
     assert aligned == (offset == 0) or n == 0    # an empty view: no data
     for wave in (1056, 792, 264):
-        grid, units = qk.plan(n, aligned, wave)
-        assert units == (n // qk.UNIT if aligned else 0)
-        work, lanes = -(-n // qk.UNIT), grid * qk.THREADS
+        grid, units = tiling.plan(n, aligned, wave)
+        assert units == (n // tiling.UNIT if aligned else 0)
+        work, lanes = -(-n // tiling.UNIT), grid * tiling.THREADS
         trips = max(1, -(-work // lanes))
         assert 1 <= grid <= wave
-        assert trips == max(1, -(-work // (qk.THREADS * wave)))
-        assert trips * lanes - work < trips * qk.THREADS or work == 0
+        assert trips == max(1, -(-work // (tiling.THREADS * wave)))
+        assert trips * lanes - work < trips * tiling.THREADS or work == 0
         seen = []
         for t in range(-(-units // lanes)):
             ub = t * lanes + np.arange(lanes)
             ub = ub[ub < units]
-            seen.append((qk.UNIT * ub[:, None] + np.arange(qk.UNIT)).ravel())
-        start = qk.UNIT * units
-        assert n - start < qk.UNIT or not aligned
+            seen.append((tiling.UNIT * ub[:, None] + np.arange(tiling.UNIT)).ravel())
+        start = tiling.UNIT * units
+        assert n - start < tiling.UNIT or not aligned
         for trip in range(-(-(n - start) // lanes)):
             i = start + trip * lanes + np.arange(lanes)
             seen.append(i[i < n])
