@@ -4,13 +4,16 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only int8
     python3 chip_smoke.py --only leaf
+    python3 chip_smoke.py --only telemetry
 
 Phases, in order; any failure exits non-zero (``--only int8`` runs the
 int8 kernels' checks and times of phase 2, the card's read, write and copy
 times at the same size, phase 6 and the int8 build report, in that order,
 and prints no contract lines; ``--only leaf`` the same for the per-leaf
 kernels: their checks and times of phase 2 with the 43-leaf correction
-pass, the card's rates, phase 4 and the leaf build report):
+pass, the card's rates, phase 4 and the leaf build report; ``--only
+telemetry`` builds the packed sweeps and times a packed server's commit
+calls without and with telemetry, and the pieces telemetry adds):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
@@ -59,7 +62,10 @@ pass, the card's rates, phase 4 and the leaf build report):
      packed int8 compression and error feedback), then the batched commit
      path (``commit_batch = 4``): ``hogwild_rampup`` and ``trace_paced``,
      and ``fedbuff``, ``delayed_nesterov`` and ``dcasgd`` overridden with
-     ``commit_batch=4``, each at its golden's full depth. Before each run
+     ``commit_batch=4``, then the decentralized topologies ``gossip_ring``
+     and ``gossip_random`` (per-worker replicas and a pairwise peer mean,
+     which launch no kernel), each at its golden's full depth. Before each
+     run
      every launch count is set to 0 and read after it: the arrivals must
      equal the committed golden trace's exactly (for the three overridden
      baselines, which have no golden, a CPU run of the port of the same
@@ -74,14 +80,25 @@ pass, the card's rates, phase 4 and the leaf build report):
      (``Synchronizer(packed=False, use_kernel=True)``): arrivals equal to the
      golden's, block_stats and correct_apply launched once per leaf of each
      applied arrival and no other kernel, evals within 1e-3 of the packed
-     run's;
+     run's. Telemetry: ``paper_hetero_severe``, ``fedbuff`` with
+     ``commit_batch=4``, ``hogwild_rampup`` and ``int8_dylu`` each run
+     four times more, in turns without, with, with and without a
+     ``TelemetryRecorder`` (a live JSONL sink under build/telemetry, a
+     "runtime" record per commit): the same launch counts, each held to
+     the contract above, the final parameters, momentum and accumulator
+     bit for bit, the same arrivals and evals, finite stats on every
+     arrival record, and the stream decoded by the port's
+     ``StreamDecoder`` with nothing skipped; one line per scenario gives
+     the server and commit ms per arrival of each run;
   4. the single-tensor path: ``kernels.ops.outer_update_block`` over the 43
      leaves of a full-width state, one outer_update_2d launch a leaf, each
      bit for bit against the plain version;
   5. a replay: eight pseudo-gradients from inner rounds on the card, at
      staleness up to 3 with ``drop_stale_after=2``, fed to a packed server
-     and a per-leaf kernel server: the same arrivals dropped, p and m within
-     3e-5 after every arrival;
+     and a per-leaf kernel server, both with telemetry: the same arrivals
+     dropped, p and m within 3e-5 after every arrival, and each arrival's
+     moments (the packed sweep's per-row stats output, summed) within
+     TOL_SUM of the per-leaf server's ``reference_moments``;
   6. the per-tensor int8 entry points: ``kernels.ops.quantize_block`` and
      ``dequantize_block`` over the 43 leaves of a full-width state, one
      absmax, quantize_2d and dequantize_2d launch a leaf, each leaf bit for
@@ -185,6 +202,20 @@ SLICE = (
     ("delayed_nesterov", BATCHED, ACC, ACC_MULTI),
     ("dcasgd", BATCHED, ("packed_correct_outer_quad",),
      ("packed_multi_correct_outer_quad",)),
+    # the decentralized topologies: per-worker replicas and a pairwise peer
+    # mean in plain torch, no kernel (as the reference computes them)
+    ("gossip_ring", {}, (), ()),
+    ("gossip_random", {}, (), ()),
+)
+# --only telemetry: timed commit calls of each server
+TELEMETRY_REPS = 30
+# the telemetry phase: each run with a TelemetryRecorder against the same
+# run without one (same launches, same parameter bits)
+TELEMETRY = (
+    ("paper_hetero_severe", {}, HELOCO, ()),
+    ("fedbuff", BATCHED, ACC, ACC_MULTI),
+    ("hogwild_rampup", {}, HELOCO, HELOCO_MULTI),
+    ("int8_dylu", {}, HELOCO + INT8, ()),
 )
 REPLACES = {
     "packed_row_stats": "src/repro/kernels/packed.py:59",
@@ -943,29 +974,34 @@ def cpu_arrivals(scn):
 
 
 def run_scenario(torch, kernels, name, overrides, single, fused,
-                 per_leaf=False):
+                 per_leaf=False, recorder=None, result=None):
     """One slice scenario at full width on cuda, through the scenario layer,
     with ``overrides``. ``single``: the kernels an arrival committed on its
     own launches once (or a mapping of kernel to launches per arrival);
     ``fused``: those a fused run of K >= 2 arrivals launches once.
     ``per_leaf``: the engine's server swapped for a per-leaf kernel server
-    before the run. Returns the launch counts of this run, the applied
-    arrivals committed on their own, the fused arrivals, the eval means
-    and the median server ms of an arrival committed on its own."""
+    before the run. ``recorder``: a TelemetryRecorder the run streams into.
+    Returns the launch counts of this run, the applied arrivals committed
+    on their own, the fused arrivals, the eval means and the median server
+    ms of an arrival committed on its own; ``result`` (a dict) also
+    receives the final state's tensors, the history and the printed line."""
     from repro_torch.async_engine.engine import make_eval_fn
     from repro_torch.async_engine.server import Synchronizer
     from repro_torch.launch.train import FULL_WIDTH
     from repro_torch.scenarios import registry, run
 
     scn = registry.get_scenario(name).overridden(**FULL_WIDTH, **overrides)
-    eng = scn.build(device="cuda")
+    # with a recorder, a "runtime" record after every commit (the
+    # launcher's cadence with --telemetry)
+    eng = scn.build(device="cuda", telemetry=recorder,
+                    runtime_record_every=None if recorder is None else 1)
     if per_leaf:
         eng.server = Synchronizer(eng.server.state.params, eng.cfg.outer,
                                   eng.cfg.n_workers, packed=False,
                                   use_kernel=True)
     per_arrival = single if isinstance(single, dict) else dict.fromkeys(
         single, 1)
-    spans = {"inner_round": [], "server_step": [], "eval": []}
+    spans = {"inner_round": [], "server_step": [], "eval": [], "commit": []}
     flush_ms = {}                   # server ms of a fused run, by K
     fused_runs = []
 
@@ -979,13 +1015,14 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
             return out
         return wrapper
 
-    def fused_step(deltas, rhos, taus, _fn=eng.server._step_update_multi):
+    def fused_step(deltas, rhos, taus,
+                   _fn=getattr(eng.server, "_step_update_multi", None)):
         """Times one fused run and holds it to one launch of each kernel in
         ``fused`` and of no other."""
         before = kernels.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _fn(deltas, rhos, taus)
+        out = _fn(deltas, rhos, taus)
         torch.cuda.synchronize()
         flush_ms.setdefault(len(deltas), []).append(
             1e3 * (time.perf_counter() - t0))
@@ -995,11 +1032,17 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
         assert diff == {k: 1 for k in fused}, \
             f"{name}: a fused run of {len(deltas)} launched {diff}"
         fused_runs.append(len(deltas))
+        return out
 
     eng._execute = timed(eng._execute, "inner_round")
+    # the engine's whole commit: the server step and, with a recorder, the
+    # records it writes
+    eng._commit = timed(eng._commit, "commit")
+    eng._commit_batch = timed(eng._commit_batch, "commit")
     eng.server.on_arrival = timed(eng.server.on_arrival, "server_step")
     eng.server.on_sync_round = timed(eng.server.on_sync_round, "server_step")
-    eng.server._step_update_multi = fused_step
+    if hasattr(eng.server, "_step_update_multi"):
+        eng.server._step_update_multi = fused_step
     eval_fn = timed(make_eval_fn(eng, batch=scn.eval_batch), "eval")
     target = cpu_arrivals(scn) if overrides else None
     torch.cuda.synchronize()
@@ -1033,6 +1076,9 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
                *(state.aux or {}).values()]
     if srv.packed:
         tensors += [srv._pbuf, srv._mbuf]
+    for replicas in (getattr(srv, "_p", {}), getattr(srv, "_m", {})):
+        for rep in replicas.values():           # a PeerMixer's replicas
+            tensors += list(rep.values())
     for w in eng.workers.values():
         tensors += [*w.opt.mu.values(), *w.opt.nu.values()]
         if w.ef is not None:                    # packed int8 error feedback
@@ -1047,9 +1093,11 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
         if spans["server_step"] else {}
     server_ms_by_k.update({k: statistics.median(v)
                            for k, v in sorted(flush_ms.items())})
-    print(json.dumps({
+    line = {
         "scenario": name, "overrides": overrides, "method": scn.method,
-        "server": ("per-leaf, use_kernel" if per_leaf else "packed"),
+        "server": ("per-leaf, use_kernel" if per_leaf else "packed"
+                   if scn.topology == "hub"
+                   else f"peer mixer ({scn.topology})"),
         "config": f"tinygpt-15m full width, {scn.n_workers} workers "
                   f"{scn.paces}, H={scn.inner_steps}, batch 4 x 128, "
                   f"commit_batch {scn.commit_batch}",
@@ -1058,14 +1106,26 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
         "fused_runs": fused_runs, "committed_alone": singles,
         "arrivals_equal": "golden" if target is None else
                           "port CPU run at smoke width",
-        "launches": counts, "flush_totals": srv.flush_totals,
+        "launches": counts,
+        "flush_totals": getattr(srv, "flush_totals", None),
         "wall_s": wall, "wall_ms_per_arrival": 1e3 * wall / len(hist.arrivals),
         "median_ms": {k: statistics.median(v) for k, v in spans.items() if v},
         "first_ms": {k: v[0] for k, v in spans.items() if v},
         "server_ms_by_k": server_ms_by_k,
         "server_ms_all_by_k": {k: v for k, v in sorted(flush_ms.items())},
+        "commit_ms_per_arrival": sum(spans["commit"]) / len(hist.arrivals),
+        "server_ms_per_arrival": (sum(spans["server_step"])
+                                  + sum(map(sum, flush_ms.values())))
+        / len(hist.arrivals),
+        "telemetry": recorder is not None,
         "eval_means": means,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps(line))
+    if result is not None:
+        result.update(line=line, history=hist, state={
+            f"{part}/{k}": v.clone() for part, tree in
+            (("p", state.params), ("m", state.momentum),
+             ("a", state.aux or {})) for k, v in tree.items()})
     return counts, singles, n_fused, means, server_ms_by_k.get(1)
 
 
@@ -1105,6 +1165,85 @@ def slice_phase(torch, kernels):
     return totals
 
 
+def telemetry_phase(torch, kernels):
+    """Each TELEMETRY run four times at full width, in turns without, with,
+    with and without a TelemetryRecorder streaming to a live sink under
+    build/telemetry: every run the launch counts (each held to the slice's
+    contract by ``run_scenario``), the final parameters, momentum and
+    accumulator bit for bit, the arrivals and the evals of the first;
+    every arrival record of a run with telemetry carries finite stats, and
+    its sink decodes with the port's StreamDecoder with nothing skipped.
+    Prints one line per scenario: the server and commit ms per arrival of
+    each run without and with telemetry, the records by kind and the mean
+    cos_align."""
+    from collections import Counter
+    from repro_torch.telemetry import TelemetryRecorder, schema
+    strip = ("cos_align", "corrected_frac", "delta_norm", "momentum_norm")
+
+    def facts(arrivals):
+        return [{k: v for k, v in a.items() if k not in strip}
+                for a in arrivals]
+
+    out_dir = ROOT / "build" / "telemetry"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, overrides, single, fused in TELEMETRY:
+        tag = "_".join([name] + [f"{k}{v}" for k, v in overrides.items()])
+        sink = out_dir / f"{tag}.jsonl"
+        first = None
+        ms = {"off": [], "on": []}
+        commit_ms = {"off": [], "on": []}
+        for on in (False, True, True, False):
+            rec = TelemetryRecorder(sink=str(sink)) if on else None
+            res = {}
+            counts = run_scenario(torch, kernels, name, overrides, single,
+                                  fused, recorder=rec, result=res)[0]
+            key = "on" if on else "off"
+            ms[key].append(res["line"]["server_ms_per_arrival"])
+            commit_ms[key].append(res["line"]["commit_ms_per_arrival"])
+            hist = res["history"]
+            if first is None:
+                first = (counts, res["state"], hist)
+                assert all(a[k] is None for a in hist.arrivals
+                           for k in strip)
+            else:
+                assert counts == first[0], (f"{name}: launches {first[0]} "
+                                            f"-> {counts} (telemetry {on})")
+                changed = [k for k, v in res["state"].items()
+                           if not torch.equal(v, first[1][k])]
+                assert not changed and res["state"].keys() == \
+                    first[1].keys(), f"{name}: the bits of {changed} moved"
+                assert facts(hist.arrivals) == facts(first[2].arrivals), \
+                    f"{name}: the arrivals moved"
+                assert hist.evals == first[2].evals, f"{name}: evals moved"
+            if rec is not None:
+                rec.close()
+                arrivals = rec.arrivals()
+                assert len(arrivals) == len(hist.arrivals)
+                assert all(math.isfinite(getattr(a, k)) for a in arrivals
+                           for k in strip), f"{name}: an arrival without stats"
+                dec = schema.StreamDecoder(strict=True)
+                kinds = Counter(schema.kind_of(dec.decode(line))
+                                for line in sink.read_text().splitlines())
+                assert dec.drift_report() == [] and dec.bad_lines == 0, \
+                    dec.drift_report()
+                assert kinds["arrival"] == len(arrivals) and \
+                    kinds["meta"] == 1, kinds
+                summary = rec.summary()
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(json.dumps({
+            "telemetry": name, "overrides": overrides,
+            "order": "off, on, on, off",
+            "launches_equal": True, "params_bit_equal": True,
+            "server_ms_per_arrival": ms,
+            "commit_ms_per_arrival": commit_ms,
+            "records": dict(sorted(kinds.items())),
+            "stream_skipped": 0,
+            "mean_cos_align": summary["mean_cos_align"],
+            "mean_corrected_frac": summary["mean_corrected_frac"]}))
+
+
 def single_tensor_phase(torch, kernels, specs, dev):
     """The single-tensor entry point: one per-leaf Nesterov step through
     ``ops.outer_update_block`` on each leaf of a full-width state, with the
@@ -1137,8 +1276,10 @@ def replay_phase(torch):
     """Eight pseudo-gradients from inner rounds on the card (each from the
     packed server's look-ahead at that step), fed to a packed server and a
     per-leaf kernel server with ``drop_stale_after=2`` at the staleness of
-    REPLAY: the same drops, p and m within TOL_SERVERS after every
-    arrival."""
+    REPLAY, both with telemetry: the same drops, p and m within TOL_SERVERS
+    after every arrival, and each arrival's moments (the packed sweep's
+    with_stats output summed) within TOL_SUM of the per-leaf server's
+    ``telemetry/stats.reference_moments`` of the same delta and momentum."""
     import dataclasses
     from repro_torch.async_engine.server import Synchronizer
     from repro_torch.core import packing
@@ -1150,17 +1291,26 @@ def replay_phase(torch):
     eng = scn.build(device="cuda")
     cfg = dataclasses.replace(eng.cfg.outer, drop_stale_after=2)
     init = eng.server.state.params
-    packed = Synchronizer(init, cfg, eng.cfg.n_workers)
+    packed = Synchronizer(init, cfg, eng.cfg.n_workers, telemetry=True)
     leaf = Synchronizer(init, cfg, eng.cfg.n_workers, packed=False,
-                        use_kernel=True)
+                        use_kernel=True, telemetry=True)
     eng.server = packed                 # rounds start from its look-ahead
-    worst, dropped = 0.0, []
+    worst, dropped, worst_moment = 0.0, [], 0.0
     for s_i, wid in REPLAY:
         delta = eng._execute(eng._make_task(eng.workers[wid])).delta
         a = packed.on_arrival(delta, s_i, wid)
         b = leaf.on_arrival(delta, s_i, wid)
         assert a.dropped == b.dropped, (a, b)
         dropped.append(a.dropped)
+        got = packed._last_moments.double()
+        want = leaf._last_moments.double()
+        dot, dd, mm, ee = want.tolist()
+        scale = torch.tensor([math.sqrt(max(dd * mm, 0.0)), dd, mm, ee],
+                             dtype=torch.float64, device=want.device)
+        err = ((got - want).abs() / scale.clamp_min(1e-30)).max().item()
+        assert err <= TOL_SUM, (f"replay step {packed.t}: moments "
+                                f"{got.tolist()} against {want.tolist()}")
+        worst_moment = max(worst_moment, err)
         for name, buf, tree in (("p", packed._pbuf, leaf.state.params),
                                 ("m", packed._mbuf, leaf.state.momentum)):
             got = packing.pack(packed.layout, tree)
@@ -1173,7 +1323,9 @@ def replay_phase(torch):
     print(json.dumps({"replay": "paper_hetero_severe full width, "
                                 "drop_stale_after=2",
                       "arrivals": len(REPLAY), "dropped": dropped,
-                      "max_abs_diff_p_m": worst, "band": TOL_SERVERS}))
+                      "max_abs_diff_p_m": worst, "band": TOL_SERVERS,
+                      "moments_max_rel_err": worst_moment,
+                      "moments_band": TOL_SUM}))
 
 
 def int8_kernel_phase(torch, specs, dev, bound):
@@ -1631,6 +1783,109 @@ def leaf_only(torch, kernels, specs, dev, bound, log, lib):
     leaf_build_report(log, lib)
 
 
+def telemetry_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only telemetry``: what telemetry adds to a packed server's commit
+    at full width, away from the inner rounds. For HeLoCo and FedBuff, one
+    arrival at a time and fused flushes of K = 3: servers without and with
+    telemetry in turns (off, on, on, off), each commit call timed on the
+    host between synchronisations (median of TELEMETRY_REPS), and a block
+    of TELEMETRY_REPS commit calls timed to one synchronisation at its end
+    (the host may then run ahead of the card, unless a commit waits for
+    its moments). Then the pieces: the single and K = 3 sweeps with and
+    without the stats output in device time, and the host time of the
+    moments' reduction and copy to the host."""
+    from repro_torch.async_engine.server import Synchronizer
+    from repro_torch.configs.base import OuterOptConfig
+    from repro_torch.core import packing
+    from repro_torch.kernels import packed as pk
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = {k: 0.02 * torch.randn(t.shape, generator=gen, device=dev)
+              for k, t in specs.items()}
+    deltas = [{k: 1e-3 * torch.randn(t.shape, generator=gen, device=dev)
+               for k, t in specs.items()} for _ in range(4)]
+
+    def commit(srv, i):
+        """One commit call: an arrival, or a flush of commit_batch."""
+        for j in range(srv.commit_batch):
+            n = i * srv.commit_batch + j
+            srv.buffer_arrival(deltas[n % 4], max(0, srv.t - 1), n % 4)
+        assert srv.pending == 0
+
+    for method, k in (("heloco", 1), ("fedbuff", 1), ("heloco", 3),
+                      ("fedbuff", 3)):
+        synced = {"off": [], "on": []}
+        block = {"off": [], "on": []}
+        for on in (False, True, True, False):
+            srv = Synchronizer(params, OuterOptConfig(method=method), 4,
+                               telemetry=on, commit_batch=k)
+            for i in range(3):
+                commit(srv, i)
+            spans = []
+            for i in range(TELEMETRY_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                commit(srv, i)
+                torch.cuda.synchronize()
+                spans.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(TELEMETRY_REPS):
+                commit(srv, i)
+            torch.cuda.synchronize()
+            key = "on" if on else "off"
+            synced[key].append(statistics.median(spans) / k)
+            block[key].append(1e3 * (time.perf_counter() - t0)
+                              / (TELEMETRY_REPS * k))
+            assert all((r.cos_align is not None) == on for r in srv.records)
+            del srv
+        print(json.dumps({"telemetry_server": method, "K": k,
+                          "order": "off, on, on, off",
+                          "ms_per_arrival_synced": synced,
+                          "ms_per_arrival_back_to_back": block,
+                          "reps": TELEMETRY_REPS}))
+    # the pieces: the sweeps with and without their stats output
+    layout = packing.build_layout(specs)
+    row_block, _ = layout.device_tables(dev)
+    r = layout.n_rows
+    p, m, d = (torch.randn((r, 128), generator=gen, device=dev)
+               for _ in range(3))
+    d3 = torch.randn((3, r, 128), generator=gen, device=dev)
+    cu = torch.rand(layout.n_blocks, generator=gen, device=dev)
+    cv = torch.rand(layout.n_blocks, generator=gen, device=dev)
+    pieces = {}
+    for stats in (False, True):
+        tag = "stats" if stats else "plain"
+        pieces[f"packed_correct_outer_{tag}"] = time_ms(
+            lambda: pk.packed_correct_outer(p, m, d, cu, cv, row_block,
+                                            0.7, 0.9, 0.5, with_stats=stats))
+        pieces[f"packed_multi_correct_outer_K3_{tag}"] = time_ms(
+            lambda: pk.packed_multi_correct_outer(
+                p, m, d3, cu.expand(3, -1).contiguous(),
+                cv.expand(3, -1).contiguous(), row_block, 0.7, 0.9, 0.5,
+                with_stats=stats))
+    one = pk.packed_correct_outer(p, m, d, cu, cv, row_block, 0.7, 0.9, 0.5,
+                                  with_stats=True)[-1]
+    three = pk.packed_multi_correct_outer(
+        p, m, d3, cu.expand(3, -1).contiguous(),
+        cv.expand(3, -1).contiguous(), row_block, 0.7, 0.9, 0.5,
+        with_stats=True)[-1]
+    pieces["sum_R4_device"] = time_ms(lambda: one.sum(0))
+    pieces["sum_K3R4_device"] = time_ms(lambda: three.sum(1))
+    host = {"sum_R4_tolist": [], "sum_K3R4_cpu": []}
+    for _ in range(TELEMETRY_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one.sum(0).tolist()
+        t1 = time.perf_counter()
+        three.sum(1).cpu()
+        t2 = time.perf_counter()
+        host["sum_R4_tolist"].append(1e3 * (t1 - t0))
+        host["sum_K3R4_cpu"].append(1e3 * (t2 - t1))
+    pieces.update({f"{k}_host_ms": statistics.median(v)
+                   for k, v in host.items()})
+    print(json.dumps({"telemetry_pieces_ms": pieces, "R": r}))
+
+
 def serve_phase(torch, kernels, dev):
     """Full-width tinygpt-15m in its compute dtype: prefill of
     SERVE["batch"] prompts of SERVE["prompt"] tokens, SERVE["gen"] greedy
@@ -1796,7 +2051,9 @@ def main(argv=None) -> int:
                     help="run one phase: int8 builds quantize.cu, checks and "
                          "times the per-tensor int8 kernels (int8_only); "
                          "leaf builds leaf.cu, checks and times the per-leaf "
-                         "kernels (leaf_only)")
+                         "kernels (leaf_only); telemetry builds packed.cu, "
+                         "times a packed server's commits without and with "
+                         "telemetry (telemetry_only)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1857,6 +2114,9 @@ def main(argv=None) -> int:
     totals["outer_update_2d"] = [
         single_tensor_phase(torch, all_kernels, specs, dev), N_LEAVES]
     t0 = time.perf_counter()
+    telemetry_phase(torch, all_kernels)
+    print(f"telemetry phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     replay_phase(torch)
     print(f"replay phase: {time.perf_counter() - t0:.1f}s")
     # the int8 kernels' path is the per-tensor entry points: launches per
@@ -1908,7 +2168,8 @@ def main(argv=None) -> int:
 
 
 # --only: the source each one-phase run builds, and the phase
-ONLY = {"int8": ("quantize", int8_only), "leaf": ("leaf", leaf_only)}
+ONLY = {"int8": ("quantize", int8_only), "leaf": ("leaf", leaf_only),
+        "telemetry": ("packed", telemetry_only)}
 
 
 if __name__ == "__main__":

@@ -9,9 +9,17 @@ rejoin, elastic joins and leaves, the functional inner round
 (``execute_round``) with pseudo-gradient compression and error feedback and
 the hogwild batch ramp-up, the server-side commit through the packed
 ``Synchronizer`` (one arrival at a time, or a same-tick batch through its
-commit buffer with ``commit_batch > 1``), the barrier rounds of a
+commit buffer with ``commit_batch > 1``), or through a ``PeerMixer`` of
+per-worker replicas on a ring or gossip topology, the barrier rounds of a
 synchronous method, and the per-language eval protocol. Only *time* is
 simulated; the inner rounds run for real on the engine's device.
+
+With a ``telemetry.TelemetryRecorder`` the engine streams one "arrival"
+record per commit (with the server's update-quality stats), one "flush"
+record per commit-buffer flush, one "eval" record per evaluation and, every
+``runtime_record_every`` commits, a "runtime" snapshot of worker
+membership. The hooks only observe: no RNG, no tensor is touched, and the
+server's stats are extra outputs of the kernels it launches anyway.
 
 The arrival sequence depends only on paces, H, the schedule, the batching
 and the failure and membership events, so it equals the reference's
@@ -41,10 +49,10 @@ from repro_torch.train.inner import eval_loss, pseudo_gradient, run_inner
 Params = Dict[str, torch.Tensor]
 
 # RunConfig axes the port's engine does not run yet: (field, default,
-# ROADMAP item).
-UNPORTED_AXES = (
-    ("topology", "hub", "A14"),
-)
+# ROADMAP item). Every axis of RunConfig runs; the wall-clock engine and
+# the fault injector, which are not RunConfig axes, wait for A13
+# (``scenarios/spec.py:Scenario.unported_axes``).
+UNPORTED_AXES: Tuple[Tuple[str, Any, str], ...] = ()
 
 
 def unported_axes(run_cfg: RunConfig) -> List[str]:
@@ -119,6 +127,10 @@ class WorkerArena:
 
     def n_alive(self) -> int:
         return int(np.count_nonzero(self.cols["used"] & self.cols["alive"]))
+
+    def n_in_flight(self) -> int:
+        return int(np.count_nonzero(self.cols["used"]
+                                    & (self.cols["pending_task"] >= 0)))
 
     def min_alive_pace(self, default: float = 1.0) -> float:
         mask = self.cols["used"] & self.cols["alive"]
@@ -394,15 +406,21 @@ class EngineBase:
     Subclasses say where a captured round goes (``_submit``) and how its
     result comes back (``_obtain``)."""
 
+    ENGINE_NAME = "sim"              # telemetry RunMeta.engine vocabulary
+
     def __init__(self, run_cfg: RunConfig, *, device="cuda",
                  init_params: Optional[Mapping[str, np.ndarray]] = None,
                  failures: Optional[List[FailureEvent]] = None,
-                 elastic: Optional[List[ElasticEvent]] = None):
+                 elastic: Optional[List[ElasticEvent]] = None,
+                 telemetry=None, runtime_record_every: int = 0):
         """``init_params``: start from these parameters (numpy arrays keyed
         by path, see ``bridge``) instead of a fresh draw from ``run_cfg.seed``;
         the port's counterpart of the reference's ``restore``, used to start
         both packages from the same bits. ``failures``/``elastic``: crash and
-        membership events, applied in time order."""
+        membership events, applied in time order. ``telemetry``: a
+        ``telemetry.TelemetryRecorder`` (or None) the run streams its
+        records into; ``runtime_record_every``: a "runtime" record every N
+        commits (0: none)."""
         missing = unported_axes(run_cfg)
         if missing:
             raise NotImplementedError(
@@ -420,8 +438,19 @@ class EngineBase:
             params = bridge.to_torch(init_params, self.device)
             if set(params) != set(self.model.param_specs()):
                 raise ValueError("init_params do not match the model's leaves")
-        self.server = Synchronizer(params, run_cfg.outer, run_cfg.n_workers,
-                                   commit_batch=run_cfg.commit_batch)
+        self.telemetry = telemetry
+        self.runtime_record_every = int(runtime_record_every or 0)
+        if run_cfg.topology != "hub":
+            # NoLoCo-style exchange: per-worker replicas and pairwise peer
+            # averaging instead of a hub server
+            from repro_torch.async_engine.topology import PeerMixer
+            self.server = PeerMixer(params, run_cfg.outer, run_cfg.n_workers,
+                                    kind=run_cfg.topology, seed=run_cfg.seed)
+        else:
+            self.server = Synchronizer(params, run_cfg.outer,
+                                       run_cfg.n_workers,
+                                       telemetry=telemetry is not None,
+                                       commit_batch=run_cfg.commit_batch)
         self.arena = WorkerArena(capacity=max(run_cfg.n_workers, 4))
         self.workers: Dict[int, Worker] = {}
         for wid in range(run_cfg.n_workers):
@@ -551,6 +580,9 @@ class EngineBase:
                                      sim_time=self.time,
                                      lang=self._lang_name(res))
         self.history.append_arrival(dict(rec.__dict__))
+        if self.telemetry is not None:
+            self.telemetry.record_arrival(rec, mixture=w.mixture,
+                                          tokens_total=self.history.tokens)
         return rec
 
     def _commit_batch(self, pairs: List[Tuple[Worker, RoundResult]],
@@ -568,20 +600,54 @@ class EngineBase:
             if out:
                 recs.extend(out)
         recs.extend(self.server.flush(reason))
-        for rec in recs:
+        for (w, _res), rec in zip(pairs, recs):
             self.history.append_arrival(dict(rec.__dict__))
+            if self.telemetry is not None:
+                self.telemetry.record_arrival(
+                    rec, mixture=w.mixture, tokens_total=self.history.tokens)
         self._drain_flush_log()
         return recs
 
     def _drain_flush_log(self):
-        """Clear the server's flush events. The reference turns them into
-        telemetry "flush" records; the port has no recorder yet (ROADMAP
-        A10)."""
-        self.server.flush_log.clear()
+        """Turn the server's flush events into "flush" telemetry records and
+        clear them (a ``PeerMixer`` keeps no such log)."""
+        log = getattr(self.server, "flush_log", None)
+        if not log:
+            return
+        if self.telemetry is not None:
+            for ev in log:
+                self.telemetry.record_flush(outer_step=self.server.t,
+                                            sim_time=self.time, **ev)
+        log.clear()
 
     def _eval(self, eval_fn):
         ev = eval_fn(self.server.state.params, self.server.t, self.time)
         self.history.evals.append(ev)
+        if self.telemetry is not None:
+            self.telemetry.record_eval(ev)
+
+    # ----------------------------------------------- runtime health records
+    def _runtime_snapshot(self) -> Dict:
+        """Worker-membership health view (pure observation)."""
+        return {"workers_alive": self.arena.n_alive(),
+                "workers_total": len(self.workers),
+                "in_flight": self.arena.n_in_flight()}
+
+    def _record_runtime(self):
+        if self.telemetry is None:
+            return
+        self.telemetry.record_runtime(outer_step=self.server.t,
+                                      sim_time=self.time,
+                                      **self._runtime_snapshot())
+
+    def _ensure_telemetry_meta(self):
+        if self.telemetry is not None:
+            self.telemetry.ensure_meta(
+                method=self.server.method.name, engine=self.ENGINE_NAME,
+                n_workers=self.cfg.n_workers,
+                outer_steps=self.cfg.outer_steps, seed=self.cfg.seed,
+                non_iid=self.cfg.non_iid,
+                mixture_alpha=self.cfg.mixture_alpha)
 
     # -------------------------------------------------------------- main loop
     def run(self, eval_every: int = 0,
@@ -589,6 +655,7 @@ class EngineBase:
             ) -> History:
         """Run to ``outer_steps`` commits: barrier rounds for a synchronous
         method, else the asynchronous event loop."""
+        self._ensure_telemetry_meta()
         if self.server.method.sync:
             self._run_sync(eval_every, eval_fn)
         else:
@@ -598,12 +665,18 @@ class EngineBase:
     def _post_commit(self, eval_every, eval_fn):
         if eval_every and eval_fn and self.server.t % eval_every == 0:
             self._eval(eval_fn)
+        if (self.telemetry is not None and self.runtime_record_every
+                and self.history.total_arrivals
+                % self.runtime_record_every == 0):
+            self._record_runtime()
 
     def _finalize(self, eval_fn) -> History:
         self.history.final_time = self.time
         if eval_fn and (not self.history.evals
                         or self.history.evals[-1]["step"] != self.server.t):
             self._eval(eval_fn)
+        if self.telemetry is not None and self.runtime_record_every:
+            self._record_runtime()           # end-of-run snapshot
         return self.history
 
     def _run_async(self, eval_every, eval_fn):
@@ -686,6 +759,9 @@ class EngineBase:
             rec = self.server.on_sync_round([r.delta for r in results],
                                             sim_time=self.time)
             self.history.append_arrival(dict(rec.__dict__))
+            if self.telemetry is not None:
+                self.telemetry.record_arrival(
+                    rec, tokens_total=self.history.tokens)
             self._post_commit(eval_every, eval_fn)
 
     # ------------------------------------------------------- fault tolerance
@@ -751,16 +827,37 @@ class EngineBase:
 ENGINES = ("sim",)
 
 
-def make_engine(run_cfg: RunConfig, engine: str = "sim", *, device="cuda",
+def make_engine(run_cfg: RunConfig, engine: Optional[str] = None, *,
+                device="cuda",
                 init_params: Optional[Mapping[str, np.ndarray]] = None,
                 failures: Optional[List[FailureEvent]] = None,
-                elastic: Optional[List[ElasticEvent]] = None):
-    """Build a training engine; the port has the virtual-clock simulator."""
+                elastic: Optional[List[ElasticEvent]] = None,
+                telemetry=None, runtime_record_every: Optional[int] = None):
+    """Build a training engine; the port has the virtual-clock simulator.
+
+    ``telemetry``: an optional ``telemetry.TelemetryRecorder`` the run
+    streams arrival, flush, eval and runtime records into (observation, not
+    configuration). ``runtime_record_every``: a "runtime" record every N
+    commits (None defers to a Scenario's ``telemetry_every``; 0 disables).
+    Also takes a ``repro_torch.scenarios`` ``Scenario`` as the first
+    argument: it then names the run config, the schedules and the stream's
+    provenance, and only ``device``, ``init_params``, ``telemetry`` and
+    ``runtime_record_every`` may be given beside it."""
+    if hasattr(run_cfg, "run_config"):           # a Scenario
+        if engine is not None or failures or elastic:
+            raise TypeError("pass the engine choice and schedules inside "
+                            "the Scenario, not alongside it")
+        return run_cfg.build(device=device, init_params=init_params,
+                             telemetry=telemetry,
+                             runtime_record_every=runtime_record_every)
+    engine = engine or "sim"
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
     from repro_torch.async_engine.simulator import AsyncSimulator
     return AsyncSimulator(run_cfg, device=device, init_params=init_params,
-                          failures=failures, elastic=elastic)
+                          failures=failures, elastic=elastic,
+                          telemetry=telemetry,
+                          runtime_record_every=runtime_record_every or 0)
 
 
 def make_eval_fn(engine, batch: int = 16, seq: Optional[int] = None):

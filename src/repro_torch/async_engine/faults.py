@@ -3,15 +3,39 @@
 A copy of the frozen ``PartitionSpec`` / ``FaultSpec`` dataclasses of
 ``repro/async_engine/faults.py`` with their JSON form, so that the port's
 scenario registry holds the reference's chaos scenarios field for field.
-The port has no wall-clock runtime yet: the fault injector, the delivery
-tracker and the fault decisions wait for it (ROADMAP A13), and a scenario
-that sets ``faults`` raises when it is built.
+It also holds the reference's splitmix64 dice (``_splitmix64``, ``_unit``),
+bit for bit on Python ints, which the gossip topology's peer sampling
+(``topology.py``) rolls. The port has no wall-clock runtime yet: the fault
+injector, the delivery tracker and the fault decisions wait for it
+(ROADMAP A13), and a scenario that sets ``faults`` raises when it is built.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Deterministic per-message dice: splitmix64 over a mixed key
+# ---------------------------------------------------------------------------
+
+_MASK = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK
+    return x ^ (x >> 31)
+
+
+def _unit(seed: int, *key: int) -> float:
+    """Deterministic uniform [0, 1) from an integer key: a pure function of
+    the key, never of call order."""
+    x = seed & _MASK
+    for k in key:
+        x = _splitmix64(x ^ (k & _MASK))
+    return x / float(1 << 64)
 
 
 @dataclass(frozen=True)

@@ -1,10 +1,10 @@
 """The synchronizer (outer-optimizer server) for asynchronous
 low-communication training.
 
-Port of ``repro/async_engine/server.py:Synchronizer``, without telemetry.
-A pseudo-gradient arrives as a dict or, from the packed int8 round-trip,
-as a ``packing.Packed`` buffer, which the packed arrival path takes as it
-is. By default the outer state lives packed: params, momentum and, for
+Port of ``repro/async_engine/server.py:Synchronizer``. A pseudo-gradient
+arrives as a dict or, from the packed int8 round-trip, as a
+``packing.Packed`` buffer, which the packed arrival path takes as it is.
+By default the outer state lives packed: params, momentum and, for
 buffered methods, the gradient accumulator are flattened once into fp32
 (R, 128) buffers on the device, every arrival rewrites them in place with
 the packed kernels, and the dict view is unpacked only on demand
@@ -21,6 +21,14 @@ With ``commit_batch = K > 1`` arrivals can be parked in a commit buffer
 (``buffer_arrival``) and committed together (``flush``): on the packed path
 a run of two or more applied arrivals goes through one K-stacked fused
 sweep (``apply_arrivals_packed``), everything else through ``on_arrival``.
+
+``telemetry=True`` attaches the update-quality stats of each arrival to its
+record (``telemetry/stats.py``). On the packed path the moments are the
+extra (R, 4) or (K, R, 4) output of the sweep the arrival launches anyway,
+summed on the device; a dropped arrival's are the momentum's norm alone;
+the per-leaf path takes ``reference_moments`` of its own correction. They
+reach the host once per commit call: a (4,) copy per arrival, a (K, 4) one
+per fused run.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from repro_torch.core.heloco import (
     init_outer_state, lookahead_init, lookahead_packed, momentum_decay_packed,
     momentum_decay_update,
 )
+from repro_torch.telemetry import stats as _ts
 
 Params = Dict[str, torch.Tensor]
 Delta = Union[Mapping[str, torch.Tensor], packing.Packed]
@@ -46,6 +55,18 @@ Delta = Union[Mapping[str, torch.Tensor], packing.Packed]
 def _mean(xs: List[torch.Tensor]) -> torch.Tensor:
     """Sum in order, then divide by the count."""
     return packing.true_div(sum(xs), len(xs))
+
+
+def _mbuf_moments(mbuf: torch.Tensor) -> torch.Tensor:
+    """Telemetry moments of a suppressed arrival on the packed path."""
+    return _ts.momentum_only_moments((mbuf * mbuf).sum())
+
+
+def _decay_moments(momentum: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Telemetry moments of a suppressed arrival on the per-leaf path: the
+    momentum's squares summed leaf by leaf."""
+    return _ts.momentum_only_moments(
+        sum((x.float() ** 2).sum() for x in momentum.values()))
 
 
 class _Pending(NamedTuple):
@@ -67,6 +88,12 @@ class ArrivalRecord:
     sim_time: float
     lang: str = ""
     dropped: bool = False
+    # update-quality diagnostics (set only when the synchronizer runs with
+    # telemetry=True; see repro_torch.telemetry.stats)
+    cos_align: Optional[float] = None
+    corrected_frac: Optional[float] = None
+    delta_norm: Optional[float] = None
+    momentum_norm: Optional[float] = None
 
 
 class Synchronizer:
@@ -74,17 +101,22 @@ class Synchronizer:
                  cfg: OuterOptConfig, n_workers: int,
                  stacked_axes: Optional[Mapping[str, int]] = None,
                  use_kernel: bool = False, packed: bool = True,
-                 commit_batch: int = 1):
+                 telemetry: bool = False, commit_batch: int = 1):
         """stacked_axes: path -> leading layer axes of a stacked leaf (each
         layer its own block); use_kernel: HeLoCo's per-leaf correction
         through the kernels (per-leaf path only); packed: the packed fast
-        path (True) or the per-leaf path."""
+        path (True) or the per-leaf path; telemetry: attach each arrival's
+        update-quality stats to its record."""
         self.cfg = cfg
         self.method = outer_methods.resolve(cfg.method)
         self.n_workers = n_workers
         self.stacked_axes = stacked_axes
         self.use_kernel = use_kernel
         self.packed = packed
+        self.telemetry = telemetry
+        # the last commit's (4,) moments (telemetry only): on the device
+        # until _attach_stats reads them
+        self._last_moments: Optional[torch.Tensor] = None
         self.records: List[ArrivalRecord] = []
         # idempotent-commit ledger: commit_key -> record already produced,
         # so a replayed delivery can never step the outer state twice
@@ -186,24 +218,31 @@ class Synchronizer:
             if isinstance(delta, packing.Packed):
                 raise TypeError("the per-leaf path takes a dict of leaves, "
                                 "not a packed buffer")
-            self._state = apply_arrival(
+            res = apply_arrival(
                 self._state, delta, method=self.method,
                 outer_lr=self.cfg.outer_lr, mu=self.cfg.momentum,
                 h=self.cfg.heloco, rho=rho, tau=tau,
                 stacked_axes=self.stacked_axes, use_kernel=self.use_kernel,
-                phase=self.t % self._phase_period)
+                phase=self.t % self._phase_period, with_stats=self.telemetry)
+            if self.telemetry:
+                self._state, self._last_moments = res
+            else:
+                self._state = res
             return
         # The reference donates p/m(/b) to its jitted step; here the fused
         # sweep writes p', m' (and b') over p, m (and b). Each element is
         # read and written at the same index by the same thread, so the
         # in-place update is safe, and it saves the (R, 128) allocations.
-        apply_arrival_packed(
+        res = apply_arrival_packed(
             self._pbuf, self._mbuf, delta, self.layout, method=self.method,
             outer_lr=self.cfg.outer_lr, mu=self.cfg.momentum,
             h=self.cfg.heloco, rho=rho, tau=tau, abuf=self._abuf,
             phase=self.t % self._phase_period,
             out=(self._pbuf, self._mbuf, self._abuf)[
-                :2 if self._abuf is None else 3])
+                :2 if self._abuf is None else 3],
+            with_stats=self.telemetry)
+        if self.telemetry:
+            self._last_moments = res[-1].sum(0)
         self._step += 1
         self._state_cache = None
 
@@ -211,26 +250,34 @@ class Synchronizer:
                            taus: List[float]):
         """Commit K arrivals through one K-stacked fused sweep, in place.
         Their rho, tau and phase enter host-side scalars, which reach the
-        device in one copy: the kernel's (K, n) scalar table."""
+        device in one copy: the kernel's (K, n) scalar table. Returns the
+        (K, 4) telemetry moments on the host, one copy for the run (None
+        without telemetry)."""
         k = len(deltas)
-        apply_arrivals_packed(
+        res = apply_arrivals_packed(
             self._pbuf, self._mbuf, deltas, self.layout, method=self.method,
             outer_lr=self.cfg.outer_lr, mu=self.cfg.momentum,
             h=self.cfg.heloco, rhos=rhos, taus=taus, abuf=self._abuf,
             phases=[(self._step + j) % self._phase_period for j in range(k)],
             out=(self._pbuf, self._mbuf, self._abuf)[
-                :2 if self._abuf is None else 3])
+                :2 if self._abuf is None else 3],
+            with_stats=self.telemetry)
         self._step += k
         self._state_cache = None
+        return res[-1].sum(1).cpu() if self.telemetry else None
 
     def _step_decay(self, rho: float, tau: float):
         """Dropped arrival (App. A.6): momentum-decay-only outer step."""
         if not self.packed:
+            if self.telemetry:
+                self._last_moments = _decay_moments(self._state.momentum)
             self._state = momentum_decay_update(
                 self._state, self.cfg.outer_lr, self.cfg.momentum,
                 method=self.method, rho=rho, tau=tau,
                 phase=self.t % self._phase_period)
             return
+        if self.telemetry:
+            self._last_moments = _mbuf_moments(self._mbuf)
         out = momentum_decay_packed(
             self._pbuf, self._mbuf, self.cfg.outer_lr, self.cfg.momentum,
             method=self.method, rho=rho, tau=tau, abuf=self._abuf,
@@ -240,6 +287,16 @@ class Synchronizer:
             self._abuf = out[2]
         self._step += 1
         self._state_cache = None
+
+    def _attach_stats(self, rec: ArrivalRecord) -> ArrivalRecord:
+        """Fold the last step's telemetry moments into the record."""
+        if self.telemetry and self._last_moments is not None:
+            s = _ts.stats_from_moments(self._last_moments)
+            rec.cos_align = s.cos_align
+            rec.corrected_frac = s.corrected_frac
+            rec.delta_norm = s.delta_norm
+            rec.momentum_norm = s.momentum_norm
+        return rec
 
     # -- arrival processing ---------------------------------------------------
     def on_arrival(self, delta: Delta, s_i: int,
@@ -259,9 +316,10 @@ class Synchronizer:
             self._step_decay(rho, tau)
         else:
             self._step_update(delta, rho, tau)
-        rec = ArrivalRecord(outer_step=self.t, worker_id=worker_id,
-                            staleness=tau, rho=rho, sim_time=sim_time,
-                            lang=lang, dropped=dropped)
+        rec = self._attach_stats(
+            ArrivalRecord(outer_step=self.t, worker_id=worker_id,
+                          staleness=tau, rho=rho, sim_time=sim_time,
+                          lang=lang, dropped=dropped))
         self.records.append(rec)
         if commit_key is not None:
             self._committed[commit_key] = rec
@@ -331,12 +389,16 @@ class Synchronizer:
             t_run = self.t
             taus = [t_run + idx - a.s_i for idx, a in enumerate(run)]
             rhos = [self._rho(tau) for tau in taus]
-            self._step_update_multi([a.delta for a in run], rhos, taus)
+            moments = self._step_update_multi([a.delta for a in run], rhos,
+                                              taus)
             for idx, a in enumerate(run):
                 rec = ArrivalRecord(outer_step=t_run + idx + 1,
                                     worker_id=a.worker_id,
                                     staleness=taus[idx], rho=rhos[idx],
                                     sim_time=a.sim_time, lang=a.lang)
+                if moments is not None:
+                    self._last_moments = moments[idx]
+                rec = self._attach_stats(rec)
                 self.records.append(rec)
                 if a.commit_key is not None:
                     self._committed[a.commit_key] = rec
@@ -366,8 +428,9 @@ class Synchronizer:
                    for p in deltas[0]}
         # sync-nesterov in the paper uses average weighting: G = mean(Delta)
         self._step_update(avg, 1.0, 0.0)
-        rec = ArrivalRecord(outer_step=self.t, worker_id=-1, staleness=0,
-                            rho=1.0, sim_time=sim_time)
+        rec = self._attach_stats(
+            ArrivalRecord(outer_step=self.t, worker_id=-1, staleness=0,
+                          rho=1.0, sim_time=sim_time))
         self.records.append(rec)
         return rec
 

@@ -94,8 +94,8 @@ class RunConfig:
     mixture_alpha: Optional[float] = None    # Dirichlet language mixtures
     shard_assignment: str = "fixed"  # "fixed" | "flexible" (App. A.6)
     dylu: bool = False               # Dynamic Local Updates
-    # The axes below are the reference's; the port's engine raises on a
-    # value other than the default (see ``async_engine/engine.py``).
+    # The reference's later axes: the exchange topology (a PeerMixer off the
+    # hub), the commit buffer and the hogwild batch ramp-up.
     topology: str = "hub"            # "hub" | "ring" | "gossip"
     commit_batch: int = 1            # arrivals coalesced per commit
     batch_rampup: Optional[int] = None       # per-round batch ramp target

@@ -33,6 +33,7 @@ from repro_torch.core import methods as _methods
 from repro_torch.core import packing
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed as pk
+from repro_torch.telemetry import stats as _stats
 
 Params = Dict[str, torch.Tensor]
 f32 = np.float32
@@ -202,19 +203,25 @@ def apply_arrival(state: OuterState, delta: Mapping[str, torch.Tensor], *,
                   rho: float = 1.0, tau: float = 0.0,
                   stacked_axes: Optional[Mapping[str, int]] = None,
                   use_kernel: bool = False,
-                  phase: Optional[int] = None) -> OuterState:
+                  phase: Optional[int] = None, with_stats: bool = False):
     """Process one arriving pseudo-gradient through the chosen method on the
     per-leaf state (for a sync method ``delta`` is the workers' average).
     ``phase``: the outer-step index at arrival, read only by buffered
-    schedules."""
+    schedules. ``with_stats``: also return the (4,) telemetry moments of
+    the arrival (``telemetry.stats.reference_moments`` of the same
+    correction, so the correction runs once either way)."""
     m = _methods.resolve(method)
     ctx = _methods.ArrivalCtx(outer_lr=outer_lr, mu=mu, h=h, rho=rho,
                               tau=tau, phase=phase, stacked_axes=stacked_axes,
                               use_kernel=use_kernel)
     g = m.correct(m, ctx, delta, state.momentum)
+    moments = (_stats.reference_moments(delta, state.momentum, g)
+               if with_stats else None)
     if m.custom_update:
-        return _methods.scheduled_outer_update(m, ctx, state, g)
-    return outer_update(state, g, outer_lr, mu, rho=rho)
+        new = _methods.scheduled_outer_update(m, ctx, state, g)
+    else:
+        new = outer_update(state, g, outer_lr, mu, rho=rho)
+    return (new, moments) if with_stats else new
 
 
 def apply_arrivals(state: OuterState, deltas, *, method, outer_lr: float,
@@ -254,7 +261,8 @@ def apply_arrival_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
                          rho: float = 1.0, tau: float = 0.0,
                          abuf: Optional[torch.Tensor] = None,
                          phase: Optional[int] = None,
-                         out: Optional[Tuple[torch.Tensor, ...]] = None):
+                         out: Optional[Tuple[torch.Tensor, ...]] = None,
+                         with_stats: bool = False):
     """Process one arrival on the packed (R, 128) outer state.
 
     delta: the arriving pseudo-gradient, a dict (packed here) or a
@@ -263,6 +271,9 @@ def apply_arrival_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
     outer-step index at arrival (only buffered schedules read it). Returns
     (pbuf', mbuf'), or (pbuf', mbuf', abuf') for buffered methods; ``out``
     names the output buffers (the state itself for an in-place update).
+    ``with_stats``: also return the (R, 4) per-row telemetry moments
+    ``[d.m, d.d, m.m, |g_unweighted - d|^2]`` as the last element, an
+    extra output of the same fused sweep (same launches, same p'/m' bits).
 
     Every registered method reduces to per-block scalars (cu, cv, cq), so an
     arrival is at most one statistics sweep (HeLoCo) plus one fused sweep:
@@ -286,21 +297,32 @@ def apply_arrival_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
             out = (*out, abuf)
         res = pk.packed_correct_outer_acc(
             pbuf, mbuf, abuf, dbuf, cu, cv, row_block, outer_lr, rho,
-            *_methods.schedule_coeffs(m, ctx), out=out)
-        return res if m.uses_buffer else res[:2]
+            *_methods.schedule_coeffs(m, ctx), out=out,
+            with_stats=with_stats)
+        return _drop_acc(res, m, with_stats)
     if cq is not None:
         return pk.packed_correct_outer_quad(pbuf, mbuf, dbuf, cu, cv, cq,
                                             row_block, outer_lr, mu, rho,
-                                            out=out)
+                                            out=out, with_stats=with_stats)
     return pk.packed_correct_outer(pbuf, mbuf, dbuf, cu, cv, row_block,
-                                   outer_lr, mu, rho, out=out)
+                                   outer_lr, mu, rho, out=out,
+                                   with_stats=with_stats)
+
+
+def _drop_acc(res, m, with_stats: bool):
+    """An accumulator sweep's (p', m', b'[, stats]) without b' for a method
+    that keeps no buffer."""
+    if m.uses_buffer:
+        return res
+    return (res[0], res[1], res[3]) if with_stats else res[:2]
 
 
 def apply_arrivals_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
                           deltas, layout, *, method, outer_lr: float,
                           mu: float, h: HeLoCoConfig, rhos, taus,
                           abuf: Optional[torch.Tensor] = None, phases=None,
-                          out: Optional[Tuple[torch.Tensor, ...]] = None):
+                          out: Optional[Tuple[torch.Tensor, ...]] = None,
+                          with_stats: bool = False):
     """Process K coalesced arrivals on the packed outer state in at most two
     kernel launches (one multi-Gram sweep for HeLoCo, one K-chained fused
     sweep), where the sequential path takes up to 2K.
@@ -312,7 +334,9 @@ def apply_arrivals_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
     calls with the momentum evolving between them: the same arithmetic per
     element, with the coefficients each application would have seen
     (HeLoCo's from the Gram matrices, fp32-close). Returns and ``out`` as
-    ``apply_arrival_packed``.
+    ``apply_arrival_packed``; ``with_stats`` adds the (K, R, 4) per-row
+    moments, slice j against the momentum as of application j (same
+    launch).
     """
     m = _methods.resolve(method)
     k = len(deltas)
@@ -337,15 +361,16 @@ def apply_arrivals_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,
             out = (*out, abuf)
         res = pk.packed_multi_correct_outer_acc(
             pbuf, mbuf, abuf, dstack, cu, cv, row_block, outer_lr, list(rhos),
-            *_methods.multi_schedule_coeffs(m, ctxs), out=out)
-        return res if m.uses_buffer else res[:2]
+            *_methods.multi_schedule_coeffs(m, ctxs), out=out,
+            with_stats=with_stats)
+        return _drop_acc(res, m, with_stats)
     if cq is not None:
         return pk.packed_multi_correct_outer_quad(
             pbuf, mbuf, dstack, cu, cv, cq, row_block, outer_lr, mu,
-            list(rhos), out=out)
+            list(rhos), out=out, with_stats=with_stats)
     return pk.packed_multi_correct_outer(pbuf, mbuf, dstack, cu, cv,
                                          row_block, outer_lr, mu, list(rhos),
-                                         out=out)
+                                         out=out, with_stats=with_stats)
 
 
 def momentum_decay_packed(pbuf: torch.Tensor, mbuf: torch.Tensor,

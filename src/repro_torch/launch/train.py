@@ -18,10 +18,22 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --scenario fedbuff \\
         --commit-batch 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --scenario paper_hetero_severe --telemetry t.jsonl \\
+        --stats-json s.json --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --workers 4 \\
+        --paces 1,2,6,15 --outer 12 --inner 2 --batch 2 --seq 16 \\
+        --method nesterov --topology gossip --device cpu
+
+``--telemetry PATH`` streams the run's records live to a JSONL file (the
+reference's schema; a "runtime" record every ``--telemetry-every`` commits,
+1 by default), and ``--stats-json PATH`` writes the run's summary.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 from typing import Optional, Sequence
 
@@ -30,6 +42,7 @@ from repro_torch.core import methods as outer_methods
 from repro_torch.device import resolve_device
 from repro_torch.scenarios import registry
 from repro_torch.scenarios.spec import Scenario
+from repro_torch.telemetry import TelemetryRecorder
 
 # --full-width: the scenario at the model's own width, with the batch the
 # card's smoke run uses (chip_smoke.py)
@@ -52,6 +65,7 @@ def scenario_from_args(args) -> Scenario:
         batch_size=args.batch, seq_len=args.seq,
         non_iid=not args.iid, mixture_alpha=args.mixture_alpha,
         shard_assignment=args.shard_assignment, dylu=args.dylu,
+        topology=args.topology,
         method=args.method, outer_lr=outer_lr, momentum=args.momentum,
         compression=args.compression,
         drop_stale_after=args.drop_stale_after,
@@ -100,7 +114,24 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="server commit-buffer size: >1 commits up to K "
                          "same-tick arrivals in one fused flush (also "
                          "overrides a --scenario's own)")
+    ap.add_argument("--topology", default="hub",
+                    choices=["hub", "ring", "gossip"],
+                    help="exchange topology: hub-and-spoke server, or "
+                         "decentralized NoLoCo-style ring/gossip peer "
+                         "averaging (async methods only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--telemetry", default="", metavar="PATH",
+                    help="stream per-arrival update-quality telemetry "
+                         "(JSONL, the reference's schema) to this path, "
+                         "written live (one flushed line per record)")
+    ap.add_argument("--telemetry-every", type=int, default=None,
+                    metavar="N",
+                    help="a runtime-health telemetry record every N "
+                         "commits (default 1 when --telemetry is set, "
+                         "else the scenario's telemetry_every)")
+    ap.add_argument("--stats-json", default="", metavar="PATH",
+                    help="write the run's summary (arrivals, tokens, "
+                         "comm_bytes, mean staleness) as JSON at exit")
     ap.add_argument("--eval-every", type=int, default=None,
                     help="default: 10, or the scenario's golden-trace "
                          "cadence with --scenario")
@@ -126,7 +157,15 @@ def main(argv: Optional[Sequence[str]] = None):
         scn = scenario_from_args(args)
     eval_every = (args.eval_every if args.eval_every is not None
                   else (scn.eval_cadence if args.scenario else 10))
-    eng = scn.build(device=device)
+    recorder = (TelemetryRecorder(sink=args.telemetry) if args.telemetry
+                else None)
+    # runtime-health cadence: the flag, else on whenever telemetry is
+    # streamed, else the scenario's own telemetry_every
+    runtime_every = (args.telemetry_every
+                     if args.telemetry_every is not None
+                     else (1 if args.telemetry else None))
+    eng = scn.build(device=device, telemetry=recorder,
+                    runtime_record_every=runtime_every)
     eval_fn = make_eval_fn(eng, batch=scn.eval_batch)
     t0 = time.perf_counter()
     hist = eng.run(eval_every=eval_every, eval_fn=eval_fn)
@@ -139,6 +178,20 @@ def main(argv: Optional[Sequence[str]] = None):
           f"arrivals={len(hist.arrivals)} tokens={hist.tokens} "
           f"mean_staleness={sum(taus) / len(taus):.2f} "
           f"comm={hist.comm_bytes / 1e6:.1f}MB wall={wall:.2f}s")
+    if args.stats_json:
+        os.makedirs(os.path.dirname(args.stats_json) or ".", exist_ok=True)
+        with open(args.stats_json, "w") as f:
+            json.dump({"arrivals": len(hist.arrivals), "tokens": hist.tokens,
+                       "comm_bytes": hist.comm_bytes,
+                       "mean_staleness": sum(taus) / len(taus)},
+                      f, indent=2, sort_keys=True, default=str)
+        print(f"stats -> {args.stats_json}")
+    if recorder is not None:
+        recorder.close()       # the stream is on disk already, live-flushed
+        t = recorder.summary()
+        print(f"telemetry -> {args.telemetry}: {t['arrivals']} arrivals "
+              f"mean_cos={t['mean_cos_align']:.3f} "
+              f"mean_corrected_frac={t['mean_corrected_frac']:.3f}")
     return hist
 
 

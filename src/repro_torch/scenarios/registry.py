@@ -5,9 +5,9 @@ same 25 scenarios, field for field (a test holds the two equal, and each
 equal to its committed golden's ``scenario`` dict). Each has a committed
 golden trace under ``results/golden/<name>.json``; ``python -m
 repro_torch.scenarios.run verify NAME`` holds a port run to it. The port
-builds the hub-topology, sim-engine, uncompressed scenarios with one commit
-per arrival; the others raise ``NotImplementedError`` naming the ROADMAP
-item they wait for (``Scenario.build``).
+builds every sim-engine scenario, on the hub or a ring or gossip topology;
+the wall-clock ones raise ``NotImplementedError`` naming the ROADMAP item
+they wait for (``Scenario.build``).
 """
 from __future__ import annotations
 

@@ -125,9 +125,8 @@ class Scenario:
     eval_every: int = 0              # 0 -> outer_steps // 4 (min 1)
     eval_batch: int = 8
     seed: int = 0
-    # -- observability: a runtime telemetry record every N commits when a
-    # recorder is attached; observation only, and the port has no recorder
-    # yet (ROADMAP A10)
+    # -- observability: a "runtime" telemetry record every N commits when a
+    # TelemetryRecorder is attached (0 = off); observation only
     telemetry_every: int = 0
 
     def __post_init__(self):
@@ -228,10 +227,14 @@ class Scenario:
         return tuple(out + unported_axes(self.run_config()))
 
     def build(self, device="cuda",
-              init_params: Optional[Mapping[str, np.ndarray]] = None):
+              init_params: Optional[Mapping[str, np.ndarray]] = None,
+              telemetry=None, runtime_record_every: Optional[int] = None):
         """Ready-to-run port engine for this scenario on ``device``.
         ``init_params``: start from these parameters (numpy arrays keyed by
-        path) instead of a fresh draw from the seed."""
+        path) instead of a fresh draw from the seed. ``telemetry``: a
+        ``TelemetryRecorder`` the run streams into, its provenance set to
+        this scenario; ``runtime_record_every``: a "runtime" record every N
+        commits (None: ``telemetry_every``)."""
         missing = self.unported_axes()
         if missing:
             raise NotImplementedError(
@@ -257,9 +260,18 @@ class Scenario:
                                      wid=int(w), pace=float(pc),
                                      lang=None if lang is None else int(lang))
                         for t, a, w, pc, lang in tr.get("elastic", [])]
+        if telemetry is not None:
+            telemetry.ensure_meta(
+                method=self.method, engine=self.engine,
+                n_workers=self.n_workers, outer_steps=self.outer_steps,
+                seed=self.seed, non_iid=self.non_iid,
+                mixture_alpha=self.mixture_alpha, scenario=self.name)
+        if runtime_record_every is None:
+            runtime_record_every = self.telemetry_every
         return make_engine(self.run_config(), self.engine, device=device,
                            init_params=init_params, failures=failures,
-                           elastic=elastic)
+                           elastic=elastic, telemetry=telemetry,
+                           runtime_record_every=runtime_record_every)
 
     # ------------------------------------------------------------- overrides
     def overridden(self, **kw) -> "Scenario":

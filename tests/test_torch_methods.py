@@ -299,19 +299,33 @@ def test_port_server_refuses_what_it_does_not_run():
     packed = Synchronizer(init, OuterOptConfig(), n_workers=2,
                           stacked_axes=stacked)
     assert packed.packed and packed.layout.n_blocks == len(init) + 4
-    # the reference's telemetry switch waits for A10
-    with pytest.raises(TypeError, match="telemetry"):
-        Synchronizer(init, OuterOptConfig(), n_workers=2, telemetry=True)
+    # the reference's telemetry switch since A10
+    # (tests/test_torch_telemetry.py): stats on each record with it, None
+    # without it
+    delta = {k: 0.01 * torch.ones_like(v) for k, v in init.items()}
+    for on in (True, False):
+        srv = Synchronizer(init, OuterOptConfig(), n_workers=2, telemetry=on)
+        rec = srv.on_arrival(delta, 0, 0)
+        stats = (rec.cos_align, rec.corrected_frac, rec.delta_norm,
+                 rec.momentum_norm)
+        assert srv.telemetry is on
+        if on:
+            assert all(isinstance(x, float) for x in stats), stats
+            assert rec.delta_norm > 0.0 and rec.momentum_norm == 0.0
+        else:
+            assert stats == (None,) * 4
 
 
-def _live(name, **overrides):
+def _live(name, recorders=(None, None), **overrides):
     """The reference and the port run scenario ``name`` (with ``overrides``)
     from the same initial parameters; returns (reference engine, its
-    history, port engine, its history)."""
+    history, port engine, its history). ``recorders``: the reference's and
+    the port's ``TelemetryRecorder`` (or None), each handed to its engine."""
     scn = jregistry.get_scenario(name).overridden(**overrides)
-    jeng = jax_make_engine(scn)
+    jeng = jax_make_engine(scn, telemetry=recorders[0])
     eng = registry.get_scenario(name).overridden(**overrides).build(
-        device="cpu", init_params=_flat(jeng.server.state.params))
+        device="cpu", init_params=_flat(jeng.server.state.params),
+        telemetry=recorders[1])
     jhist = jeng.run(eval_every=scn.eval_cadence,
                      eval_fn=jax_make_eval_fn(jeng, batch=scn.eval_batch))
     hist = eng.run(eval_every=scn.eval_cadence,

@@ -4,10 +4,11 @@ committed golden traces.
   * every registered scenario's ``to_dict()`` equals the reference
     registry's and its golden's ``scenario`` dict, and ``from_dict`` of
     that dict rebuilds it;
-  * the thirteen sim goldens the port runs (the five method baselines,
+  * the fifteen sim goldens the port runs (the five method baselines,
     ``drop_stale``, ``flexible_shards``, ``noniid_dirichlet``,
-    ``crash_rejoin``, ``elastic_membership``, ``int8_dylu`` and the batched
-    ``hogwild_rampup`` and ``trace_paced``; ``paper_hetero_severe`` is
+    ``crash_rejoin``, ``elastic_membership``, ``int8_dylu``, the batched
+    ``hogwild_rampup`` and ``trace_paced``, and the ``gossip_ring`` and
+    ``gossip_random`` topologies; ``paper_hetero_severe`` is
     tests/test_torch_engine.py's) are reproduced exactly: arrivals,
     ``tokens``, ``comm_bytes``, ``final_time``;
   * a scenario with an axis the port lacks raises before it runs;
@@ -39,9 +40,10 @@ from test_torch_server import _flat
 PORTED = ("delayed_nesterov", "fedbuff", "dcasgd", "poly_stale",
           "sync_baseline", "drop_stale", "flexible_shards",
           "noniid_dirichlet", "crash_rejoin", "elastic_membership",
-          "int8_dylu", "hogwild_rampup", "trace_paced")
-UNPORTED = ("wallclock_hetero", "chaos_lossy", "gossip_ring",
-            "socket_hetero", "chaos_partition")
+          "int8_dylu", "hogwild_rampup", "trace_paced", "gossip_ring",
+          "gossip_random")
+UNPORTED = ("wallclock_hetero", "chaos_lossy", "socket_hetero",
+            "chaos_partition")
 
 
 def test_registry_names_match_reference():
@@ -122,10 +124,15 @@ def test_unported_axis_raises_before_running(name, monkeypatch):
 
 
 def test_engine_refuses_an_unported_run_config():
-    cfg = registry.get_scenario("drop_stale").overridden(
-        topology="ring").run_config()
-    with pytest.raises(NotImplementedError, match="topology.*A14"):
-        engine_lib.make_engine(cfg, device="cpu")
+    """The wall-clock engine (ROADMAP A13) is refused through both entry
+    points, ``Scenario.build`` and ``make_engine``, before any engine is
+    built (the topology axis this test held until A14 runs now,
+    tests/test_torch_topology.py)."""
+    scn = registry.get_scenario("drop_stale").overridden(engine="wallclock")
+    with pytest.raises(NotImplementedError, match="engine.*A13"):
+        scn.build(device="cpu")
+    with pytest.raises(NotImplementedError, match="engine.*A13"):
+        engine_lib.make_engine(scn, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["delayed_nesterov", "fedbuff",
