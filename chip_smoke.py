@@ -89,7 +89,16 @@ calls without and with telemetry, and the pieces telemetry adds):
      bit for bit, the same arrivals and evals, finite stats on every
      arrival record, and the stream decoded by the port's
      ``StreamDecoder`` with nothing skipped; one line per scenario gives
-     the server and commit ms per arrival of each run;
+     the server and commit ms per arrival of each run. Run control
+     (``run_control_phase``): ``paper_hetero_severe`` and
+     ``delayed_nesterov`` checkpointed every 6 commits, the file at 6 held
+     bit for bit to the state it saved and to its recomputed content hash,
+     restored into a fresh engine bit for bit and run on to 12 (each
+     applied arrival launching the run's kernels once, arrivals equal to
+     the same save and resume on the CPU at smoke width), with the save,
+     restore and ``AsyncSaver`` ms and the MB written; then the ``smoke``
+     sweep with the full-width model (8 cells, each stopping where the
+     same cell stops on the CPU, the report written);
   4. the single-tensor path: ``kernels.ops.outer_update_block`` over the 43
      leaves of a full-width state, one outer_update_2d launch a leaf, each
      bit for bit against the plain version;
@@ -146,6 +155,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 
 # Datasheet peaks (NVIDIA H100 data sheet; dense, no sparsity): memory
@@ -160,6 +171,8 @@ ITERS = 30
 # ~25 ms for a whole prefill or decode step or a 43-leaf pass, whose
 # dispatch takes milliseconds
 HOLD_CYCLES = 1_000_000
+# the H100's L2 (50 MB): timed inputs rotate over copies larger than it
+L2_BYTES = 50e6
 SERVE_HOLD_CYCLES = 50_000_000
 # the batched commit path's flush depth in the kernel phase
 K_MULTI = 4
@@ -217,6 +230,11 @@ TELEMETRY = (
     ("hogwild_rampup", {}, HELOCO, HELOCO_MULTI),
     ("int8_dylu", {}, HELOCO + INT8, ()),
 )
+# the run-control phase: each run checkpointed every RC_CKPT commits at full
+# width and resumed from the first checkpoint (delayed_nesterov's file holds
+# its accumulator too), with the kernels each applied arrival launches once
+RC_CKPT = 6
+RUN_CONTROL = (("paper_hetero_severe", HELOCO), ("delayed_nesterov", ACC))
 REPLACES = {
     "packed_row_stats": "src/repro/kernels/packed.py:59",
     "packed_correct_outer": "src/repro/kernels/packed.py:175",
@@ -327,6 +345,15 @@ def rotating(t, copies):
     in L2, when the copies together exceed the L2."""
     ring = itertools.cycle([t] + [t.clone() for _ in range(copies - 1)])
     return lambda: next(ring)
+
+
+def cold(t):
+    """``rotating(t, n)`` with the fewest copies (at least 2) that together
+    hold more than twice the L2, so that each timed call reads ``t`` from
+    memory whatever the call before it left in L2."""
+    return rotating(t, max(2, math.ceil(2 * L2_BYTES / (t.numel()
+                                                        * t.element_size()))
+                           + 1))
 
 
 def sum_errors(got, want):
@@ -496,15 +523,18 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
     s_rows = scale[rb.long()].contiguous()
     zeros = torch.zeros(R, dtype=torch.int32, device=dev)
     s_double, row_zeros = s_rows.double(), zeros.long()
+    # every timed call, the plain versions' and the yardsticks' too, takes
+    # its large inputs from rotations of copies that exceed L2 (``cold``)
+    ds, ms_, ps, bs, xs, qs = (cold(t) for t in (d, m, p, b, x, q))
     per_channel, pc_call, pc_differ = quantized_yardstick(
-        lambda: torch.quantize_per_channel(x, s_double, row_zeros, 0,
+        lambda: torch.quantize_per_channel(xs(), s_double, row_zeros, 0,
                                            torch.qint8),
         "torch.quantize_per_channel(x, s[:, None], 0, 0, torch.qint8)", q)
     library = {
         "packed_rowabs": lambda: torch.linalg.vector_norm(
-            x, float("inf"), dim=1),
+            xs(), float("inf"), dim=1),
         "packed_quant": per_channel,
-        "packed_dequant": lambda: torch.mul(q, s_rows[:, None]),
+        "packed_dequant": lambda: torch.mul(qs(), s_rows[:, None]),
     }
     calls = {
         "packed_rowabs": "torch.linalg.vector_norm(x, inf, dim=1)",
@@ -514,38 +544,46 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
                        pk.packed_dequant_ref(q, scale, rb)), \
         "the dequant yardstick computes another function"
     pair = {"pair_ms": time_ms(lambda: pk.packed_dequant(
-                pk.packed_quant(x, scale, rb), scale, rb)),
+                pk.packed_quant(xs(), scale, rb), scale, rb)),
             "library_pair_ms": time_ms(
                 lambda: torch.fake_quantize_per_channel_affine(
-                    x, s_rows, zeros, 0, -127, 127)),
+                    xs(), s_rows, zeros, 0, -127, 127)),
             "library_pair_call": "torch.fake_quantize_per_channel_affine"}
     int8_bytes = plane + n + table_bytes + B * f4   # fp32 + int8 + map/scales
     rows = []
     for name, fn, plain, nbytes, nflops, err in (
-            ("packed_row_stats", lambda: pk.packed_row_stats(d, m),
-             lambda: pk.packed_row_stats_ref(d, m),
+            ("packed_row_stats", lambda: pk.packed_row_stats(ds(), ms_()),
+             lambda: pk.packed_row_stats_ref(ds(), ms_()),
              2 * plane + R * 3 * f4, 6 * n, err_rs),
-            ("packed_correct_outer", lambda: co(p, m, out=outs[:2]),
-             lambda: pk.packed_correct_outer_ref(p, m, d, cu, cv, rb, eta, mu,
-                                                 rho),
+            ("packed_correct_outer",
+             lambda: pk.packed_correct_outer(ps(), ms_(), ds(), cu, cv, rb,
+                                             eta, mu, rho, out=outs[:2]),
+             lambda: pk.packed_correct_outer_ref(ps(), ms_(), ds(), cu, cv, rb,
+                                                 eta, mu, rho),
              5 * plane + table_bytes + 2 * B * f4, 11 * n, 0.0),
-            ("packed_correct_outer_quad", lambda: quad(p, m, out=outs[:2]),
-             lambda: pk.packed_correct_outer_quad_ref(p, m, d, cu, cv, cq, rb,
-                                                      0.07, mu, rho),
+            ("packed_correct_outer_quad",
+             lambda: pk.packed_correct_outer_quad(
+                 ps(), ms_(), ds(), cu, cv, cq, rb, 0.07, mu, rho,
+                 out=outs[:2]),
+             lambda: pk.packed_correct_outer_quad_ref(
+                 ps(), ms_(), ds(), cu, cv, cq, rb, 0.07, mu, rho),
              5 * plane + table_bytes + 3 * B * f4, 15 * n, 0.0),
             ("packed_correct_outer_acc",
-             lambda: acc("dn_boundary")(p, m, b, out=outs),
+             lambda: pk.packed_correct_outer_acc(
+                 ps(), ms_(), bs(), ds(), cu, cv, rb, eta, rho,
+                 *ACC_TABLES["dn_boundary"], out=outs),
              lambda: pk.packed_correct_outer_acc_ref(
-                 p, m, b, d, cu, cv, rb, eta, rho, *ACC_TABLES["dn_boundary"]),
+                 ps(), ms_(), bs(), ds(), cu, cv, rb, eta, rho,
+                 *ACC_TABLES["dn_boundary"]),
              7 * plane + table_bytes + 2 * B * f4, 16 * n, 0.0),
-            ("packed_rowabs", lambda: pk.packed_rowabs(x),
-             lambda: pk.packed_rowabs_ref(x), plane + R * f4, 2 * n, 0.0),
-            ("packed_quant", lambda: pk.packed_quant(x, scale, rb),
-             lambda: pk.packed_quant_ref(x, scale, rb), int8_bytes, 5 * n,
+            ("packed_rowabs", lambda: pk.packed_rowabs(xs()),
+             lambda: pk.packed_rowabs_ref(xs()), plane + R * f4, 2 * n, 0.0),
+            ("packed_quant", lambda: pk.packed_quant(xs(), scale, rb),
+             lambda: pk.packed_quant_ref(xs(), scale, rb), int8_bytes, 5 * n,
              0.0),
-            ("packed_dequant", lambda: pk.packed_dequant(q, scale, rb),
-             lambda: pk.packed_dequant_ref(q, scale, rb), int8_bytes, 2 * n,
-             0.0)):
+            ("packed_dequant", lambda: pk.packed_dequant(qs(), scale, rb),
+             lambda: pk.packed_dequant_ref(qs(), scale, rb), int8_bytes,
+             2 * n, 0.0)):
         ms, plain_ms = time_ms(fn), time_ms(plain)
         b_ms, by = bound(nbytes, nflops)
         lib = library.get(name)
@@ -562,25 +600,30 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
     st_bytes = 5 * plane + table_bytes + 2 * B * f4 + R * 4 * f4
     print(json.dumps({
         "kernel": "packed_correct_outer(with_stats)",
-        "kernel_ms": time_ms(lambda: co(p, m, with_stats=True, out=outs[:2])),
+        "kernel_ms": time_ms(lambda: pk.packed_correct_outer(
+            ps(), ms_(), ds(), cu, cv, rb, eta, mu, rho, with_stats=True,
+            out=outs[:2])),
         "plain_ms": time_ms(lambda: pk.packed_correct_outer_ref(
-            p, m, d, cu, cv, rb, eta, mu, rho, with_stats=True)),
+            ps(), ms_(), ds(), cu, cv, rb, eta, mu, rho, with_stats=True)),
         "bound_ms": bound(st_bytes, 17 * n)[0], "bytes": st_bytes,
         "on_main_path": False}))
     print(json.dumps({
         "kernel": "packed_correct_outer_acc[fedbuff_hold]",
-        "kernel_ms": time_ms(lambda: acc("fedbuff_hold")(p, m, b, out=outs)),
+        "kernel_ms": time_ms(lambda: pk.packed_correct_outer_acc(
+            ps(), ms_(), bs(), ds(), cu, cv, rb, eta, rho,
+            *ACC_TABLES["fedbuff_hold"], out=outs)),
         "on_main_path": True}))
     parts = pk.packed_row_stats(d, m)
     seg = layout.device_tables(dev)[1]
     print(json.dumps({
         "op": "packed_int8_roundtrip = rowabs + block max + scale + quant + "
               "dequant",
-        "ms": time_ms(lambda: compression.packed_int8_roundtrip(x, layout)),
+        "ms": time_ms(lambda: compression.packed_int8_roundtrip(xs(),
+                                                                layout)),
         **pair}))
     print(json.dumps({
         "op": "packed_stats = row stats kernel + segment sum",
-        "ms": time_ms(lambda: pk.packed_stats(d, m, layout)),
+        "ms": time_ms(lambda: pk.packed_stats(ds(), ms_(), layout)),
         "segment_sum_ms": time_ms(lambda: torch.segment_reduce(
             parts.t().reshape(-1), "sum", lengths=seg)),
         "branch_scalars_ms": time_ms(lambda: pk.branch_scalars(
@@ -634,19 +677,19 @@ def multi_phase(torch, pk, layout, dev, p, m, b, bound):
         return pk.packed_multi_correct_outer_acc(*s, D, CU, CV, rb, eta, rhos,
                                                  *MULTI_ACC_TABLE, **kw)
 
-    def seq_multi(*s):
+    def seq_multi(*s, D=D):
         for j in range(k):
             s = pk.packed_correct_outer(*s, D[j], CU[j], CV[j], rb, eta, mu,
                                         rhos[j])
         return s
 
-    def seq_quad(*s):
+    def seq_quad(*s, D=D):
         for j in range(k):
             s = pk.packed_correct_outer_quad(*s, D[j], CU[j], CV[j], CQ[j],
                                              rb, 0.07, mu, rhos[j])
         return s
 
-    def seq_acc(*s):
+    def seq_acc(*s, D=D):
         for j in range(k):
             s = pk.packed_correct_outer_acc(*s, D[j], CU[j], CV[j], rb, eta,
                                             rhos[j],
@@ -716,31 +759,47 @@ def multi_phase(torch, pk, layout, dev, p, m, b, bound):
     coef = k * B * f4
     outs = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(b))
     n_pairs = len(pairs)
+    # each timed call takes its inputs from rotations of copies that exceed
+    # L2
+    ps, ms_, bs, Ds, bases = (cold(t) for t in (p, m, b, D, basis))
+
+    def bmm():
+        x = bases()
+        return torch.bmm(x, x.transpose(1, 2))
+
     rows = []
-    for name, fn, plain, seq, nbytes, nflops, err, lib in (
-            ("packed_multi_correct_outer", lambda: multi(p, m, out=outs[:2]),
-             lambda: pk.packed_multi_correct_outer_ref(p, m, D, CU, CV, rb,
-                                                       eta, mu, rhos),
-             lambda: seq_multi(p, m),
+    for name, fn, plain, seq_fn, nbytes, nflops, err, lib in (
+            ("packed_multi_correct_outer",
+             lambda: pk.packed_multi_correct_outer(
+                 ps(), ms_(), Ds(), CU, CV, rb, eta, mu, rhos, out=outs[:2]),
+             lambda: pk.packed_multi_correct_outer_ref(
+                 ps(), ms_(), Ds(), CU, CV, rb, eta, mu, rhos),
+             lambda: seq_multi(ps(), ms_(), D=Ds()),
              (4 + k) * plane + table_bytes + 2 * coef + 3 * k * f4,
              11 * k * n, errs[0], None),
             ("packed_multi_correct_outer_quad",
-             lambda: quad(p, m, out=outs[:2]),
+             lambda: pk.packed_multi_correct_outer_quad(
+                 ps(), ms_(), Ds(), CU, CV, CQ, rb, 0.07, mu, rhos,
+                 out=outs[:2]),
              lambda: pk.packed_multi_correct_outer_quad_ref(
-                 p, m, D, CU, CV, CQ, rb, 0.07, mu, rhos),
-             lambda: seq_quad(p, m),
+                 ps(), ms_(), Ds(), CU, CV, CQ, rb, 0.07, mu, rhos),
+             lambda: seq_quad(ps(), ms_(), D=Ds()),
              (4 + k) * plane + table_bytes + 3 * coef + 3 * k * f4,
              15 * k * n, errs[1], None),
-            ("packed_multi_correct_outer_acc", lambda: acc(p, m, b, out=outs),
+            ("packed_multi_correct_outer_acc",
+             lambda: pk.packed_multi_correct_outer_acc(
+                 ps(), ms_(), bs(), Ds(), CU, CV, rb, eta, rhos,
+                 *MULTI_ACC_TABLE, out=outs),
              lambda: pk.packed_multi_correct_outer_acc_ref(
-                 p, m, b, D, CU, CV, rb, eta, rhos, *MULTI_ACC_TABLE),
-             lambda: seq_acc(p, m, b),
+                 ps(), ms_(), bs(), Ds(), CU, CV, rb, eta, rhos,
+                 *MULTI_ACC_TABLE),
+             lambda: seq_acc(ps(), ms_(), bs(), D=Ds()),
              (6 + k) * plane + table_bytes + 2 * coef + 8 * k * f4,
              16 * k * n, errs[2], None),
-            ("packed_multi_gram", lambda: pk.packed_multi_gram(m, D),
-             lambda: pk.packed_multi_gram_ref(m, D), None,
+            ("packed_multi_gram", lambda: pk.packed_multi_gram(ms_(), Ds()),
+             lambda: pk.packed_multi_gram_ref(ms_(), Ds()), None,
              (1 + k) * plane + n_pairs * R * f4, 2 * n_pairs * n, err_g,
-             lambda: torch.bmm(basis, basis.transpose(1, 2)))):
+             bmm)):
         b_ms, by = bound(nbytes, nflops)
         rows.append({
             "name": name, "ms": time_ms(fn), "plain_ms": time_ms(plain),
@@ -748,17 +807,18 @@ def multi_phase(torch, pk, layout, dev, p, m, b, bound):
             "library_ms": time_ms(lib) if lib else None,
             "library_call": ("torch.bmm over a pre-stacked (R, K+1, 128) "
                              "basis (the stack not timed)" if lib else None),
-            "sequential_ms": time_ms(seq) if seq else None,
+            "sequential_ms": time_ms(seq_fn) if seq_fn else None,
             "K": k, "bytes": nbytes, "flops": nflops, "R": R, "blocks": B})
     print(json.dumps({
         "kernel": f"packed_multi_correct_outer(with_stats), K = {k}",
-        "kernel_ms": time_ms(lambda: multi(p, m, with_stats=True,
-                                           out=outs[:2])),
+        "kernel_ms": time_ms(lambda: pk.packed_multi_correct_outer(
+            ps(), ms_(), Ds(), CU, CV, rb, eta, mu, rhos, with_stats=True,
+            out=outs[:2])),
         "on_main_path": False}))
     print(json.dumps({
         "op": "multi_gram_blocks = multi-Gram kernel + segment sum + "
               "symmetric expand",
-        "ms": time_ms(lambda: pk.multi_gram_blocks(m, D, layout))}))
+        "ms": time_ms(lambda: pk.multi_gram_blocks(ms_(), Ds(), layout))}))
     return rows
 
 
@@ -1244,6 +1304,229 @@ def telemetry_phase(torch, kernels):
             "mean_corrected_frac": summary["mean_corrected_frac"]}))
 
 
+def content_hash(flat):
+    """sha256 over the sorted keys and each array's bytes: the checkpoint
+    manifest's ``hash``, recomputed here."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode())
+        h.update(flat[k].tobytes())
+    return h.hexdigest()
+
+
+def host_tree(eng):
+    """The engine's outer state as the checkpoint's keys and host arrays
+    (the step a 0-d int32); asserts every tensor lies on ``eng.device``."""
+    out = {}
+    for part, tree in eng.server_tree().items():
+        if part == "step":
+            out[part] = np.asarray(tree, np.int32)
+            continue
+        for k, t in tree.items():
+            assert t.device.type == eng.device.type, f"{part}/{k} left it"
+            out[f"{part}/{k}"] = t.detach().cpu().numpy()
+    return out
+
+
+def load_checkpoint(path):
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    with open(path + ".manifest.json") as f:
+        return flat, json.load(f)
+
+
+def assert_same_arrays(got, want, what):
+    assert got.keys() == want.keys(), (what, set(got) ^ set(want))
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or not np.array_equal(got[k], want[k])]
+    assert not bad, f"{what}: {bad[:3]} differ"
+
+
+def cpu_resume(name, ckpt_dir):
+    """The arrival rows, inner steps and final time of the port's CPU run
+    of ``name`` at smoke width, checkpointed every RC_CKPT commits and
+    resumed from the first checkpoint in a fresh engine: the target of the
+    same save and resume on the card (arrivals depend only on paces, H and
+    the schedule)."""
+    from repro_torch.scenarios import registry, run
+    scn = registry.get_scenario(name)
+    scn.build(device="cpu").run(ckpt_every=RC_CKPT, ckpt_dir=ckpt_dir)
+    eng = scn.build(device="cpu")
+    eng.restore(os.path.join(ckpt_dir, f"step_{RC_CKPT}.npz"))
+    hist = eng.run()
+    return (run.arrival_rows(hist),
+            hist.tokens // (scn.batch_size * scn.seq_len), hist.final_time)
+
+
+def run_control_phase(torch, kernels, dev="cuda"):
+    """Run control at full width on ``dev``.
+
+    (a) Each RUN_CONTROL scenario runs with a checkpoint every RC_CKPT
+    commits; the file at RC_CKPT holds the state at that commit bit for bit
+    and its recomputed content hash is the manifest's. A fresh engine of
+    the scenario restores it (params, momentum, accumulator and step bit
+    for bit) and runs on to the scenario's last commit, with the counts set
+    to 0 just before: each applied arrival launches the run's kernels once
+    and no other kernel launches, the arrivals, inner steps and final time
+    are those of the same save and resume on the CPU at smoke width, and
+    the evals are finite. Then a save through ``AsyncSaver``, whose file
+    has the hash of a synchronous save of the same state. Prints the save
+    and restore ms, the MB written and how long ``submit`` holds the loop.
+
+    (b) The registered ``smoke`` sweep with one more axis, smoke=False: the
+    full-width model with the scenarios' own batch 2 x 16 (FULL_WIDTH's
+    batch 4 x 128 is 1024 tokens a round, so each 512-token cell would end
+    at its first arrival), 2 methods x 2 scenarios x 2 budgets. Each cell
+    stops at the arrival count, tokens and final time of the same cell on
+    the CPU at smoke width; the HeLoCo cells' applied arrivals launch row
+    stats and the fused sweep once each, the Nesterov cells' the fused
+    sweep, and nothing else launches; the report's files are written.
+    Prints each cell's wall seconds and final loss.
+
+    Returns per kernel (launches, arrivals of the runs it served)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.async_engine.engine import make_eval_fn
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.train import FULL_WIDTH
+    from repro_torch.scenarios import registry, run
+    from repro_torch.sweeps import SweepAxis, cache, get_sweep, run_sweep
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    totals = {k: [0, 0] for k in HELOCO + ACC}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name, single in RUN_CONTROL:
+            scn = registry.get_scenario(name).overridden(**FULL_WIDTH)
+            eng = scn.build(device=dev)
+            saves, at_save = [], {}
+            checkpoint = eng.checkpoint
+
+            def timed_checkpoint(ckpt_dir, eng=eng, checkpoint=checkpoint,
+                                 saves=saves, at_save=at_save):
+                if eng.server.t == RC_CKPT:
+                    at_save.update(host_tree(eng))
+                path, ms = timed(checkpoint, ckpt_dir)
+                saves.append(ms)
+                return path
+
+            eng.checkpoint = timed_checkpoint
+            ckpt_dir = os.path.join(tmp, name)
+            eng.run(ckpt_every=RC_CKPT, ckpt_dir=ckpt_dir)
+            path = os.path.join(ckpt_dir, f"step_{RC_CKPT}.npz")
+            flat, manifest = load_checkpoint(path)
+            assert content_hash(flat) == manifest["hash"], \
+                f"{name}: the file's content hash is not its manifest's"
+            assert_same_arrays(flat, at_save, f"{name}: the saved file")
+            assert ("aux/" + next(iter(eng.server.state.params)) in flat) \
+                == (name == "delayed_nesterov")
+            fresh = scn.build(device=dev)
+            _, restore_ms = timed(fresh.restore, path)
+            assert_same_arrays(host_tree(fresh), flat,
+                               f"{name}: the restored state")
+            assert fresh.restored_arrivals == RC_CKPT
+            eval_fn = make_eval_fn(fresh, batch=scn.eval_batch)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = fresh.run(eval_every=scn.eval_cadence, eval_fn=eval_fn)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            applied = sum(not a["dropped"] for a in hist.arrivals)
+            want = {k: applied * (k in single) for k in counts}
+            assert counts == want, f"{name} resumed: {counts}, want {want}"
+            for k in single:
+                totals[k][0] += counts[k]
+                totals[k][1] += applied
+            target = cpu_resume(name, os.path.join(tmp, f"{name}_cpu"))
+            rows = run.arrival_rows(hist)
+            assert rows == target[0], (f"{name} resumed: arrivals differ "
+                                       "from the port's CPU run")
+            assert (hist.tokens // (scn.batch_size * scn.seq_len),
+                    hist.final_time) == target[1:], \
+                f"{name} resumed: inner steps or final time differ"
+            means = [e["mean"] for e in hist.evals]
+            assert fresh.server.t == scn.outer_steps and means and all(
+                math.isfinite(x) for x in means), (name, means)
+            saver = ckpt.AsyncSaver()
+            async_path = os.path.join(tmp, f"{name}_async.npz")
+            _, submit_ms = timed(saver.submit, async_path,
+                                 fresh.server_tree(), {})
+            _, wait_ms = timed(saver.wait)
+            sync_path, sync_ms = timed(fresh.checkpoint, ckpt_dir)
+            saves.append(sync_ms)
+            assert load_checkpoint(async_path)[1]["hash"] == \
+                load_checkpoint(sync_path)[1]["hash"], \
+                f"{name}: AsyncSaver wrote another state"
+            print(json.dumps({
+                "run_control": name, "config": "tinygpt-15m full width, "
+                f"batch 4 x 128, a checkpoint every {RC_CKPT} commits",
+                "save_ms": saves, "restore_ms": restore_ms,
+                "mb_written": os.path.getsize(path) / 1e6,
+                "async_submit_ms": submit_ms,
+                "async_submit_to_written_ms": submit_ms + wait_ms,
+                "resumed_arrivals": len(hist.arrivals), "applied": applied,
+                "arrivals_equal": "port CPU run at smoke width",
+                "launches": counts, "resumed_wall_s": wall,
+                "eval_means": means}))
+            del eng, fresh, at_save, flat
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        base = get_sweep("smoke")
+        spec = dataclasses.replace(base, axes=(SweepAxis("smoke", (False,)),))
+        cache.RESULTS_DIR = os.path.join(tmp, "runs")
+        out_dir = str(ROOT / "build" / "sweeps")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        doc = run_sweep(spec, out_dir=out_dir, force=True, verbose=False,
+                        device=dev)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        cpu_doc = run_sweep(base, out_dir=os.path.join(tmp, "cpu"),
+                            force=True, verbose=False, device="cpu")
+    facts = ("tokens", "final_time", "arrivals", "n_dropped")
+    assert len(doc["cells"]) == len(cpu_doc["cells"]) == 8
+    applied = dict.fromkeys(base.methods, 0)
+    for row, want in zip(doc["cells"], cpu_doc["cells"]):
+        assert row["cell_id"] == want["cell_id"] + "__smoke-False", \
+            (row["cell_id"], want["cell_id"])
+        assert [row[k] for k in facts] == [want[k] for k in facts], \
+            f"{row['cell_id']}: {[row[k] for k in facts]} against the CPU's " \
+            f"{[want[k] for k in facts]}"
+        assert math.isfinite(row["final_loss"]), row
+        applied[row["method"]] += row["arrivals"] - row["n_dropped"]
+    want = dict.fromkeys(counts, 0)
+    want["packed_row_stats"] = applied["heloco"]
+    want["packed_correct_outer"] = applied["heloco"] + applied["nesterov"]
+    assert counts == want, f"smoke sweep: launches {counts}, want {want}"
+    for k in HELOCO:
+        totals[k][0] += counts[k]
+    totals["packed_row_stats"][1] += applied["heloco"]
+    totals["packed_correct_outer"][1] += applied["heloco"] + \
+        applied["nesterov"]
+    for f in ("report.md", "tables.json", "staleness_alignment.json"):
+        assert (Path(out_dir) / "smoke" / f).stat().st_size > 0, f
+    print(json.dumps({
+        "sweep": "smoke + axis smoke=False (tinygpt-15m full width, batch "
+                 "2 x 16)", "device": doc["device"], "cells": [
+            {k: r[k] for k in ("cell_id", "arrivals", "tokens", "final_time",
+                               "final_loss", "wall_seconds")}
+            for r in doc["cells"]],
+        "stops_equal": "port CPU sweep at smoke width",
+        "launches": {k: v for k, v in counts.items() if v},
+        "report": f"{out_dir}/smoke/report.md"}))
+    return totals
+
+
 def single_tensor_phase(torch, kernels, specs, dev):
     """The single-tensor entry point: one per-leaf Nesterov step through
     ``ops.outer_update_block`` on each leaf of a full-width state, with the
@@ -1513,15 +1796,18 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak):
                 nflops = bh * flash_flops(sq, skv, d, causal)
                 peak = bf16_peak if dtype == "bfloat16" else fp32_peak
                 b_ms, by = bound(nbytes, nflops, peak)
+                # timed on q, k, v rotating over copies that exceed L2
+                qs, ks, vs = cold(q), cold(k), cold(v)
                 ms = time_ms(lambda: fa.flash_attention_fwd(
-                    q, k, v, causal=causal, q_chunk=chunk), iters=10)
-                lib_ms = time_ms(sdpa, iters=10)
+                    qs(), ks(), vs(), causal=causal, q_chunk=chunk),
+                    iters=10)
+                lib_ms = time_ms(lambda: sdpa(qs(), ks(), vs()), iters=10)
                 cases.append({
                     "name": "flash_attention_fwd", "dtype": dtype,
                     "causal": causal, "BH": bh, "Sq": sq, "Skv": skv, "D": d,
                     "ms": ms,
                     "plain_ms": time_ms(lambda: fa.flash_attention_fwd_ref(
-                        q, k, v, causal), iters=10),
+                        qs(), ks(), vs(), causal), iters=10),
                     "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
                     "library_ms": lib_ms,
                     "library_call": "torch.nn.functional."
@@ -1535,7 +1821,7 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak):
                 print(json.dumps({"kernel": "flash_attention_fwd",
                                   **{k: v for k, v in cases[-1].items()
                                      if k != "name"}}))
-        del base, q, k, v, got, want
+        del base, q, k, v, got, want, qs, ks, vs
     print(f"flash_attention_fwd agrees with its plain version: bf16 err "
           f"{errs['bfloat16']:.3e} (tol {TOL_FLASH['bfloat16']}), fp32 err "
           f"{errs['float32']:.3e} (tol {TOL_FLASH['float32']}), "
@@ -2116,6 +2402,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     telemetry_phase(torch, all_kernels)
     print(f"telemetry phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, (launches, arrivals) in run_control_phase(torch,
+                                                     all_kernels).items():
+        totals[k][0] += launches
+        totals[k][1] += arrivals
+    print(f"run-control phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     replay_phase(torch)
     print(f"replay phase: {time.perf_counter() - t0:.1f}s")

@@ -14,6 +14,13 @@ per-worker replicas on a ring or gossip topology, the barrier rounds of a
 synchronous method, and the per-language eval protocol. Only *time* is
 simulated; the inner rounds run for real on the engine's device.
 
+Run control, as the reference's: a ``Budget`` stops a run at a token count
+or at a horizon of the virtual clock (the paper's Table 2 protocol), a
+checkpoint of the outer state is written every ``ckpt_every`` commits
+(``checkpoint/ckpt.py``, the reference's file format), ``restore`` resumes
+from one (the rounds in flight are lost, as on a real restart), and
+``request_stop`` ends a run at the next commit.
+
 With a ``telemetry.TelemetryRecorder`` the engine streams one "arrival"
 record per commit (with the server's update-quality stats), one "flush"
 record per commit-buffer flush, one "eval" record per evaluation and, every
@@ -28,6 +35,7 @@ exactly. A ``RunConfig`` axis the port does not run yet raises
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.async_engine.server import Synchronizer
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.compression import roundtrip_with_error_feedback
 from repro_torch.data.synthetic import (
@@ -237,6 +246,9 @@ class EventQueue:
                               self._KINDS[kind], int(wid), int(gen)))
         self._next_seq += 1
 
+    def clear(self):
+        self.__init__()
+
     def note_stale(self, n: int = 1):
         self.stale += n
 
@@ -342,6 +354,44 @@ class History:
         self.total_arrivals += 1
         if len(self.arrivals) > self.window:
             del self.arrivals[:len(self.arrivals) - self.window]
+
+    def summary(self) -> Dict:
+        return {
+            "outer_steps": self.total_arrivals,
+            "tokens": self.tokens,
+            "comm_bytes": self.comm_bytes,
+            "final_time": self.final_time,
+            "final_eval": self.evals[-1] if self.evals else None,
+        }
+
+
+@dataclass(frozen=True)
+class Budget:
+    """Stopping rule of a budgeted comparison (paper Table 2): train to a
+    fixed token count or a fixed horizon of the virtual clock instead of a
+    fixed number of outer steps, within one outer round of the target:
+
+      fixed_tokens     stop at the first commit whose cumulative token
+                       count reaches ``amount``;
+      fixed_wallclock  never commit an arrival past ``amount`` seconds of
+                       engine time; the run stops at the last arrival
+                       inside the horizon.
+
+    The configured ``outer_steps`` stays a hard cap on top."""
+    kind: str                        # "fixed_tokens" | "fixed_wallclock"
+    amount: float
+
+    KINDS = ("fixed_tokens", "fixed_wallclock")
+
+    def __post_init__(self):
+        assert self.kind in self.KINDS, self.kind
+        assert self.amount > 0, self.amount
+
+    def over_time(self, t: float) -> bool:
+        return self.kind == "fixed_wallclock" and t > self.amount + 1e-9
+
+    def over_tokens(self, tokens: int) -> bool:
+        return self.kind == "fixed_tokens" and tokens >= self.amount
 
 
 @dataclass
@@ -473,6 +523,14 @@ class EngineBase:
         # DyLU's reference pace: set here and on membership changes only,
         # never on a crash or a restart (as the reference does)
         self._min_pace = self.arena.min_alive_pace()
+        self._stop = False               # set by request_stop
+        self.restored_arrivals = 0       # commits counted by a restored ckpt
+
+    def request_stop(self) -> None:
+        """End the run at the next commit boundary. The server state stays
+        consistent: a checkpoint taken after ``run`` returns is a valid
+        resume point."""
+        self._stop = True
 
     # -------------------------------------------------------- engine hooks
     def _submit(self, task: RoundTask) -> None:
@@ -651,20 +709,27 @@ class EngineBase:
 
     # -------------------------------------------------------------- main loop
     def run(self, eval_every: int = 0,
-            eval_fn: Optional[Callable[[Params, int, float], Dict]] = None
-            ) -> History:
+            eval_fn: Optional[Callable[[Params, int, float], Dict]] = None,
+            ckpt_every: int = 0, ckpt_dir: str = "",
+            budget: Optional[Budget] = None) -> History:
         """Run to ``outer_steps`` commits: barrier rounds for a synchronous
-        method, else the asynchronous event loop."""
+        method, else the asynchronous event loop. ``ckpt_every``: write
+        ``ckpt_dir/step_<t>.npz`` every that many commits; ``budget``: stop
+        earlier at a token count or a clock horizon; ``request_stop``: stop
+        at the next commit."""
         self._ensure_telemetry_meta()
         if self.server.method.sync:
-            self._run_sync(eval_every, eval_fn)
+            self._run_sync(eval_every, eval_fn, ckpt_every, ckpt_dir, budget)
         else:
-            self._run_async(eval_every, eval_fn)
+            self._run_async(eval_every, eval_fn, ckpt_every, ckpt_dir, budget)
         return self._finalize(eval_fn)
 
-    def _post_commit(self, eval_every, eval_fn):
-        if eval_every and eval_fn and self.server.t % eval_every == 0:
+    def _post_commit(self, eval_every, eval_fn, ckpt_every, ckpt_dir):
+        t = self.server.t
+        if eval_every and eval_fn and t % eval_every == 0:
             self._eval(eval_fn)
+        if ckpt_every and ckpt_dir and t % ckpt_every == 0:
+            self.checkpoint(ckpt_dir)
         if (self.telemetry is not None and self.runtime_record_every
                 and self.history.total_arrivals
                 % self.runtime_record_every == 0):
@@ -679,38 +744,49 @@ class EngineBase:
             self._record_runtime()           # end-of-run snapshot
         return self.history
 
-    def _run_async(self, eval_every, eval_fn):
-        """Virtual-clock event loop until ``outer_steps`` commits.
+    def _run_async(self, eval_every, eval_fn, ckpt_every, ckpt_dir, budget):
+        """Virtual-clock event loop until ``outer_steps`` commits, the
+        budget or a stop request.
 
         Each step pops the next event; with ``commit_batch > 1`` a return
         takes up to that many same-tick returns with it (a same-tick
-        restart ends the batch), capped so that an eval boundary or the
-        last step lands exactly at a batch's end; the tightest cap names
-        the flush's reason. Before the batch takes effect, the failure and
-        membership events due by its time are applied (still at the
-        previous event's clock, so a joining worker's first return is
-        scheduled from there). A restart revives a crashed worker and
+        restart ends the batch), capped so that an eval or checkpoint
+        boundary or the last step lands exactly at a batch's end; the
+        tightest cap names the flush's reason. An event past a clock
+        budget's horizon ends the run uncommitted. Before the batch takes
+        effect, the failure and membership events due by its time are
+        applied (still at the previous event's clock, so a joining worker's
+        first return is scheduled from there). A restart revives a crashed worker and
         dispatches it; the return of a lost round is skipped. The ready
         returns commit, one on its own and several through the server's
         commit buffer, and only then is each of their workers dispatched
         again, so every one of them starts from the state after the whole
-        batch. ``commit_batch = 1`` is the sequential path."""
+        batch. A token budget ends the run after the commit that reaches
+        it. ``commit_batch = 1`` is the sequential path. Workers that are
+        in flight already (dispatched by ``restore``) are not dispatched
+        again."""
         for w in self.workers.values():
-            self._dispatch(w)
+            if w.alive and not w.in_flight:
+                self._dispatch(w)
         fail_idx = el_idx = 0
         target = self.cfg.outer_steps
         commit_batch = max(1, int(self.cfg.commit_batch))
-        while self.server.t < target and len(self._events):
+        while self.server.t < target and len(self._events) and not self._stop:
             # min takes the first of equal caps: a batch that ends on an
-            # eval boundary still reads "batch-full"
+            # eval or checkpoint boundary still reads "batch-full"
             limits = [(commit_batch, "batch-full"),
                       (target - self.server.t, "close")]
             if eval_every:
                 limits.append((eval_every - self.server.t % eval_every,
                                "eval"))
+            if ckpt_every:
+                limits.append((ckpt_every - self.server.t % ckpt_every,
+                               "ckpt"))
             cap, flush_reason = min(limits, key=lambda kv: kv[0])
             events = self._events.pop_batch(cap)
             time = events[0][0]
+            if budget is not None and budget.over_time(time):
+                break                    # never commit past the horizon
             while (fail_idx < len(self.failures)
                    and self.failures[fail_idx].time <= time):
                 self._handle_failure(self.failures[fail_idx])
@@ -739,18 +815,23 @@ class EngineBase:
             else:
                 self._commit_batch([(w, self._obtain(w)) for w in ready],
                                    reason=flush_reason)
-            self._post_commit(eval_every, eval_fn)
+            self._post_commit(eval_every, eval_fn, ckpt_every, ckpt_dir)
+            if budget is not None and budget.over_tokens(self.history.tokens):
+                break
             for w in ready:
                 if self.server.t < target:
                     self._dispatch(w)
 
-    def _run_sync(self, eval_every, eval_fn):
+    def _run_sync(self, eval_every, eval_fn, ckpt_every, ckpt_dir, budget):
         """Barrier rounds: every worker runs one round from the same outer
         state, the slowest gates the clock, and the server takes one step
-        on the workers' average pseudo-gradient."""
-        while self.server.t < self.cfg.outer_steps:
+        on the workers' average pseudo-gradient. A round that would end
+        past a clock budget's horizon is not run."""
+        while self.server.t < self.cfg.outer_steps and not self._stop:
             workers = [w for w in self.workers.values() if w.alive]
             round_time = max(self._h_steps(w) * w.pace for w in workers)
+            if budget is not None and budget.over_time(self.time + round_time):
+                break
             tasks = [self._make_task(w) for w in workers]
             results = [self._execute(t) for t in tasks]
             for w, res in zip(workers, results):
@@ -762,7 +843,9 @@ class EngineBase:
             if self.telemetry is not None:
                 self.telemetry.record_arrival(
                     rec, tokens_total=self.history.tokens)
-            self._post_commit(eval_every, eval_fn)
+            self._post_commit(eval_every, eval_fn, ckpt_every, ckpt_dir)
+            if budget is not None and budget.over_tokens(self.history.tokens):
+                break
 
     # ------------------------------------------------------- fault tolerance
     def _crash_worker(self, w: Worker):
@@ -822,6 +905,49 @@ class EngineBase:
         else:
             raise ValueError(f"elastic action {ev.action!r}")
         self._min_pace = self.arena.min_alive_pace(default=1.0)
+
+    # ---------------------------------------------------------- checkpointing
+    def server_tree(self) -> Dict:
+        """The outer state as the checkpoint's tree: params, momentum, the
+        step and, for a buffered method, its accumulator."""
+        state = self.server.state
+        tree = {"params": state.params, "momentum": state.momentum,
+                "step": state.step}
+        if state.aux is not None:
+            tree["aux"] = state.aux
+        return tree
+
+    def checkpoint(self, ckpt_dir: str) -> str:
+        path = os.path.join(ckpt_dir, f"step_{self.server.t}.npz")
+        meta = {"time": self.time, "tokens": int(self.history.tokens),
+                "arrivals": self.history.total_arrivals}
+        ckpt.save(path, self.server_tree(), meta)
+        return path
+
+    def restore(self, path: str):
+        """Resume from a checkpoint: the outer state (through the server's
+        state setter, which packs it, or sets every replica of a
+        ``PeerMixer``), the clock and the token count. The rounds in flight
+        are lost, as on a real restart: the event queue is cleared and
+        every live worker is dispatched afresh from the restored state;
+        the workers' own optimizer state is kept."""
+        state = self.server.state
+        tree, meta = ckpt.restore(path, self.server_tree())
+        self.server.state = state._replace(
+            params=tree["params"], momentum=tree["momentum"],
+            step=tree["step"], aux=tree.get("aux", state.aux))
+        self.time = float(meta.get("time", 0.0))
+        self.history.tokens = int(meta.get("tokens", 0))
+        # a resumed run counts restored_arrivals + its own commits
+        self.restored_arrivals = int(meta.get("arrivals", 0))
+        self._stop = False
+        self._events.clear()
+        for w in self.workers.values():
+            self._drop_round(w)
+            w.generation += 1
+            w.pending_task_id = None
+            if w.alive:
+                self._dispatch(w)
 
 
 ENGINES = ("sim",)

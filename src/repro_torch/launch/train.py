@@ -24,10 +24,18 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --workers 4 \\
         --paces 1,2,6,15 --outer 12 --inner 2 --batch 2 --seq 16 \\
         --method nesterov --topology gossip --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --scenario paper_hetero_severe --ckpt-dir ckpts --ckpt-every 6 \\
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --scenario paper_hetero_severe --ckpt-dir ckpts --resume --device cpu
 
 ``--telemetry PATH`` streams the run's records live to a JSONL file (the
 reference's schema; a "runtime" record every ``--telemetry-every`` commits,
 1 by default), and ``--stats-json PATH`` writes the run's summary.
+``--ckpt-dir DIR`` writes ``DIR/step_<t>.npz`` every ``--ckpt-every``
+commits (the reference's format); with ``--resume`` the run starts from the
+latest checkpoint there, if there is one.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import time
 from typing import Optional, Sequence
 
 from repro_torch.async_engine.engine import make_eval_fn
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import methods as outer_methods
 from repro_torch.device import resolve_device
 from repro_torch.scenarios import registry
@@ -120,6 +129,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "decentralized NoLoCo-style ring/gossip peer "
                          "averaging (async methods only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="write a checkpoint of the outer state here")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="commits between checkpoints (with --ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="start from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--telemetry", default="", metavar="PATH",
                     help="stream per-arrival update-quality telemetry "
                          "(JSONL, the reference's schema) to this path, "
@@ -166,9 +181,16 @@ def main(argv: Optional[Sequence[str]] = None):
                      else (1 if args.telemetry else None))
     eng = scn.build(device=device, telemetry=recorder,
                     runtime_record_every=runtime_every)
+    if args.resume and args.ckpt_dir:
+        latest = ckpt.latest(args.ckpt_dir)
+        if latest:
+            eng.restore(latest)
+            print(f"resumed from {latest} (outer step {eng.server.t})")
     eval_fn = make_eval_fn(eng, batch=scn.eval_batch)
     t0 = time.perf_counter()
-    hist = eng.run(eval_every=eval_every, eval_fn=eval_fn)
+    hist = eng.run(eval_every=eval_every, eval_fn=eval_fn,
+                   ckpt_every=args.ckpt_every if args.ckpt_dir else 0,
+                   ckpt_dir=args.ckpt_dir)
     wall = time.perf_counter() - t0
     for e in hist.evals:
         print(f"step {e['step']:5d}  t={e['time']:8.0f}s  "

@@ -23,7 +23,11 @@ product back). flash_attention_fwd
 (csrc/flash_attention.cu) within the reference's own bands of its plain
 version: 2e-5 in fp32, 2e-2 in bf16 (tests/test_kernels.py:125-160); a
 full-width prefill's logits within 2e-2 of their largest |value| of the
-plain path's (tests/test_torch_serve.py's bf16 bound).
+plain path's (tests/test_torch_serve.py's bf16 bound). Checkpoints: a
+state saved from the card restores to the card bit for bit, with the hash
+of the same bits saved from the CPU; a full-width run checkpointed at 6
+and resumed to 12 on the card has the arrivals of the same save and
+resume on the CPU at smoke width.
 """
 import numpy as np
 import pytest
@@ -712,3 +716,52 @@ def test_full_width_prefill_launches_flash_once_per_layer(cuda):
         attn_lib.flash_attention_fwd = kernel
     err = (logits.float() - plain.float()).abs().max().item()
     assert err <= 2e-2 * plain.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_the_card_restores_bit_for_bit(cuda, tmp_path):
+    from repro_torch.checkpoint import ckpt
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    tree = {part: {f"layer_{i:02d}/w": torch.randn((257, 33), generator=gen,
+                                                  device=cuda)
+                   for i in range(3)}
+            for part in ("params", "momentum", "aux")}
+    tree["step"] = 11
+    digest = ckpt.save(str(tmp_path / "card.npz"), tree, {"t": 1})
+    host = {k: ({p: t.cpu() for p, t in v.items()} if isinstance(v, dict)
+                else v) for k, v in tree.items()}
+    assert ckpt.save(str(tmp_path / "host.npz"), host) == digest
+    like = {k: ({p: torch.zeros_like(t) for p, t in v.items()}
+                if isinstance(v, dict) else 0) for k, v in tree.items()}
+    got, meta = ckpt.restore(str(tmp_path / "card.npz"), like)
+    assert meta == {"t": 1} and got["step"] == 11
+    for part in ("params", "momentum", "aux"):
+        for p, t in tree[part].items():
+            assert got[part][p].device.type == "cuda"
+            assert torch.equal(got[part][p], t)
+
+
+def _save_and_resume(scn, device, ckpt_dir):
+    """``scn`` run to 6 commits with a checkpoint every 6, then a fresh
+    engine restored from it and run on to 12; the resumed run's history."""
+    import dataclasses
+    first = scn.build(device=device)
+    first.cfg = dataclasses.replace(first.cfg, outer_steps=6)
+    first.run(ckpt_every=6, ckpt_dir=str(ckpt_dir))
+    eng = scn.build(device=device)
+    eng.restore(str(ckpt_dir / "step_6.npz"))
+    assert eng.restored_arrivals == 6
+    return eng.run()
+
+
+@pytest.mark.cuda
+def test_full_width_resume_has_the_arrivals_of_the_cpu(cuda, tmp_path):
+    from repro_torch.launch.train import FULL_WIDTH
+    from repro_torch.scenarios import registry, run
+    scn = registry.get_scenario("paper_hetero_severe")
+    card = _save_and_resume(scn.overridden(**FULL_WIDTH), "cuda",
+                            tmp_path / "card")
+    cpu = _save_and_resume(scn, "cpu", tmp_path / "cpu")
+    assert len(card.arrivals) == 6
+    assert run.arrival_rows(card) == run.arrival_rows(cpu)
+    assert card.final_time == cpu.final_time

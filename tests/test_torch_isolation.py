@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package, and no entry point
-drops to the CPU unless asked to."""
+``chip_smoke.py`` imports JAX, the reference package or the reference's
+benchmark harness, and no entry point drops to the CPU unless asked to."""
 import pkgutil
 import re
 import subprocess
@@ -16,10 +16,12 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.configs import get_config
 from repro_torch.launch import train
 from repro_torch.scenarios.spec import Scenario
+from repro_torch.sweeps import __main__ as sweeps_cli
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|repro|benchmarks)(\.|\s|$)",
+    re.MULTILINE)
 
 
 def _modules():
@@ -29,11 +31,13 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_reference():
     mods = _modules()
-    assert "repro_torch.kernels.packed" in mods and len(mods) >= 20
+    assert {"repro_torch.kernels.packed", "repro_torch.checkpoint.ckpt",
+            "repro_torch.sweeps.cache", "repro_torch.sweeps.__main__"} <= \
+        set(mods) and len(mods) >= 20
     code = ("import sys\n"
             f"for m in {mods!r}: __import__(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
@@ -60,3 +64,5 @@ def test_launcher_without_gpu_raises_instead_of_using_the_cpu(monkeypatch):
             train.main(argv)
     with pytest.raises(RuntimeError, match="cuda"):
         engine_lib.make_engine(RunConfig(model=get_config("tinygpt-15m-smoke")))
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweeps_cli.main(["run", "smoke"])

@@ -12,9 +12,10 @@ committed golden traces.
     tests/test_torch_engine.py's) are reproduced exactly: arrivals,
     ``tokens``, ``comm_bytes``, ``final_time``;
   * a scenario with an axis the port lacks raises before it runs;
-  * ``delayed_nesterov``, ``fedbuff``, ``crash_rejoin`` and
-    ``sync_baseline`` with int8 compression against a live reference run
-    from the same bits, with the bands of tests/test_torch_methods.py (evals
+  * ``delayed_nesterov``, ``fedbuff``, ``crash_rejoin``, ``poly_stale``,
+    ``drop_stale``, ``noniid_dirichlet``, ``elastic_membership``,
+    ``flexible_shards`` and ``sync_baseline`` with int8 compression against
+    a live reference run from the same bits, with the bands of tests/test_torch_methods.py (evals
     1e-4 absolute, final parameters 5e-4 of each leaf's largest |value|),
     and ``int8_dylu`` likewise but for at most two parameters that may
     sit one int8 quantization step off (a .5 tie rounded the other way);
@@ -136,7 +137,9 @@ def test_engine_refuses_an_unported_run_config():
 
 
 @pytest.mark.parametrize("name", ["delayed_nesterov", "fedbuff",
-                                  "crash_rejoin"])
+                                  "crash_rejoin", "poly_stale", "drop_stale",
+                                  "noniid_dirichlet", "elastic_membership",
+                                  "flexible_shards"])
 def test_live_reference_run_from_the_same_bits(name):
     check_live(*_live(name))
 
