@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only int8
     python3 chip_smoke.py --only leaf
     python3 chip_smoke.py --only telemetry
+    python3 chip_smoke.py --only wallclock
 
 Phases, in order; any failure exits non-zero (``--only int8`` runs the
 int8 kernels' checks and times of phase 2, the card's read, write and copy
@@ -13,7 +14,8 @@ and prints no contract lines; ``--only leaf`` the same for the per-leaf
 kernels: their checks and times of phase 2 with the 43-leaf correction
 pass, the card's rates, phase 4 and the leaf build report; ``--only
 telemetry`` builds the packed sweeps and times a packed server's commit
-calls without and with telemetry, and the pieces telemetry adds):
+calls without and with telemetry, and the pieces telemetry adds; ``--only
+wallclock`` builds the packed sweeps and runs the wall-clock phase):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
@@ -98,7 +100,22 @@ calls without and with telemetry, and the pieces telemetry adds):
      the same save and resume on the CPU at smoke width), with the save,
      restore and ``AsyncSaver`` ms and the MB written; then the ``smoke``
      sweep with the full-width model (8 cells, each stopping where the
-     same cell stops on the CPU, the report written);
+     same cell stops on the CPU, the report written). The wall-clock
+     phase (``wallclock_phase``): ``wallclock_hetero``, the three method
+     twins, ``chaos_lossy``, ``chaos_corrupt`` and ``int8_dylu`` on the
+     deterministic threaded runtime at full width, each beside a sim run
+     of its config from the same bits: the golden's and the sim's
+     arrivals, the final parameters' fingerprint within rtol 1e-5 and
+     atol 1e-6 of the sim's (the digests' equality printed), the chaos
+     twins with ``wallclock_hetero``'s digest and their fault counters
+     non-zero, each applied arrival launching the server's kernels once
+     and each worker round (from its thread) the int8 sweeps once, with
+     ``stats_summary()``'s numbers; ``payload_crc`` timed alone on one
+     full-width pseudo-gradient, and ``wallclock_hetero`` once more with
+     the checksum a constant (what it costs end to end); then
+     ``wallclock_free`` and ``chaos_partition`` inside the goldens' bands
+     at smoke width and at full width (every arrival committed, finite
+     evals, the partitioned worker declared dead);
   4. the single-tensor path: ``kernels.ops.outer_update_block`` over the 43
      leaves of a full-width state, one outer_update_2d launch a leaf, each
      bit for bit against the plain version;
@@ -235,6 +252,30 @@ TELEMETRY = (
 # its accumulator too), with the kernels each applied arrival launches once
 RC_CKPT = 6
 RUN_CONTROL = (("paper_hetero_severe", HELOCO), ("delayed_nesterov", ACC))
+# the wall-clock phase: each deterministic run on the threaded runtime at
+# full width beside a sim run of the same config from the same bits (its
+# twin: engine "sim", no faults), with the kernels each applied arrival
+# launches once; int8_dylu's int8 sweeps run in the worker threads, once a
+# round. The chaos twins must commit wallclock_hetero's bits.
+WALLCLOCK = (
+    ("wallclock_hetero", {}, HELOCO),
+    ("delayed_nesterov_wallclock", {}, ACC),
+    ("fedbuff_wallclock", {}, ACC),
+    ("dcasgd_wallclock", {}, ("packed_correct_outer_quad",)),
+    ("chaos_lossy", {}, HELOCO),
+    ("chaos_corrupt", {}, HELOCO),
+    ("int8_dylu", {"engine": "wallclock"}, HELOCO + INT8),
+)
+CHAOS_TWINS = {"chaos_lossy": ("injected_drops", "retries"),
+               "chaos_corrupt": ("injected_corruptions", "checksum_rejects")}
+# the free-running scenarios, and chaos_partition's black-holed worker
+WALLCLOCK_FREE = ("wallclock_free", "chaos_partition")
+PARTITIONED = 3
+# trace._cmp_fingerprint's band between the runtime's and the sim's final
+# parameters (per-leaf sum and l2)
+TOL_FP = dict(rtol=1e-5, atol=1e-6)
+# payload_crc's host time on one full-width pseudo-gradient: median of
+CRC_REPS = 5
 REPLACES = {
     "packed_row_stats": "src/repro/kernels/packed.py:59",
     "packed_correct_outer": "src/repro/kernels/packed.py:175",
@@ -1527,6 +1568,272 @@ def run_control_phase(torch, kernels, dev="cuda"):
     return totals
 
 
+def runtime_line(eng, hist, wall, check_ms, sim_wall=None):
+    """The runtime's ``stats_summary()`` numbers of one run, with the host
+    ms a round takes and the server thread's delivery checks (the CRC of
+    every result frame) per arrival."""
+    s = eng.stats_summary()
+    line = {k: s[k] for k in ("mode", "arrivals", "rounds", "wall_seconds",
+                              "arrivals_per_sec", "server_occupancy",
+                              "compute_parallelism", "overlap_mean",
+                              "overlap_max", "queue_depth_max")}
+    line["delivery"] = {k: v for k, v in s["delivery"].items() if v}
+    line["ms_per_arrival"] = 1e3 * wall / len(hist.arrivals)
+    line["round_host_ms"] = 1e3 * s["compute_seconds_total"] / max(
+        s["rounds"], 1)
+    line["server_delivery_check_ms_per_arrival"] = sum(check_ms) / len(
+        hist.arrivals)
+    if sim_wall is not None:
+        line["sim_ms_per_arrival"] = 1e3 * sim_wall / len(hist.arrivals)
+    return line
+
+
+def crc_timing(torch, params):
+    """``payload_crc``'s host ms on one full-width pseudo-gradient (random
+    values shaped as ``params``), timed alone: the whole call, then its two
+    parts, the device-to-host copies and the CRC over the host bytes, and
+    the CRC over ``tobytes()`` copies (the reference's way) for scale."""
+    import zlib
+    from repro_torch.async_engine.transport import host_bytes, payload_crc
+    gen = torch.Generator(device=next(iter(params.values())).device)
+    gen.manual_seed(5)
+    delta = {k: torch.randn(v.shape, generator=gen, device=v.device)
+             for k, v in params.items()}
+
+    def med(fn):
+        times = []
+        for _ in range(CRC_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    host = [v.cpu().numpy() for v in delta.values()]
+    return {"crc_bytes": sum(v.numel() * v.element_size()
+                             for v in delta.values()),
+            "payload_crc_ms": med(lambda: payload_crc(delta)),
+            "device_to_host_ms": med(lambda: [v.cpu()
+                                              for v in delta.values()]),
+            "crc32_memoryview_ms": med(lambda: [zlib.crc32(host_bytes(h))
+                                                for h in host]),
+            "crc32_tobytes_ms": med(lambda: [zlib.crc32(h.tobytes())
+                                             for h in host]),
+            "reps": CRC_REPS}
+
+
+def wallclock_phase(torch, kernels, dev="cuda"):
+    """The wall-clock runtime (``async_engine/runtime.py``) on the card.
+
+    (a) Each WALLCLOCK run at full width, batch 4 x 128, on the
+    deterministic runtime (worker threads, the device's default stream)
+    beside its sim twin run from the same initial bits: the arrivals equal
+    the golden's and the twin's, the final parameters' fingerprint within
+    TOL_FP of the twin's (whether the digests are bit-equal is printed,
+    and each differing leaf's largest difference when they are not), the
+    chaos twins with wallclock_hetero's digest and their fault counters
+    non-zero; with the counts set to 0 just before the runtime's run, each
+    applied arrival launches the run's server kernels once, each round the
+    int8 sweeps once, and nothing else launches. Prints
+    ``stats_summary()``'s numbers and the ms per arrival of both engines.
+
+    (b) ``payload_crc`` on one full-width pseudo-gradient, timed alone.
+
+    (c) wallclock_free and chaos_partition at their own smoke width on the
+    card through ``trace.verify``'s bands, then at full width: every
+    arrival committed with the HeLoCo kernels once each, finite evals, and
+    in chaos_partition the partitioned worker declared dead; the liveness
+    deaths and revivals by worker and the heartbeat misses are printed.
+
+    Returns per kernel (launches, arrivals or rounds of the runs it
+    served)."""
+    from repro_torch import bridge
+    from repro_torch.async_engine.engine import make_eval_fn
+    from repro_torch.launch.train import FULL_WIDTH
+    from repro_torch.scenarios import registry, run, trace
+    from repro_torch.telemetry import TelemetryRecorder
+
+    def timed_run(eng, scn, reset=False):
+        """The run's history, wall seconds and, on the runtime, the ms of
+        each delivery check on the server thread."""
+        check_ms = []
+        tracker = getattr(eng, "_delivery", None)
+        if tracker is not None:
+            process = tracker.process
+
+            def timed_process(env):
+                t0 = time.perf_counter()
+                out = process(env)
+                check_ms.append(1e3 * (time.perf_counter() - t0))
+                return out
+            tracker.process = timed_process
+        eval_fn = make_eval_fn(eng, batch=scn.eval_batch)
+        torch.cuda.synchronize()
+        if reset:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = eng.run(eval_every=scn.eval_cadence, eval_fn=eval_fn)
+        torch.cuda.synchronize()
+        return hist, time.perf_counter() - t0, check_ms
+
+    # a short sim run first, so that no timed run pays the first launches
+    timed_run(registry.get_scenario("wallclock_hetero").overridden(
+        **FULL_WIDTH, engine="sim", outer_steps=2).build(device=dev),
+        registry.get_scenario("wallclock_hetero"))
+    totals = {k: [0, 0] for k in HELOCO + ACC + INT8
+              + ("packed_correct_outer_quad",)}
+    twins, digests = {}, {}
+    for name, overrides, single in WALLCLOCK:
+        scn = registry.get_scenario(name).overridden(**FULL_WIDTH,
+                                                     **overrides)
+        twin = scn.overridden(name="sim twin", description="", engine="sim",
+                              faults=None)
+        if twin not in twins:
+            sim = twin.build(device=dev)
+            init = bridge.to_numpy(sim.server.state.params)
+            sim_hist, sim_wall, _ = timed_run(sim, twin)
+            state = sim.server.state.params
+            twins[twin] = (init, run.arrival_rows(sim_hist), sim_wall,
+                           trace.param_fingerprint(state),
+                           trace.param_digest(state),
+                           {k: v.clone() for k, v in state.items()})
+            del sim, state
+        init, sim_rows, sim_wall, sim_fp, sim_digest, sim_params = \
+            twins[twin]
+        eng = scn.build(device=dev, init_params=init)
+        hist, wall, check_ms = timed_run(eng, scn, reset=True)
+        counts = kernels.launch_counts()
+        bad = run.compare(scn, hist)
+        assert not bad, f"{name} on the runtime: {bad}"
+        assert run.arrival_rows(hist) == sim_rows, \
+            f"{name}: the runtime's arrivals are not its sim twin's"
+        params = eng.server.state.params
+        fails = []
+        trace._cmp_fingerprint(fails, trace.param_fingerprint(params),
+                               sim_fp, **TOL_FP)
+        assert not fails, f"{name}: fingerprint off the sim twin's: {fails}"
+        digest = digests[name] = trace.param_digest(params)
+        leaf_diff = {k: (v - sim_params[k]).abs().max().item()
+                     for k, v in params.items()
+                     if not torch.equal(v, sim_params[k])}
+        s = eng.stats_summary()
+        rounds = s["rounds"]
+        applied = sum(not a["dropped"] for a in hist.arrivals)
+        want = dict.fromkeys(counts, 0)
+        for k in single:
+            want[k] = rounds if k in INT8 else applied
+        assert counts == want, \
+            f"{name} on the runtime: launches {counts}, want {want}"
+        assert rounds >= applied, (name, rounds, applied)
+        for k in single:
+            totals[k][0] += counts[k]
+            totals[k][1] += rounds if k in INT8 else applied
+        if name in CHAOS_TWINS:
+            assert digest == digests["wallclock_hetero"], \
+                f"{name}: not wallclock_hetero's bits"
+            assert all(s["delivery"][k] > 0 for k in CHAOS_TWINS[name]), \
+                (name, s["delivery"])
+        means = [e["mean"] for e in hist.evals]
+        assert means and all(math.isfinite(x) for x in means), (name, means)
+        print(json.dumps({
+            "wallclock": name, "overrides": overrides,
+            "config": f"tinygpt-15m full width, {scn.n_workers} workers "
+                      f"{scn.paces}, H={scn.inner_steps}, batch 4 x 128, "
+                      "deterministic commit order",
+            "arrivals_equal": "golden and sim twin",
+            "digest_equal_sim": digest == sim_digest,
+            "max_abs_diff_by_leaf": leaf_diff,
+            "launches": {k: v for k, v in counts.items() if v},
+            "applied": applied,
+            **runtime_line(eng, hist, wall, check_ms, sim_wall),
+            "eval_means": means}))
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    init, *_, sim_params = next(iter(twins.values()))
+    print(json.dumps({
+        "payload_crc": "tinygpt-15m full-width delta, 43 fp32 leaves",
+        **crc_timing(torch, sim_params)}))
+    twins.clear()
+    # what the checksum costs end to end: wallclock_hetero once more with
+    # payload_crc a constant on both sides (a diagnostic run: no fault is
+    # injected, so nothing rides on the checksum)
+    from repro_torch.async_engine import faults as faults_lib
+    from repro_torch.async_engine import runtime as runtime_lib
+    scn = registry.get_scenario("wallclock_hetero").overridden(**FULL_WIDTH)
+    saved = runtime_lib.payload_crc, faults_lib.payload_crc
+    runtime_lib.payload_crc = faults_lib.payload_crc = lambda payload: 0
+    try:
+        eng = scn.build(device=dev, init_params=init)
+        hist, wall, check_ms = timed_run(eng, scn)
+    finally:
+        runtime_lib.payload_crc, faults_lib.payload_crc = saved
+    assert trace.param_digest(eng.server.state.params) == \
+        digests["wallclock_hetero"], "the run without a CRC ended elsewhere"
+    print(json.dumps({"wallclock_without_crc": "wallclock_hetero",
+                      **runtime_line(eng, hist, wall, check_ms)}))
+    del eng
+
+    for name in WALLCLOCK_FREE:
+        res = trace.verify(registry.get_scenario(name), device=dev)
+        assert res.ok, res.report()
+        s = res.details["stats"]
+        print(json.dumps({
+            "wallclock_free_smoke": name, "golden": "within FREE_BANDS",
+            **{k: s[k] for k in ("arrivals", "wall_seconds",
+                                 "compute_parallelism", "overlap_mean",
+                                 "server_occupancy")},
+            "delivery": {k: v for k, v in s["delivery"].items() if v}}))
+    for name in WALLCLOCK_FREE:
+        scn = registry.get_scenario(name).overridden(**FULL_WIDTH)
+        rec = TelemetryRecorder()
+        eng = scn.build(device=dev, telemetry=rec)
+        hist, wall, check_ms = timed_run(eng, scn, reset=True)
+        counts = kernels.launch_counts()
+        applied = sum(not a["dropped"] for a in hist.arrivals)
+        assert len(hist.arrivals) == scn.outer_steps, (name, hist.arrivals)
+        want = dict.fromkeys(counts, 0)
+        want.update(dict.fromkeys(HELOCO, applied))
+        assert counts == want, f"{name}: launches {counts}, want {want}"
+        for k in HELOCO:
+            totals[k][0] += counts[k]
+            totals[k][1] += applied
+        means = [e["mean"] for e in hist.evals]
+        assert means and all(math.isfinite(x) for x in means), (name, means)
+        deaths = [f.wid for f in rec.faults() if f.event == "liveness_dead"]
+        if scn.faults is not None:
+            assert PARTITIONED in deaths, \
+                f"{name}: worker {PARTITIONED} never declared dead ({deaths})"
+        # a death outside the partition is a false one (a heartbeat thread
+        # starved of the GIL); each should be followed by its revival
+        events = [(f.event, f.wid) for f in rec.faults()
+                  if f.event in ("liveness_dead", "liveness_revive")]
+        false_deaths = [(i, wid) for i, (ev, wid) in enumerate(events)
+                        if ev == "liveness_dead" and wid != PARTITIONED]
+        unrevived = [wid for i, wid in false_deaths
+                     if ("liveness_revive", wid) not in events[i + 1:]]
+        print(json.dumps({
+            "wallclock_free": name, "config": "tinygpt-15m full width, "
+            f"{scn.n_workers} workers {scn.paces}, H={scn.inner_steps}, "
+            f"batch 4 x 128, pace_scale {scn.pace_scale}",
+            "launches": {k: v for k, v in counts.items() if v},
+            "liveness_deaths_by_wid": deaths,
+            "revivals_by_wid": [f.wid for f in rec.faults()
+                                if f.event == "liveness_revive"],
+            "false_deaths_by_wid": [wid for _, wid in false_deaths],
+            "false_deaths_unrevived": unrevived,
+            **runtime_line(eng, hist, wall, check_ms), "eval_means": means}))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def wallclock_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only wallclock``: the wall-clock phase alone (packed.cu built)."""
+    wallclock_phase(torch, kernels, dev)
+
+
 def single_tensor_phase(torch, kernels, specs, dev):
     """The single-tensor entry point: one per-leaf Nesterov step through
     ``ops.outer_update_block`` on each leaf of a full-width state, with the
@@ -2339,7 +2646,9 @@ def main(argv=None) -> int:
                          "leaf builds leaf.cu, checks and times the per-leaf "
                          "kernels (leaf_only); telemetry builds packed.cu, "
                          "times a packed server's commits without and with "
-                         "telemetry (telemetry_only)")
+                         "telemetry (telemetry_only); wallclock builds "
+                         "packed.cu and runs the wall-clock phase "
+                         "(wallclock_only)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2409,6 +2718,12 @@ def main(argv=None) -> int:
         totals[k][1] += arrivals
     print(f"run-control phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    for k, (launches, arrivals) in wallclock_phase(torch,
+                                                   all_kernels).items():
+        totals[k][0] += launches
+        totals[k][1] += arrivals
+    print(f"wall-clock phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     replay_phase(torch)
     print(f"replay phase: {time.perf_counter() - t0:.1f}s")
     # the int8 kernels' path is the per-tensor entry points: launches per
@@ -2461,7 +2776,8 @@ def main(argv=None) -> int:
 
 # --only: the source each one-phase run builds, and the phase
 ONLY = {"int8": ("quantize", int8_only), "leaf": ("leaf", leaf_only),
-        "telemetry": ("packed", telemetry_only)}
+        "telemetry": ("packed", telemetry_only),
+        "wallclock": ("packed", wallclock_only)}
 
 
 if __name__ == "__main__":

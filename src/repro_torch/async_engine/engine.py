@@ -32,10 +32,16 @@ The arrival sequence depends only on paces, H, the schedule, the batching
 and the failure and membership events, so it equals the reference's
 exactly. A ``RunConfig`` axis the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item.
+
+The wall-clock ``runtime.ConcurrentRuntime`` runs this engine with eager
+rounds in worker threads; the hooks it overrides are ``_submit``,
+``_obtain``, ``_drop_round``, ``_on_worker_removed``, ``_sleep_per_step``,
+``_use_virtual_clock`` and ``_execute_sync``.
 """
 from __future__ import annotations
 
 import os
+import time as _time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -58,8 +64,8 @@ from repro_torch.train.inner import eval_loss, pseudo_gradient, run_inner
 Params = Dict[str, torch.Tensor]
 
 # RunConfig axes the port's engine does not run yet: (field, default,
-# ROADMAP item). Every axis of RunConfig runs; the wall-clock engine and
-# the fault injector, which are not RunConfig axes, wait for A13
+# ROADMAP item). Every axis of RunConfig runs; the socket transport, which
+# is not a RunConfig axis, waits for A18
 # (``scenarios/spec.py:Scenario.unported_axes``).
 UNPORTED_AXES: Tuple[Tuple[str, Any, str], ...] = ()
 
@@ -91,6 +97,7 @@ class WorkerArena:
         ("inner_step_count", np.int64, 0),  # lifetime steps (LR schedule)
         ("generation", np.int64, 0),     # bumped on a crash: stale return
         ("pending_task", np.int64, -1),  # the round in flight (-1: none)
+        ("round_seq", np.int64, 0),      # rounds dispatched (lifetime)
     )
     BOOL_FIELDS = (("used", True), ("alive", True))
     OBJECT_FIELDS = ("lang", "mixture", "opt", "ef")
@@ -183,6 +190,7 @@ class Worker:
     pace = _column("pace", float)
     inner_step_count = _column("inner_step_count", int)
     generation = _column("generation", int)
+    round_seq = _column("round_seq", int)
     alive = _column("alive", bool)
     lang = _column("lang")
     mixture = _column("mixture")
@@ -397,8 +405,9 @@ class Budget:
 @dataclass
 class RoundTask:
     """Snapshot of one dispatched inner round; ``execute_round`` reads only
-    this, never the live ``Worker``."""
-    task_id: int
+    this, never the live ``Worker``, so a crash injected while it runs in
+    another thread cannot race it (the stale result is dropped)."""
+    task_id: int                     # engine-unique, even across a rejoin
     wid: int
     generation: int
     params: Params
@@ -411,10 +420,14 @@ class RoundTask:
     mixture: Optional[Tuple[float, ...]] = None
     batch_size: int = 0              # per-round mini-batch (0: the config's;
     # nonzero under the hogwild ramp-up, RunConfig.batch_rampup)
+    round_seq: int = 0               # the worker's round count
+    sleep_per_step: float = 0.0      # free-running pace throttle (wall s)
+    device: Any = None               # where the round runs (None: anywhere)
 
 
 @dataclass
 class RoundResult:
+    task_id: int
     wid: int
     generation: int
     delta: Any                       # Params, or packing.Packed under int8
@@ -425,6 +438,8 @@ class RoundResult:
     h_steps: int
     lang: Optional[int]
     batch_size: int = 0              # the round's mini-batch (0: the config's)
+    round_seq: int = 0
+    compute_seconds: float = 0.0     # host seconds of the round
 
 
 def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs,
@@ -433,6 +448,7 @@ def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs,
     the worker's shard or mixture, then the pseudo-gradient, compressed
     with error feedback when the run asks for it (int8 through the packed
     ``layout``, the server's, when one is given)."""
+    t0 = _time.perf_counter()
     sampler = ShardSampler(specs, task.lang,
                            task.batch_size or cfg.batch_size, cfg.seq_len,
                            seed=cfg.seed * 977 + task.wid,
@@ -445,10 +461,12 @@ def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs,
         layout=layout)
     if not cfg.outer.error_feedback:
         ef = None
-    return RoundResult(wid=task.wid, generation=task.generation, delta=delta,
+    return RoundResult(task_id=task.task_id, wid=task.wid,
+                       generation=task.generation, delta=delta,
                        opt=result.opt, ef=ef, nbytes=nbytes, s_i=task.s_i,
                        h_steps=task.h_steps, lang=task.lang,
-                       batch_size=task.batch_size)
+                       batch_size=task.batch_size, round_seq=task.round_seq,
+                       compute_seconds=_time.perf_counter() - t0)
 
 
 class EngineBase:
@@ -542,6 +560,23 @@ class EngineBase:
     def _drop_round(self, w: Worker) -> None:
         """The worker's round in flight is lost (crash or leave)."""
 
+    def _on_worker_removed(self, w: Worker) -> None:
+        """An elastic leave (the runtime stops the worker's thread)."""
+
+    def _sleep_per_step(self, w: Worker) -> float:
+        """Wall-clock pace throttle (free-running runtime only)."""
+        return 0.0
+
+    def _use_virtual_clock(self) -> bool:
+        """Whether dispatches schedule virtual return events (not in the
+        free-running runtime, where arrival order is real)."""
+        return True
+
+    def _execute_sync(self, tasks: List[RoundTask]) -> List[RoundResult]:
+        """A barrier round's inner rounds (the runtime runs them in
+        parallel threads)."""
+        return [self._execute(t) for t in tasks]
+
     # ------------------------------------------------------------------ utils
     def _event_is_live(self, kind: str, wid: int, gen: int) -> bool:
         """Compaction predicate: a restart always stays; a return stays
@@ -581,13 +616,17 @@ class EngineBase:
         """Capture the worker's initialization and round snapshot."""
         self._task_counter += 1
         w.pending_task_id = self._task_counter
+        w.round_seq += 1
         return RoundTask(task_id=self._task_counter, wid=w.wid,
                          generation=w.generation,
                          params=self.server.worker_init(w.wid), opt=w.opt,
                          ef=w.ef, s_i=self.server.t, h_steps=self._h_steps(w),
                          lang=self._pick_lang(w), mixture=w.mixture,
                          inner_step_offset=w.inner_step_count,
-                         batch_size=self._round_batch())
+                         batch_size=self._round_batch(),
+                         round_seq=w.round_seq,
+                         sleep_per_step=self._sleep_per_step(w),
+                         device=self.device)
 
     def _round_batch(self) -> int:
         """The round's mini-batch under the hogwild ramp-up
@@ -604,8 +643,9 @@ class EngineBase:
     def _dispatch(self, w: Worker):
         """Capture the round, schedule its virtual return, submit it."""
         task = self._make_task(w)
-        self._events.push(self.time + task.h_steps * w.pace, "return", w.wid,
-                          w.generation)
+        if self._use_virtual_clock():
+            self._events.push(self.time + task.h_steps * w.pace, "return",
+                              w.wid, w.generation)
         self._submit(task)
 
     def _execute(self, task: RoundTask) -> RoundResult:
@@ -833,7 +873,7 @@ class EngineBase:
             if budget is not None and budget.over_time(self.time + round_time):
                 break
             tasks = [self._make_task(w) for w in workers]
-            results = [self._execute(t) for t in tasks]
+            results = self._execute_sync(tasks)
             for w, res in zip(workers, results):
                 self._commit_worker(w, res)
             self.time += round_time
@@ -851,7 +891,7 @@ class EngineBase:
     def _crash_worker(self, w: Worker):
         """The worker's round in flight is lost: its return turns stale
         (generation bump) and its error feedback is cleared."""
-        if w.in_flight:
+        if w.in_flight and self._use_virtual_clock():
             self._events.note_stale()    # its return event is now dead
         self._drop_round(w)
         w.alive = False
@@ -895,10 +935,11 @@ class EngineBase:
         elif ev.action == "leave":
             w = self.workers.pop(ev.wid, None)
             if w is not None:
-                if w.in_flight:
+                if w.in_flight and self._use_virtual_clock():
                     self._events.note_stale()
                 w.generation += 1
                 self._drop_round(w)
+                self._on_worker_removed(w)
                 self.arena.release(w.slot)
                 self._events.maybe_compact(self._event_is_live)
             self.server.set_n_workers(self.arena.n_alive())
@@ -950,7 +991,7 @@ class EngineBase:
                 self._dispatch(w)
 
 
-ENGINES = ("sim",)
+ENGINES = ("sim", "wallclock")
 
 
 def make_engine(run_cfg: RunConfig, engine: Optional[str] = None, *,
@@ -958,32 +999,42 @@ def make_engine(run_cfg: RunConfig, engine: Optional[str] = None, *,
                 init_params: Optional[Mapping[str, np.ndarray]] = None,
                 failures: Optional[List[FailureEvent]] = None,
                 elastic: Optional[List[ElasticEvent]] = None,
-                telemetry=None, runtime_record_every: Optional[int] = None):
-    """Build a training engine; the port has the virtual-clock simulator.
+                telemetry=None, runtime_record_every: Optional[int] = None,
+                **runtime_kw):
+    """Build a training engine: "sim" (the default, the virtual clock) or
+    "wallclock" (the threaded ``runtime.ConcurrentRuntime``; the keywords
+    ``mode``, ``pace_scale``, ``faults``, ``transport``, ... go to it).
 
     ``telemetry``: an optional ``telemetry.TelemetryRecorder`` the run
-    streams arrival, flush, eval and runtime records into (observation, not
-    configuration). ``runtime_record_every``: a "runtime" record every N
-    commits (None defers to a Scenario's ``telemetry_every``; 0 disables).
-    Also takes a ``repro_torch.scenarios`` ``Scenario`` as the first
-    argument: it then names the run config, the schedules and the stream's
-    provenance, and only ``device``, ``init_params``, ``telemetry`` and
-    ``runtime_record_every`` may be given beside it."""
-    if hasattr(run_cfg, "run_config"):           # a Scenario
-        if engine is not None or failures or elastic:
-            raise TypeError("pass the engine choice and schedules inside "
-                            "the Scenario, not alongside it")
+    streams arrival, flush, eval, runtime and fault records into
+    (observation, not configuration). ``runtime_record_every``: a "runtime"
+    record every N commits (None defers to a Scenario's
+    ``telemetry_every``; 0 disables). Also takes a
+    ``repro_torch.scenarios`` ``Scenario`` as the first argument: its
+    ``materialize()`` then names the run config, the engine, the runtime's
+    options and the schedules, and only ``device``, ``init_params``,
+    ``telemetry`` and ``runtime_record_every`` may be given beside it."""
+    if hasattr(run_cfg, "materialize"):          # a Scenario
+        if engine is not None or failures or elastic or runtime_kw:
+            raise TypeError("pass the engine choice, schedules and options "
+                            "inside the Scenario, not alongside it")
         return run_cfg.build(device=device, init_params=init_params,
                              telemetry=telemetry,
                              runtime_record_every=runtime_record_every)
     engine = engine or "sim"
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
-    from repro_torch.async_engine.simulator import AsyncSimulator
-    return AsyncSimulator(run_cfg, device=device, init_params=init_params,
-                          failures=failures, elastic=elastic,
-                          telemetry=telemetry,
-                          runtime_record_every=runtime_record_every or 0)
+    kw = dict(device=device, init_params=init_params, failures=failures,
+              elastic=elastic, telemetry=telemetry,
+              runtime_record_every=runtime_record_every or 0)
+    if engine == "sim":
+        if runtime_kw:
+            raise TypeError(f"the simulator takes no runtime options: "
+                            f"{runtime_kw}")
+        from repro_torch.async_engine.simulator import AsyncSimulator
+        return AsyncSimulator(run_cfg, **kw)
+    if engine == "wallclock":
+        from repro_torch.async_engine.runtime import ConcurrentRuntime
+        return ConcurrentRuntime(run_cfg, **kw, **runtime_kw)
+    raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
 
 
 def make_eval_fn(engine, batch: int = 16, seq: Optional[int] = None):

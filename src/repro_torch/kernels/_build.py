@@ -8,6 +8,12 @@ source and the flags, so an edited source builds anew and an unchanged one
 is reused. Nothing builds when a module is imported: the first launch on a
 CUDA tensor builds, and ``build_all`` builds every source at once (one
 ``nvcc`` each, all started together).
+
+Worker threads of the wall-clock runtime launch kernels beside the server
+thread, so ``load`` checks, builds and opens a library under one lock (a
+second caller waits for the first's build and gets its handle), each
+build's temporary file names its process and thread, and ``count_launch``
+bumps a wrapper's launch count under a lock of its own.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Mapping, Sequence, Tuple
@@ -31,6 +38,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel, counted under a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def temp_path(lib: Path) -> Path:
+    """Where a build of ``lib`` writes before its atomic rename: named by
+    process and thread, so concurrent builds never share the file."""
+    return lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
 
 
 def _nvcc() -> str:
@@ -65,7 +86,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
             out[name] = (0.0, "cached")
             continue
         nvcc = nvcc or _nvcc()
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        tmp = temp_path(lib)
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -84,13 +105,15 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(target(name)))
-        _LIBS[name] = lib
-    return lib
+    """The loaded library for ``csrc/<name>.cu``, built first if needed;
+    every thread gets the one handle."""
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(target(name)))
+            _LIBS[name] = lib
+        return lib
 
 
 def bind(name: str, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:

@@ -147,7 +147,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   o.data_ptr(), bh, sq, skv, d, int(causal),
                   float(np.float32(d ** -0.5)))
-    flash_attention_fwd.launches += 1
+    _build.count_launch(flash_attention_fwd)
     return o
 
 

@@ -101,7 +101,7 @@ def block_stats(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _build.launch("block_stats", _lib().block_stats_f32, device,
                   u.data_ptr(), v.data_ptr(), part.data_ptr(), out.data_ptr(),
                   blocks, n, chunks)
-    block_stats.launches += 1
+    _build.count_launch(block_stats)
     return out
 
 
@@ -138,7 +138,7 @@ def correct_apply(u: torch.Tensor, v: torch.Tensor, cu: torch.Tensor,
     _build.launch("correct_apply", _lib().correct_apply_f32, device,
                   u.data_ptr(), v.data_ptr(), cu.data_ptr(), cv.data_ptr(),
                   out.data_ptr(), blocks, n, units, grid)
-    correct_apply.launches += 1
+    _build.count_launch(correct_apply)
     return out
 
 

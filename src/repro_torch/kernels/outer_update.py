@@ -91,7 +91,7 @@ def outer_update_2d(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
     _build.launch("outer_update_2d", _lib().outer_update_f32, p.device,
                   p.data_ptr(), m.data_ptr(), g.data_ptr(), p_out.data_ptr(),
                   m_out.data_ptr(), n, units, grid, eta, mu, rho)
-    outer_update_2d.launches += 1
+    _build.count_launch(outer_update_2d)
     return p_out, m_out
 
 

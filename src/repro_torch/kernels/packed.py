@@ -138,7 +138,7 @@ def packed_row_stats(u2d: torch.Tensor, v2d: torch.Tensor) -> torch.Tensor:
     out = torch.empty((3, r), dtype=torch.float32, device=device)
     _launch("packed_row_stats", _lib().packed_row_stats_f32, device,
             u2d.data_ptr(), v2d.data_ptr(), out.data_ptr(), r)
-    packed_row_stats.launches += 1
+    _build.count_launch(packed_row_stats)
     return out.t()
 
 
@@ -285,7 +285,7 @@ def packed_correct_outer(p2d: torch.Tensor, m2d: torch.Tensor,
             cv.data_ptr(), row_block.data_ptr(), p_out.data_ptr(),
             m_out.data_ptr(), None if stats is None else stats.data_ptr(),
             r, _f32(eta), _f32(mu), _f32(rho))
-    packed_correct_outer.launches += 1
+    _build.count_launch(packed_correct_outer)
     return (p_out, m_out) if stats is None else (p_out, m_out, stats)
 
 
@@ -342,7 +342,7 @@ def packed_correct_outer_quad(p2d: torch.Tensor, m2d: torch.Tensor,
             p_out.data_ptr(), m_out.data_ptr(),
             None if stats is None else stats.data_ptr(),
             r, _f32(eta), _f32(mu), _f32(rho))
-    packed_correct_outer_quad.launches += 1
+    _build.count_launch(packed_correct_outer_quad)
     return (p_out, m_out) if stats is None else (p_out, m_out, stats)
 
 
@@ -406,7 +406,7 @@ def packed_correct_outer_acc(p2d: torch.Tensor, m2d: torch.Tensor,
             row_block.data_ptr(), p_out.data_ptr(), m_out.data_ptr(),
             b_out.data_ptr(), None if stats is None else stats.data_ptr(),
             r, *(_f32(x) for x in (eta, rho, am, bm, ab, cg, cm, ca)))
-    packed_correct_outer_acc.launches += 1
+    _build.count_launch(packed_correct_outer_acc)
     res = (p_out, m_out, b_out)
     return res if stats is None else (*res, stats)
 
@@ -433,7 +433,7 @@ def packed_rowabs(x2d: torch.Tensor) -> torch.Tensor:
     out = torch.empty((r, 1), dtype=torch.float32, device=device)
     _launch("packed_rowabs", _lib().packed_rowabs_f32, device,
             x2d.data_ptr(), out.data_ptr(), r)
-    packed_rowabs.launches += 1
+    _build.count_launch(packed_rowabs)
     return out
 
 
@@ -463,7 +463,7 @@ def packed_quant(x2d: torch.Tensor, scale: torch.Tensor,
     q = torch.empty((r, LANES), dtype=torch.int8, device=device)
     _launch("packed_quant", _lib().packed_quant_f32, device, x2d.data_ptr(),
             scale.data_ptr(), row_block.data_ptr(), q.data_ptr(), r)
-    packed_quant.launches += 1
+    _build.count_launch(packed_quant)
     return q
 
 
@@ -492,7 +492,7 @@ def packed_dequant(q2d: torch.Tensor, scale: torch.Tensor,
     _launch("packed_dequant", _lib().packed_dequant_f32, device,
             q2d.data_ptr(), scale.data_ptr(), row_block.data_ptr(),
             x.data_ptr(), r)
-    packed_dequant.launches += 1
+    _build.count_launch(packed_dequant)
     return x
 
 
@@ -642,7 +642,7 @@ def packed_multi_correct_outer(p2d: torch.Tensor, m2d: torch.Tensor,
     res = _launch_multi("packed_multi_correct_outer",
                         _lib().packed_multi_correct_outer_f32, (p2d, m2d), d3d,
                         (cu, cv), row_block, hp, out, with_stats, None)
-    packed_multi_correct_outer.launches += 1
+    _build.count_launch(packed_multi_correct_outer)
     return res
 
 
@@ -671,7 +671,7 @@ def packed_multi_correct_outer_quad(p2d: torch.Tensor, m2d: torch.Tensor,
     res = _launch_multi("packed_multi_correct_outer_quad",
                         _lib().packed_multi_correct_outer_f32, (p2d, m2d), d3d,
                         (cu, cv), row_block, hp, out, with_stats, cq.data_ptr())
-    packed_multi_correct_outer_quad.launches += 1
+    _build.count_launch(packed_multi_correct_outer_quad)
     return res
 
 
@@ -704,7 +704,7 @@ def packed_multi_correct_outer_acc(p2d: torch.Tensor, m2d: torch.Tensor,
                         _lib().packed_multi_correct_outer_acc_f32,
                         (p2d, m2d, b2d), d3d, (cu, cv), row_block, hp, out,
                         with_stats)
-    packed_multi_correct_outer_acc.launches += 1
+    _build.count_launch(packed_multi_correct_outer_acc)
     return res
 
 
@@ -744,7 +744,7 @@ def packed_multi_gram(m2d: torch.Tensor, d3d: torch.Tensor) -> torch.Tensor:
                       device=device)
     _launch("packed_multi_gram", _lib().packed_multi_gram_f32, device,
             m2d.data_ptr(), d3d.data_ptr(), out.data_ptr(), r, k)
-    packed_multi_gram.launches += 1
+    _build.count_launch(packed_multi_gram)
     return out.t()
 
 

@@ -108,7 +108,7 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
     _build.launch("absmax", _lib().absmax_f32, x.device, x.data_ptr(),
                   part.data_ptr(), out.data_ptr(), n, chunks,
                   aligned((x, 16)))
-    absmax.launches += 1
+    _build.count_launch(absmax)
     return out
 
 
@@ -155,7 +155,7 @@ def quantize_2d(x: torch.Tensor, amax: Optional[torch.Tensor] = None
     _build.launch("quantize_2d", _lib().quantize_f32, x.device, x.data_ptr(),
                   amax.data_ptr(), q.data_ptr(), scale.data_ptr(), n, units,
                   grid)
-    quantize_2d.launches += 1
+    _build.count_launch(quantize_2d)
     return q, scale
 
 
@@ -186,7 +186,7 @@ def dequantize_2d(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     _build.launch("dequantize_2d", _lib().dequantize_f32, q.device,
                   q.data_ptr(), scale.data_ptr(), x.data_ptr(), n, units,
                   grid)
-    dequantize_2d.launches += 1
+    _build.count_launch(dequantize_2d)
     return x
 
 

@@ -29,13 +29,19 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --scenario paper_hetero_severe --ckpt-dir ckpts --resume --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --engine \\
+        wallclock --workers 3 --paces 1,2,6 --outer 10 --inner 3 --batch 2 \\
+        --seq 16 [--free --pace-scale 0.02] [--chaos] --device cpu
 
 ``--telemetry PATH`` streams the run's records live to a JSONL file (the
 reference's schema; a "runtime" record every ``--telemetry-every`` commits,
 1 by default), and ``--stats-json PATH`` writes the run's summary.
 ``--ckpt-dir DIR`` writes ``DIR/step_<t>.npz`` every ``--ckpt-every``
 commits (the reference's format); with ``--resume`` the run starts from the
-latest checkpoint there, if there is one.
+latest checkpoint there, if there is one. ``--engine wallclock`` runs the
+threaded runtime (deterministic commit order, or ``--free`` with
+``--pace-scale``; ``--chaos`` injects the lossy-channel preset) and prints
+its ``stats_summary()``, which ``--stats-json`` then writes.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import time
 from typing import Optional, Sequence
 
 from repro_torch.async_engine.engine import make_eval_fn
+from repro_torch.async_engine.faults import FaultSpec
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import methods as outer_methods
 from repro_torch.device import resolve_device
@@ -58,6 +65,14 @@ from repro_torch.telemetry import TelemetryRecorder
 FULL_WIDTH = dict(smoke=False, batch_size=4, seq_len=128)
 
 
+def chaos_faults(seed: int) -> FaultSpec:
+    """The --chaos preset: chaos_lossy's lossy channel keyed off the run's
+    seed."""
+    return FaultSpec(drop_p=0.2, dup_p=0.1, reorder_p=0.2,
+                     delay_p=0.1, delay_s=0.01, ack_drop_p=0.05,
+                     seed=seed + 97)
+
+
 def scenario_from_args(args) -> Scenario:
     """Compile the launcher's flag dialect into a Scenario; ``--outer-lr``
     is clamped by the method's ``outer_lr_cap``."""
@@ -68,6 +83,9 @@ def scenario_from_args(args) -> Scenario:
     return Scenario(
         name="cli",
         arch=args.arch, smoke=args.smoke,
+        engine=args.engine,
+        mode="free" if args.free else "deterministic",
+        pace_scale=args.pace_scale,
         n_workers=args.workers,
         worker_paces=tuple(float(p) for p in args.paces.split(",")),
         inner_steps=args.inner, outer_steps=args.outer,
@@ -79,7 +97,8 @@ def scenario_from_args(args) -> Scenario:
         compression=args.compression,
         drop_stale_after=args.drop_stale_after,
         commit_batch=args.commit_batch,
-        inner_lr=args.inner_lr, seed=args.seed)
+        inner_lr=args.inner_lr, seed=args.seed,
+        faults=chaos_faults(args.seed) if args.chaos else None)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -150,8 +169,23 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--eval-every", type=int, default=None,
                     help="default: 10, or the scenario's golden-trace "
                          "cadence with --scenario")
+    ap.add_argument("--engine", default="sim", choices=["sim", "wallclock"])
+    ap.add_argument("--free", action="store_true",
+                    help="wallclock engine: free-running arrival order "
+                         "instead of the simulator's schedule")
+    ap.add_argument("--pace-scale", type=float, default=0.0,
+                    help="wallclock + free: wall seconds per virtual second "
+                         "of worker pace (0: no throttling)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="wallclock engine: inject chaos_lossy's lossy "
+                         "channel (20%% drop, 10%% dup, 20%% reorder, "
+                         "delays, lost acks), seeded by --seed + 97")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.chaos and args.engine != "wallclock":
+        ap.error("--chaos needs --engine wallclock (the simulator has no "
+                 "transport to inject faults into)")
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -200,13 +234,25 @@ def main(argv: Optional[Sequence[str]] = None):
           f"arrivals={len(hist.arrivals)} tokens={hist.tokens} "
           f"mean_staleness={sum(taus) / len(taus):.2f} "
           f"comm={hist.comm_bytes / 1e6:.1f}MB wall={wall:.2f}s")
+    summary = None
+    if hasattr(eng, "stats_summary"):
+        summary = eng.stats_summary()
+        print(f"runtime[{summary['mode']}]: "
+              f"{summary['arrivals_per_sec']:.2f} arrivals/s "
+              f"occupancy={summary['server_occupancy']:.2f} "
+              f"parallelism={summary['compute_parallelism']:.2f} "
+              f"overlap_max={summary['overlap_max']}")
+        hot = {k: v for k, v in summary["delivery"].items() if v}
+        if hot:
+            print(f"delivery: {hot}")
     if args.stats_json:
         os.makedirs(os.path.dirname(args.stats_json) or ".", exist_ok=True)
         with open(args.stats_json, "w") as f:
-            json.dump({"arrivals": len(hist.arrivals), "tokens": hist.tokens,
-                       "comm_bytes": hist.comm_bytes,
-                       "mean_staleness": sum(taus) / len(taus)},
-                      f, indent=2, sort_keys=True, default=str)
+            json.dump(summary or {
+                "arrivals": len(hist.arrivals), "tokens": hist.tokens,
+                "comm_bytes": hist.comm_bytes,
+                "mean_staleness": sum(taus) / len(taus)},
+                f, indent=2, sort_keys=True, default=str)
         print(f"stats -> {args.stats_json}")
     if recorder is not None:
         recorder.close()       # the stream is on disk already, live-flushed

@@ -5,14 +5,23 @@ committed golden traces.
     PYTHONPATH=src python -m repro_torch.scenarios.run verify dcasgd fedbuff
     PYTHONPATH=src python -m repro_torch.scenarios.run verify drop_stale \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.scenarios.run verify \\
+        wallclock_hetero chaos_lossy wallclock_free --device cpu
+    PYTHONPATH=src python -m repro_torch.scenarios.run verify --cross \\
+        paper_hetero_severe --device cpu
 
 ``verify`` runs each scenario on the device (the card unless ``--device
-cpu``) and compares it with ``results/golden/<name>.json``: the arrival
-sequence and ``final_time`` exactly, and ``tokens`` and ``comm_bytes``
-exactly when the run has the golden's configuration (its ``scenario``
-dict). The goldens' evals and parameter digest are the reference's own
-initial draw and are not a target here. It exits non-zero on a mismatch
-and records no golden.
+cpu``) and holds it to ``results/golden/<name>.json`` through
+``trace.verify``: exactly (arrivals, ``tokens``, ``comm_bytes`` and
+``final_time``) for the simulator and the deterministic wall-clock runtime,
+inside ``trace.FREE_BANDS`` for the free-running runtime. ``--cross``
+also replays sim scenarios on the deterministic runtime and holds the
+replay's parameter fingerprint to the simulator's run. The goldens' evals
+and parameter digest are the reference's own initial draw and are not a
+target here. It exits non-zero on a mismatch and records no golden.
+``compare`` holds a finished run to a golden's arrivals the same way, and
+its tokens and communication too when the run has the golden's
+configuration.
 """
 from __future__ import annotations
 
@@ -23,52 +32,30 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 from repro_torch.device import resolve_device
-from repro_torch.scenarios import registry
+from repro_torch.scenarios import registry, trace
 from repro_torch.scenarios.spec import Scenario
 
-GOLDEN_DIR = Path(__file__).resolve().parents[3] / "results" / "golden"
-
-
-def load_golden(name: str) -> Dict:
-    return json.loads((GOLDEN_DIR / f"{name}.json").read_text())
-
-
-def arrival_rows(hist) -> List[list]:
-    """The golden's arrival rows: (outer_step, wid, s_i, staleness, lang,
-    rho, sim_time, dropped), through JSON as the golden stores them."""
-    return json.loads(json.dumps([
-        [a["outer_step"], a["worker_id"], a["outer_step"] - 1 - a["staleness"],
-         a["staleness"], a["lang"], a["rho"], a["sim_time"],
-         bool(a["dropped"])] for a in hist.arrivals]))
+GOLDEN_DIR: Path = trace.GOLDEN_DIR
+arrival_rows = trace.arrival_rows
+load_golden = trace.load_golden
+run = trace.run_scenario
 
 
 def compare(scn: Scenario, hist, golden: Optional[Dict] = None) -> List[str]:
-    """Mismatches of a finished run against the scenario's golden."""
+    """Mismatches of a finished run against the scenario's golden, through
+    ``trace``'s comparator: the arrivals, ``final_time`` and the eval count,
+    and ``tokens`` and ``comm_bytes`` too when the run has the golden's
+    configuration."""
     golden = golden or load_golden(scn.name)
-    bad = []
-    rows = arrival_rows(hist)
-    if rows != golden["arrivals"]:
-        first = next((i for i, (a, b) in enumerate(zip(rows, golden["arrivals"]))
-                      if a != b), min(len(rows), len(golden["arrivals"])))
-        bad.append(f"arrivals differ from arrival {first} "
-                   f"({len(rows)} vs {len(golden['arrivals'])})")
-    checks = [("final_time", hist.final_time)]
+    got = {"arrivals": arrival_rows(hist), "evals": hist.evals,
+           "tokens": hist.tokens, "comm_bytes": hist.comm_bytes,
+           "final_time": hist.final_time}
+    keys = ("final_time",)
     if json.loads(json.dumps(scn.to_dict())) == golden["scenario"]:
-        checks += [("tokens", hist.tokens), ("comm_bytes", hist.comm_bytes)]
-    for key, got in checks:
-        if got != golden[key]:
-            bad.append(f"{key} {got} != golden {golden[key]}")
+        keys = ("tokens", "comm_bytes", "final_time")
+    bad: List[str] = []
+    trace._cmp_counts(bad, got, golden, keys)
     return bad
-
-
-def run(scn: Scenario, device="cuda"):
-    """Build and run a scenario with its golden's eval cadence; returns
-    (engine, history)."""
-    from repro_torch.async_engine.engine import make_eval_fn
-    eng = scn.build(device=device)
-    hist = eng.run(eval_every=scn.eval_cadence,
-                   eval_fn=make_eval_fn(eng, batch=scn.eval_batch))
-    return eng, hist
 
 
 def main(argv=None) -> int:
@@ -77,28 +64,35 @@ def main(argv=None) -> int:
     sub.add_parser("list", help="registered scenarios")
     p = sub.add_parser("verify", help="run and compare with the goldens")
     p.add_argument("names", nargs="+", help="scenario names")
+    p.add_argument("--cross", action="store_true",
+                   help="also replay sim scenarios on the deterministic "
+                        "wall-clock runtime")
+    p.add_argument("--diff-dir", default="",
+                   help="write a JSON report of each failure here")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
     if args.cmd == "list":
         for s in registry.all_scenarios():
-            where = "port" if not s.unported_axes() else "not yet"
+            missing = s.unported_axes()
+            where = "port" if not missing else f"not yet: {'; '.join(missing)}"
             print(f"  {s.name:28s} {s.engine:9s} {s.method:16s} [{where}]  "
                   f"{s.description}")
         return 0
 
     device = resolve_device(args.device)
-    failed = 0
+    failed = total = 0
     for name in args.names:
         scn = registry.get_scenario(name)
-        _eng, hist = run(scn, device)
-        bad = compare(scn, hist)
-        failed += bool(bad)
-        print(f"{'PASS' if not bad else 'FAIL'} {name}: "
-              f"{len(hist.arrivals)} arrivals on {device}"
-              + "".join(f"\n    {b}" for b in bad))
-    print(f"\n{len(args.names) - failed}/{len(args.names)} golden-trace "
-          "checks passed")
+        for cross in [False] + [True] * (args.cross and scn.engine == "sim"):
+            res = trace.verify(scn, cross_engine=cross, device=device)
+            total += 1
+            failed += not res.ok
+            print(f"{'PASS' if res.ok else 'FAIL'} {res.name} on {device}"
+                  + "".join(f"\n    {b}" for b in res.failures))
+            if not res.ok and args.diff_dir:
+                print(f"    diff -> {trace.write_diff(res, args.diff_dir)}")
+    print(f"\n{total - failed}/{total} golden-trace checks passed")
     return 1 if failed else 0
 
 

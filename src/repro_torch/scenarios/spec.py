@@ -2,12 +2,14 @@
 
 Port of ``repro/scenarios/spec.py``. Every field, default and JSON form is
 the reference's, so ``Scenario.to_dict()`` equals the reference's (and the
-``scenario`` dict of each committed golden) field for field. ``build()``
-hands back a port engine on the device it is given, with the paces,
-failures and membership events of a committed pace trace when the scenario
-names one; a scenario that asks for an axis the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP item before anything
-runs.
+``scenario`` dict of each committed golden) field for field.
+``materialize()`` compiles a spec into the engine factory's keywords (the
+run config, the engine, the wall-clock runtime's options and the failure
+and membership schedules, with those of a committed pace trace when the
+scenario names one), and ``build()`` hands back a port engine from them on
+the device it is given; a scenario that asks for an axis the port does not
+run yet (``transport='socket'``, ROADMAP A18) raises
+``NotImplementedError`` naming its ROADMAP item before anything runs.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import functools
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -67,6 +69,17 @@ class ElasticSpec:
     def __post_init__(self):
         if self.action not in ("join", "leave"):
             raise ValueError(f"elastic action {self.action!r}")
+
+
+@dataclass(frozen=True)
+class Materialized:
+    """What ``Scenario.materialize()`` compiles a spec into: the keywords
+    the engine factory takes."""
+    run_cfg: RunConfig
+    engine: str
+    engine_kw: Dict[str, Any]
+    failures: List[Any]              # engine FailureEvent list
+    elastic: List[Any]               # engine ElasticEvent list
 
 
 def _check(cond: bool, msg: str):
@@ -154,6 +167,13 @@ class Scenario:
 
     # ------------------------------------------------------------ properties
     @property
+    def exact(self) -> bool:
+        """Whether a golden trace of this scenario reproduces exactly (sim
+        and the deterministic wall-clock runtime) or only within bands (the
+        free-running runtime)."""
+        return self.engine == "sim" or self.mode == "deterministic"
+
+    @property
     def paces(self) -> Tuple[float, ...]:
         base = self.worker_paces
         if self.pace_trace:
@@ -220,29 +240,20 @@ class Scenario:
         ROADMAP item (empty when ``build`` will run)."""
         from repro_torch.async_engine.engine import unported_axes
         out = []
-        if self.engine != "sim":
-            out.append(f"engine={self.engine!r} (ROADMAP A13)")
-        if self.faults is not None:
-            out.append("faults (ROADMAP A13)")
+        if self.transport != "inproc":
+            out.append(f"transport={self.transport!r} (ROADMAP A18)")
         return tuple(out + unported_axes(self.run_config()))
 
-    def build(self, device="cuda",
-              init_params: Optional[Mapping[str, np.ndarray]] = None,
-              telemetry=None, runtime_record_every: Optional[int] = None):
-        """Ready-to-run port engine for this scenario on ``device``.
-        ``init_params``: start from these parameters (numpy arrays keyed by
-        path) instead of a fresh draw from the seed. ``telemetry``: a
-        ``TelemetryRecorder`` the run streams into, its provenance set to
-        this scenario; ``runtime_record_every``: a "runtime" record every N
-        commits (None: ``telemetry_every``)."""
-        missing = self.unported_axes()
-        if missing:
-            raise NotImplementedError(
-                f"scenario {self.name!r} needs what the port does not run "
-                f"yet: {'; '.join(missing)}")
-        from repro_torch.async_engine.engine import (
-            ElasticEvent, FailureEvent, make_engine,
-        )
+    def materialize(self) -> Materialized:
+        """Compile the spec into the engine factory's keywords."""
+        from repro_torch.async_engine.engine import ElasticEvent, FailureEvent
+        engine_kw: Dict[str, Any] = {}
+        if self.engine == "wallclock":
+            engine_kw = dict(mode=self.mode, pace_scale=self.pace_scale)
+            if self.faults is not None:
+                engine_kw["faults"] = self.faults
+            if self.transport != "inproc":
+                engine_kw["transport"] = self.transport
         failures = [FailureEvent(time=f.time, wid=f.wid,
                                  restart_delay=f.restart_delay)
                     for f in self.failures]
@@ -260,6 +271,26 @@ class Scenario:
                                      wid=int(w), pace=float(pc),
                                      lang=None if lang is None else int(lang))
                         for t, a, w, pc, lang in tr.get("elastic", [])]
+        return Materialized(run_cfg=self.run_config(), engine=self.engine,
+                            engine_kw=engine_kw, failures=failures,
+                            elastic=elastic)
+
+    def build(self, device="cuda",
+              init_params: Optional[Mapping[str, np.ndarray]] = None,
+              telemetry=None, runtime_record_every: Optional[int] = None):
+        """Ready-to-run port engine for this scenario on ``device``.
+        ``init_params``: start from these parameters (numpy arrays keyed by
+        path) instead of a fresh draw from the seed. ``telemetry``: a
+        ``TelemetryRecorder`` the run streams into, its provenance set to
+        this scenario; ``runtime_record_every``: a "runtime" record every N
+        commits (None: ``telemetry_every``)."""
+        missing = self.unported_axes()
+        if missing:
+            raise NotImplementedError(
+                f"scenario {self.name!r} needs what the port does not run "
+                f"yet: {'; '.join(missing)}")
+        from repro_torch.async_engine.engine import make_engine
+        m = self.materialize()
         if telemetry is not None:
             telemetry.ensure_meta(
                 method=self.method, engine=self.engine,
@@ -268,10 +299,11 @@ class Scenario:
                 mixture_alpha=self.mixture_alpha, scenario=self.name)
         if runtime_record_every is None:
             runtime_record_every = self.telemetry_every
-        return make_engine(self.run_config(), self.engine, device=device,
-                           init_params=init_params, failures=failures,
-                           elastic=elastic, telemetry=telemetry,
-                           runtime_record_every=runtime_record_every)
+        return make_engine(m.run_cfg, m.engine, device=device,
+                           init_params=init_params, failures=m.failures,
+                           elastic=m.elastic, telemetry=telemetry,
+                           runtime_record_every=runtime_record_every,
+                           **m.engine_kw)
 
     # ------------------------------------------------------------- overrides
     def overridden(self, **kw) -> "Scenario":

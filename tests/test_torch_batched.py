@@ -52,7 +52,7 @@ from repro_torch.kernels import packed as pk
 from repro_torch.launch import train
 from repro_torch.scenarios import registry, run
 from repro_torch.scenarios.spec import load_pace_trace
-from test_torch_methods import _live, check_live
+from test_torch_methods import _live, check_live, one_intra_op_thread  # noqa: F401
 from test_torch_packed_kernels import _close_elementwise, _close_sums
 
 H = HeLoCoConfig()

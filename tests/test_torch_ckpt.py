@@ -39,7 +39,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.core.heloco import OuterState
 from repro_torch.launch import train
 from repro_torch.scenarios import registry, run
-from test_torch_methods import check_live
+from test_torch_methods import check_live, one_intra_op_thread  # noqa: F401
 from test_torch_server import _flat
 
 

@@ -765,3 +765,94 @@ def test_full_width_resume_has_the_arrivals_of_the_cpu(cuda, tmp_path):
     assert len(card.arrivals) == 6
     assert run.arrival_rows(card) == run.arrival_rows(cpu)
     assert card.final_time == cpu.final_time
+
+
+@pytest.mark.cuda
+def test_concurrent_load_from_four_threads_gives_one_handle(cuda):
+    """Four threads load every source at once (building what is not built
+    yet, deleting nothing): each source yields one handle."""
+    import threading
+    from repro_torch.kernels import _build
+    barrier = threading.Barrier(4)
+    got = {name: [] for name in _build.SOURCES}
+
+    def call():
+        barrier.wait()
+        for name in _build.SOURCES:
+            got[name].append(_build.load(name))
+
+    threads = [threading.Thread(target=call) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    for name, handles in got.items():
+        assert len(handles) == 4 and len({id(h) for h in handles}) == 1, name
+
+
+@pytest.mark.cuda
+def test_wallclock_int8_worker_threads_launch_their_sweeps(cuda):
+    """``int8_dylu`` on the deterministic wall-clock runtime at smoke width:
+    the golden's arrivals, the server's sweeps once per applied arrival,
+    and the int8 sweeps, launched from the worker threads, once per
+    round."""
+    from repro_torch.scenarios import registry, run
+    scn = registry.get_scenario("int8_dylu").overridden(engine="wallclock")
+    eng = scn.build(device="cuda")
+    kernels.reset_launch_counts()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert run.arrival_rows(hist) == run.load_golden("int8_dylu")["arrivals"]
+    rounds = eng.stats_summary()["rounds"]
+    applied = sum(not a["dropped"] for a in hist.arrivals)
+    want = dict.fromkeys(counts, 0)
+    want.update(packed_row_stats=applied, packed_correct_outer=applied,
+                packed_rowabs=rounds, packed_quant=rounds,
+                packed_dequant=rounds)
+    assert counts == want and rounds >= applied
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, overrides", [
+    ("wallclock_hetero", {}), ("int8_dylu", {"engine": "wallclock"})])
+def test_wallclock_pins_workers_round_robin_on_several_cards(
+        cuda, monkeypatch, name, overrides):
+    """With more than one card, the runtime runs worker ``wid``'s rounds on
+    card ``wid % n`` and commits on the engine's: the golden's arrivals,
+    and the final parameters within ``_cmp_fingerprint``'s tolerance of a
+    one-card sim run of the same config from the same bits."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    from repro_torch import bridge
+    from repro_torch.async_engine import runtime as runtime_lib
+    from repro_torch.scenarios import registry, run, trace
+    scn = registry.get_scenario(name).overridden(**overrides)
+    twin = scn.overridden(engine="sim", mode="deterministic", faults=None)
+    sim = twin.build(device="cuda")
+    init = bridge.to_numpy(sim.server.state.params)
+    sim_hist = sim.run()
+    seen = set()
+    execute = runtime_lib.execute_round
+
+    def on_card(task, **kw):
+        dev = next(iter(task.params.values())).device
+        assert dev == torch.device("cuda", torch.cuda.current_device())
+        seen.add((task.wid, dev.index))
+        return execute(task, **kw)
+
+    monkeypatch.setattr(runtime_lib, "execute_round", on_card)
+    eng = scn.build(device="cuda", init_params=init)
+    hist = eng.run()
+    torch.cuda.synchronize()
+    assert run.arrival_rows(hist) == run.load_golden(name)["arrivals"]
+    assert run.arrival_rows(hist) == run.arrival_rows(sim_hist)
+    assert seen == {(w, w % n) for w in range(scn.n_workers)}
+    assert all(t.device == torch.device("cuda", 0)
+               for t in eng.server.state.params.values())
+    fails = []
+    trace._cmp_fingerprint(
+        fails, trace.param_fingerprint(eng.server.state.params),
+        trace.param_fingerprint(sim.server.state.params))
+    assert fails == []

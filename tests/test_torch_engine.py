@@ -27,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import (
     HeLoCoConfig, InnerOptConfig, OuterOptConfig, RunConfig,
 )
+from test_torch_methods import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -51,7 +51,9 @@ from repro_torch.scenarios import registry
 from test_kernels import SHAPES
 from test_packed import STACKED as JSTACKED
 from test_packed import _tree as _jtree
-from test_torch_methods import DROPPED, METHODS, SCHEDULE, _deltas, check_live
+from test_torch_methods import (  # noqa: F401 (an autouse fixture)
+    DROPPED, METHODS, SCHEDULE, _deltas, check_live, one_intra_op_thread,
+)
 from test_torch_server import _flat, _tree
 
 H = HeLoCoConfig()

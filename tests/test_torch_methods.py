@@ -59,6 +59,20 @@ DROPPED = [False] * 4 + [True, False, True, True, False, False, True, False]
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for torch while a module runs (restored after
+    it); the modules that run engines import this autouse fixture too. The
+    suite runs files in parallel worker processes, and the default pool in
+    each of them oversubscribes the cores with spinning threads: six
+    concurrent processes running three smoke-width scenarios each took
+    350 s with the default pool on an 8-core CPU, 5 s with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_registry_matches_reference():
     assert methods.cli_names() == jmethods.cli_names()
     assert methods.method_table() == jmethods.method_table()

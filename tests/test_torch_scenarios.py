@@ -4,38 +4,35 @@ committed golden traces.
   * every registered scenario's ``to_dict()`` equals the reference
     registry's and its golden's ``scenario`` dict, and ``from_dict`` of
     that dict rebuilds it;
-  * the fifteen sim goldens the port runs (the five method baselines,
-    ``drop_stale``, ``flexible_shards``, ``noniid_dirichlet``,
-    ``crash_rejoin``, ``elastic_membership``, ``int8_dylu``, the batched
-    ``hogwild_rampup`` and ``trace_paced``, and the ``gossip_ring`` and
-    ``gossip_random`` topologies; ``paper_hetero_severe`` is
-    tests/test_torch_engine.py's) are reproduced exactly: arrivals,
-    ``tokens``, ``comm_bytes``, ``final_time``;
-  * a scenario with an axis the port lacks raises before it runs;
-  * ``delayed_nesterov``, ``fedbuff``, ``crash_rejoin``, ``poly_stale``,
-    ``drop_stale``, ``noniid_dirichlet``, ``elastic_membership``,
-    ``flexible_shards`` and ``sync_baseline`` with int8 compression against
-    a live reference run from the same bits, with the bands of tests/test_torch_methods.py (evals
-    1e-4 absolute, final parameters 5e-4 of each leaf's largest |value|),
-    and ``int8_dylu`` likewise but for at most two parameters that may
-    sit one int8 quantization step off (a .5 tie rounded the other way);
-    in the slow lane ``delayed_nesterov`` also at full width (evals 1e-3).
+  * seven of the fifteen sim goldens the port runs (``PORTED``; the other
+    eight, and the live runs of int8 compression, are
+    tests/test_torch_goldens.py's, split so that each file takes about half
+    the time; ``paper_hetero_severe`` is tests/test_torch_engine.py's) are
+    reproduced exactly: arrivals, ``tokens``, ``comm_bytes``,
+    ``final_time``;
+  * a scenario with an axis the port lacks (``transport='socket'``,
+    ROADMAP A18) raises before it runs; the wall-clock scenarios run
+    (tests/test_torch_wallclock.py);
+  * ``fedbuff``, ``crash_rejoin``, ``poly_stale``, ``drop_stale`` and
+    ``elastic_membership`` against a live reference
+    run from the same bits, with the bands of tests/test_torch_methods.py
+    (evals 1e-4 absolute, final parameters 5e-4 of each leaf's largest
+    |value|); in the slow lane ``delayed_nesterov`` also at full width
+    (evals 1e-3).
 """
 import json
 
 import pytest
-import torch
 
 from repro.async_engine.engine import make_engine as jax_make_engine
 from repro.async_engine.engine import make_eval_fn as jax_make_eval_fn
 from repro.scenarios import registry as jregistry
 from repro_torch.async_engine import engine as engine_lib
 from repro_torch.async_engine.engine import make_eval_fn
-from repro_torch.core import compression, packing
 from repro_torch.launch import train
 from repro_torch.scenarios import registry, run
 from repro_torch.scenarios.spec import Scenario
-from test_torch_methods import _live, check_live
+from test_torch_methods import _live, check_live, one_intra_op_thread  # noqa: F401
 from test_torch_server import _flat
 
 PORTED = ("delayed_nesterov", "fedbuff", "dcasgd", "poly_stale",
@@ -43,8 +40,11 @@ PORTED = ("delayed_nesterov", "fedbuff", "dcasgd", "poly_stale",
           "noniid_dirichlet", "crash_rejoin", "elastic_membership",
           "int8_dylu", "hogwild_rampup", "trace_paced", "gossip_ring",
           "gossip_random")
-UNPORTED = ("wallclock_hetero", "chaos_lossy", "socket_hetero",
-            "chaos_partition")
+# the registered wall-clock scenarios the port runs (all but socket_hetero)
+WALLCLOCK = ("wallclock_hetero", "delayed_nesterov_wallclock",
+             "fedbuff_wallclock", "dcasgd_wallclock", "wallclock_free",
+             "chaos_lossy", "chaos_corrupt", "chaos_partition")
+UNPORTED = ("socket_hetero",)
 
 
 def test_registry_names_match_reference():
@@ -60,11 +60,12 @@ def test_scenario_dict_equals_reference_and_golden(name):
     assert d == run.load_golden(name)["scenario"]
     assert Scenario.from_dict(d) == scn
     assert scn.eval_cadence == jregistry.get_scenario(name).eval_cadence
-    assert (not scn.unported_axes()) == (name in PORTED + (
+    assert (not scn.unported_axes()) == (name in PORTED + WALLCLOCK + (
         "paper_hetero_severe",))
 
 
-@pytest.mark.parametrize("name", PORTED)
+# the other golden cases are tests/test_torch_goldens.py's
+@pytest.mark.parametrize("name", PORTED[:7])
 def test_port_reproduces_golden_exactly(name):
     scn = registry.get_scenario(name)
     _eng, hist = run.run(scn, "cpu")
@@ -125,60 +126,29 @@ def test_unported_axis_raises_before_running(name, monkeypatch):
 
 
 def test_engine_refuses_an_unported_run_config():
-    """The wall-clock engine (ROADMAP A13) is refused through both entry
-    points, ``Scenario.build`` and ``make_engine``, before any engine is
-    built (the topology axis this test held until A14 runs now,
+    """The socket transport (worker processes, ROADMAP A18) is refused
+    through every entry point, ``Scenario.build``, ``make_engine`` with a
+    Scenario and the runtime's own constructor, before any engine runs
+    (the wall-clock engine this test held until A13 runs now,
+    tests/test_torch_wallclock.py; the topology axis it held until A14,
     tests/test_torch_topology.py)."""
-    scn = registry.get_scenario("drop_stale").overridden(engine="wallclock")
-    with pytest.raises(NotImplementedError, match="engine.*A13"):
+    scn = registry.get_scenario("drop_stale").overridden(engine="wallclock",
+                                                         transport="socket")
+    with pytest.raises(NotImplementedError, match="transport.*A18"):
         scn.build(device="cpu")
-    with pytest.raises(NotImplementedError, match="engine.*A13"):
+    with pytest.raises(NotImplementedError, match="transport.*A18"):
         engine_lib.make_engine(scn, device="cpu")
+    with pytest.raises(NotImplementedError, match="A18"):
+        engine_lib.make_engine(scn.run_config(), "wallclock", device="cpu",
+                               transport="socket")
 
 
-@pytest.mark.parametrize("name", ["delayed_nesterov", "fedbuff",
-                                  "crash_rejoin", "poly_stale", "drop_stale",
-                                  "noniid_dirichlet", "elastic_membership",
-                                  "flexible_shards"])
+# delayed_nesterov's, noniid_dirichlet's and flexible_shards' live runs
+# are tests/test_torch_goldens.py's
+@pytest.mark.parametrize("name", ["fedbuff", "crash_rejoin", "poly_stale",
+                                  "drop_stale", "elastic_membership"])
 def test_live_reference_run_from_the_same_bits(name):
     check_live(*_live(name))
-
-
-def test_live_int8_dylu_from_the_same_bits(monkeypatch):
-    """``int8_dylu`` against a live reference run from the same bits:
-    arrivals equal, evals within 1e-4 (measured: 3.2e-6) and final
-    parameters within 5e-4 of each leaf's largest |value|, but for at most
-    two elements that may instead be off by one int8 quantization step of
-    their block. The inner rounds of the two packages drift apart in the
-    last bits, and an element within that drift of a .5 tie rounds the
-    other way (measured on the CPU: 1 of 124,032 parameters,
-    layer_00/norm1/bias[17], off by 1.8e-5, 0.44 of its block's step of
-    4.17e-5, after its last round's target sat at 70.4997 steps in the
-    reference and 70.5105 in the port). The compression's arithmetic is
-    held bit for bit by tests/test_torch_compression.py."""
-    scales = []
-
-    def recording(buf, layout):
-        scales.append(block_scales(buf, layout))
-        return scales[-1]
-
-    block_scales = compression.block_scales
-    monkeypatch.setattr(compression, "block_scales", recording)
-    jeng, jhist, eng, hist = _live("int8_dylu")
-    layout = eng.server.layout
-    assert len(scales) == len(hist.arrivals) == 8
-    row_block = torch.from_numpy(layout.row_block).long()
-    step = torch.stack(scales).amax(0)[row_block]
-    steps = packing.unpack(layout, step[:, None].expand(-1, 128).contiguous())
-    check_live(jeng, jhist, eng, hist,
-               int8_steps={k: v.numpy() for k, v in steps.items()},
-               max_flips=2)
-
-
-def test_live_int8_sync_rounds_average_packed_deltas():
-    """``sync_baseline`` with int8 compression: every barrier round averages
-    the workers' packed (``Packed``) pseudo-gradients."""
-    check_live(*_live("sync_baseline", compression="int8"))
 
 
 @pytest.mark.slow

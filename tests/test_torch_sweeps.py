@@ -38,7 +38,7 @@ from repro_torch.sweeps import (
     names, run_sweep,
 )
 from repro_torch.telemetry import TelemetryRecorder
-from test_torch_methods import check_live
+from test_torch_methods import check_live, one_intra_op_thread  # noqa: F401
 from test_torch_server import _flat
 
 

@@ -47,7 +47,7 @@ from repro_torch.configs.base import HeLoCoConfig, OuterOptConfig
 from repro_torch.core import compression, heloco, packing
 from repro_torch.launch import train
 from repro_torch.telemetry import analysis, recorder, schema, stats
-from test_torch_methods import _live
+from test_torch_methods import _live, one_intra_op_thread  # noqa: F401
 from test_torch_server import _flat, _tree
 
 H = HeLoCoConfig()

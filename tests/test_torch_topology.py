@@ -26,7 +26,7 @@ from repro_torch.configs.base import OuterOptConfig
 from repro_torch.core.heloco import OuterState
 from repro_torch.launch import train
 from repro_torch.scenarios import run
-from test_torch_methods import _live, check_live
+from test_torch_methods import _live, check_live, one_intra_op_thread  # noqa: F401
 from test_torch_server import _flat, _tree
 
 TOL = dict(rtol=0, atol=1e-6)
