@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only leaf
     python3 chip_smoke.py --only telemetry
     python3 chip_smoke.py --only wallclock
+    python3 chip_smoke.py --only socket
 
 Phases, in order; any failure exits non-zero (``--only int8`` runs the
 int8 kernels' checks and times of phase 2, the card's read, write and copy
@@ -15,7 +16,8 @@ kernels: their checks and times of phase 2 with the 43-leaf correction
 pass, the card's rates, phase 4 and the leaf build report; ``--only
 telemetry`` builds the packed sweeps and times a packed server's commit
 calls without and with telemetry, and the pieces telemetry adds; ``--only
-wallclock`` builds the packed sweeps and runs the wall-clock phase):
+wallclock`` builds the packed sweeps and runs the wall-clock phase, and
+``--only socket`` the socket phase):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
@@ -115,7 +117,21 @@ wallclock`` builds the packed sweeps and runs the wall-clock phase):
      the checksum a constant (what it costs end to end); then
      ``wallclock_free`` and ``chaos_partition`` inside the goldens' bands
      at smoke width and at full width (every arrival committed, finite
-     evals, the partitioned worker declared dead);
+     evals, the partitioned worker declared dead). The socket phase
+     (``socket_phase``): ``socket_hetero``, ``int8_dylu`` and
+     ``chaos_lossy`` on the deterministic runtime over spawned worker
+     processes at full width, each beside its sim twin and its threaded
+     twin from the same bits, then ``socket_hetero`` with worker 0's process
+     SIGKILLed after 3 commits: the golden's and the sim's arrivals, the
+     fingerprint within TOL_FP of the sim's (digest equality printed),
+     ``chaos_lossy`` with ``socket_hetero``'s digest, the server's kernels
+     once per applied arrival in the parent and the int8 sweeps once per
+     round in the children (their own counts, from their stats frames);
+     ms per arrival beside both twins, the spawn and rendezvous seconds, the
+     wire's pieces on one full-width task and result; then
+     ``chaos_partition`` over processes in free mode at full width, twice,
+     the partitioned worker declared dead and the deaths outside the
+     partition printed;
   4. the single-tensor path: ``kernels.ops.outer_update_block`` over the 43
      leaves of a full-width state, one outer_update_2d launch a leaf, each
      bit for bit against the plain version;
@@ -276,6 +292,23 @@ PARTITIONED = 3
 TOL_FP = dict(rtol=1e-5, atol=1e-6)
 # payload_crc's host time on one full-width pseudo-gradient: median of
 CRC_REPS = 5
+# the socket phase: each deterministic run over worker processes at full
+# width beside its sim twin and its threaded twin from the same bits, with
+# the kernels each applied arrival launches once in the parent and those
+# each round launches once in the children; chaos_lossy must commit
+# socket_hetero's bits
+SOCKET = (
+    ("socket_hetero", {}, HELOCO, ()),
+    ("int8_dylu", {"engine": "wallclock", "transport": "socket"}, HELOCO,
+     INT8),
+    ("chaos_lossy", {"transport": "socket"}, HELOCO, ()),
+)
+# socket_hetero once more with worker 0's process SIGKILLed after this many
+# commits, and chaos_partition over processes in free mode this many times
+SOCKET_KILL_AFTER = 3
+SOCKET_PARTITION_RUNS = 2
+# the wire pieces' host times on one full-width task and result: median of
+WIRE_REPS = 5
 REPLACES = {
     "packed_row_stats": "src/repro/kernels/packed.py:59",
     "packed_correct_outer": "src/repro/kernels/packed.py:175",
@@ -1622,6 +1655,41 @@ def crc_timing(torch, params):
             "reps": CRC_REPS}
 
 
+def run_timed(torch, kernels, eng, scn, reset=False):
+    """Run ``eng`` with ``scn``'s eval cadence to a synchronised end: its
+    history, wall seconds, the ms of each delivery check on the server
+    thread (on the runtime) and the host clock at each commit. ``reset``:
+    every launch count set to 0 just before the run."""
+    from repro_torch.async_engine.engine import make_eval_fn
+    check_ms, commits = [], []
+    tracker = getattr(eng, "_delivery", None)
+    if tracker is not None:
+        process = tracker.process
+
+        def timed_process(env):
+            t0 = time.perf_counter()
+            out = process(env)
+            check_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        tracker.process = timed_process
+    for hook in ("_commit", "_commit_batch"):
+        inner = getattr(eng, hook)
+
+        def stamped(*a, _inner=inner, **k):
+            out = _inner(*a, **k)
+            commits.append(time.perf_counter())
+            return out
+        setattr(eng, hook, stamped)
+    eval_fn = make_eval_fn(eng, batch=scn.eval_batch)
+    torch.cuda.synchronize()
+    if reset:
+        kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = eng.run(eval_every=scn.eval_cadence, eval_fn=eval_fn)
+    torch.cuda.synchronize()
+    return hist, time.perf_counter() - t0, check_ms, commits
+
+
 def wallclock_phase(torch, kernels, dev="cuda"):
     """The wall-clock runtime (``async_engine/runtime.py``) on the card.
 
@@ -1648,33 +1716,12 @@ def wallclock_phase(torch, kernels, dev="cuda"):
     Returns per kernel (launches, arrivals or rounds of the runs it
     served)."""
     from repro_torch import bridge
-    from repro_torch.async_engine.engine import make_eval_fn
     from repro_torch.launch.train import FULL_WIDTH
     from repro_torch.scenarios import registry, run, trace
     from repro_torch.telemetry import TelemetryRecorder
 
     def timed_run(eng, scn, reset=False):
-        """The run's history, wall seconds and, on the runtime, the ms of
-        each delivery check on the server thread."""
-        check_ms = []
-        tracker = getattr(eng, "_delivery", None)
-        if tracker is not None:
-            process = tracker.process
-
-            def timed_process(env):
-                t0 = time.perf_counter()
-                out = process(env)
-                check_ms.append(1e3 * (time.perf_counter() - t0))
-                return out
-            tracker.process = timed_process
-        eval_fn = make_eval_fn(eng, batch=scn.eval_batch)
-        torch.cuda.synchronize()
-        if reset:
-            kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        hist = eng.run(eval_every=scn.eval_cadence, eval_fn=eval_fn)
-        torch.cuda.synchronize()
-        return hist, time.perf_counter() - t0, check_ms
+        return run_timed(torch, kernels, eng, scn, reset)[:3]
 
     # a short sim run first, so that no timed run pays the first launches
     timed_run(registry.get_scenario("wallclock_hetero").overridden(
@@ -1832,6 +1879,394 @@ def wallclock_phase(torch, kernels, dev="cuda"):
 def wallclock_only(torch, kernels, specs, dev, bound, log, lib):
     """``--only wallclock``: the wall-clock phase alone (packed.cu built)."""
     wallclock_phase(torch, kernels, dev)
+
+
+def wire_timing(torch, task, res, dev):
+    """The socket transport's pieces on one full-width task and one result
+    (``async_engine/proc.py``), each timed alone on the host clock, median
+    of WIRE_REPS: the copy to the host (``host_task``/``host_result``), the
+    pickle, the concatenation with the header, the frame's CRC32, one frame
+    through a socket pair (``_send_frame`` on one end, ``_recv_frame`` on a
+    reader thread: all of the above, the transfer, the receiver's CRC and
+    unpickle), the unpickle alone, the copy back to the card
+    (``device_task``/``device_result``) and, for the result, the server's
+    ``payload_crc`` of its host form."""
+    import pickle
+    import socket
+    import threading
+    import zlib
+    from repro_torch.async_engine import proc
+    from repro_torch.async_engine.transport import Envelope, payload_crc
+
+    def med(fn):
+        times = []
+        for _ in range(WIRE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    def through_socket(frame):
+        a, b = socket.socketpair()
+        got = {}
+        reader = threading.Thread(
+            target=lambda: got.setdefault("f", proc._recv_frame(b)))
+        reader.start()
+        proc._send_frame(a, threading.Lock(), frame)
+        reader.join()
+        a.close()
+        b.close()
+        return got["f"]
+
+    out = {}
+    for label, host, back, frame_of in (
+            ("task", lambda: proc.host_task(task),
+             lambda w: proc.device_task(w, dev),
+             lambda h: ("task", h, (None, 0.0))),
+            ("result", lambda: proc.host_result(res),
+             lambda w: proc.device_result(w, dev),
+             lambda h: ("msg", Envelope(wid=0, generation=0, seq=1,
+                                        kind="result", payload=h, crc=0)))):
+        h = host()
+        frame = frame_of(h)
+        data = pickle.dumps(frame, protocol=pickle.HIGHEST_PROTOCOL)
+        hdr = proc._HDR.pack(len(data), zlib.crc32(data))
+        row = {
+            "frame_bytes": len(data) + len(hdr),
+            "host_copy_ms": med(host),
+            "pickle_ms": med(lambda: pickle.dumps(
+                frame, protocol=pickle.HIGHEST_PROTOCOL)),
+            "header_concat_ms": med(lambda: hdr + data),
+            "frame_crc_ms": med(lambda: zlib.crc32(data)),
+            "socket_frame_ms": med(lambda: through_socket(frame)),
+            "unpickle_ms": med(lambda: pickle.loads(data)),
+        }
+        wire = pickle.loads(data)
+        row["copy_back_ms"] = med(lambda: back(wire[1] if label == "task"
+                                               else wire[1].payload))
+        if label == "result":
+            row["payload_crc_host_ms"] = med(lambda: payload_crc(h))
+        out[label] = row
+    return out
+
+
+def socket_phase(torch, kernels, dev="cuda"):
+    """The runtime over worker processes (``async_engine/proc.py``) on the
+    card.
+
+    (a) Each SOCKET run at full width, batch 4 x 128, on the deterministic
+    runtime over spawned worker processes, beside its sim twin and its
+    threaded twin (the same scenario on ``transport="inproc"``) from the
+    same initial bits: arrivals equal to the golden's and the twin's, the
+    final parameters' fingerprint within TOL_FP of the sim twin's (whether
+    the digests are bit-equal printed), chaos_lossy with socket_hetero's
+    digest and its children's fault counters non-zero; with the counts set
+    to 0 just before the run, the parent launches the server's kernels once
+    per applied arrival and nothing else, and the children (their counts,
+    from their ``stats`` frames) the int8 sweeps once per round. Then
+    socket_hetero with worker 0's process SIGKILLed after SOCKET_KILL_AFTER
+    commits: respawned, the golden's arrivals and the sim twin's
+    fingerprint. Prints each run's ms per arrival (whole run, and after its
+    first commit) beside its twins', the spawn and rendezvous seconds and
+    ``stats_summary()``'s numbers.
+
+    (b) ``wire_timing`` on one full-width task and its result.
+
+    (c) chaos_partition over worker processes in free mode at full width,
+    SOCKET_PARTITION_RUNS times: every arrival committed, the partitioned
+    worker declared dead; prints the deaths outside the partition
+    (``false_deaths_by_wid``) and those never revived.
+
+    Returns per kernel (launches, arrivals or rounds of the runs it
+    served)."""
+    import os
+    import signal
+    import threading
+    from repro_torch import bridge
+    from repro_torch.launch.train import FULL_WIDTH
+    from repro_torch.scenarios import registry, run, trace
+    from repro_torch.telemetry import TelemetryRecorder
+
+    def per_arrival(wall, commits, n):
+        return {"ms_per_arrival": 1e3 * wall / n,
+                "ms_per_arrival_after_first":
+                    1e3 * (commits[-1] - commits[0]) / max(len(commits) - 1,
+                                                           1)}
+
+    def spawn_line(eng):
+        secs = sorted(eng._pool.spawn_seconds.values())
+        return {"processes_spawned": len(secs),
+                "spawn_rendezvous_s": secs}
+
+    def parent_wire(eng):
+        """Time the parent's side of the wire during the run: each frame
+        body its reader threads read (over 1 MB), each task the server
+        thread frames and sends (``pool.submit``), each result it puts
+        back on the card (``device_result``), and each delivered round's
+        own compute time in its child. Returns a function that summarises
+        them and restores the originals."""
+        from repro_torch.async_engine import proc
+        from repro_torch.async_engine import runtime as runtime_lib
+        spans = {"frame_body_read_ms": [], "submit_ms": [],
+                 "result_to_device_ms": [], "child_round_ms": []}
+        saved = proc._read_exact, runtime_lib.device_result
+
+        def timed(fn, key, keep=lambda *a: True):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if keep(*a):
+                    spans[key].append(1e3 * (time.perf_counter() - t0))
+                return out
+            return call
+        proc._read_exact = timed(saved[0], "frame_body_read_ms",
+                                 lambda sock, n: n > 1 << 20)
+        to_device = timed(saved[1], "result_to_device_ms")
+
+        def device_result(res, device):
+            spans["child_round_ms"].append(1e3 * res.compute_seconds)
+            return to_device(res, device)
+        runtime_lib.device_result = device_result
+        eng._pool.submit = timed(eng._pool.submit, "submit_ms")
+
+        def done():
+            proc._read_exact, runtime_lib.device_result = saved
+            return {k: {"n": len(v), "median": statistics.median(v),
+                        "max": max(v), "sum": sum(v)} if v else None
+                    for k, v in spans.items()}
+        return done
+
+    totals = {k: [0, 0] for k in HELOCO + INT8}
+    twins, threaded_ms, digests = {}, {}, {}
+    wire_inputs = None
+    runs = [(name, ov, single, child, False)
+            for name, ov, single, child in SOCKET]
+    runs.append(("socket_hetero", {}, HELOCO, (), True))
+    for name, overrides, single, child, kill in runs:
+        scn = registry.get_scenario(name).overridden(**FULL_WIDTH,
+                                                     **overrides)
+        twin = scn.overridden(name="sim twin", description="", engine="sim",
+                              faults=None, transport="inproc")
+        if twin not in twins:
+            sim = twin.build(device=dev)
+            init = bridge.to_numpy(sim.server.state.params)
+            if wire_inputs is None:
+                # one full-width task and its result, from an engine of
+                # their own
+                other = twin.build(device=dev, init_params=init)
+                task = other._make_task(other.workers[0])
+                wire_inputs = (task, other._execute(task))
+                del other
+            sim_hist, sim_wall, _, sim_commits = run_timed(
+                torch, kernels, sim, twin)
+            state = sim.server.state.params
+            twins[twin] = (init, run.arrival_rows(sim_hist),
+                           trace.param_fingerprint(state),
+                           trace.param_digest(state),
+                           per_arrival(sim_wall, sim_commits,
+                                       len(sim_hist.arrivals)))
+            del sim, state
+        init, sim_rows, sim_fp, sim_digest, sim_ms = twins[twin]
+        inproc = scn.overridden(transport="inproc")
+        if inproc not in threaded_ms:
+            threaded = inproc.build(device=dev, init_params=init)
+            th_hist, th_wall, _, th_commits = run_timed(
+                torch, kernels, threaded, inproc)
+            assert run.arrival_rows(th_hist) == sim_rows, name
+            threaded_ms[inproc] = per_arrival(th_wall, th_commits,
+                                              len(th_hist.arrivals))
+            del threaded
+        th_ms = threaded_ms[inproc]
+        eng = scn.build(device=dev, init_params=init)
+        killed = {}
+        if kill:
+            def killer():
+                deadline = time.monotonic() + 300
+                while time.monotonic() < deadline:
+                    if len(eng.history.arrivals) >= SOCKET_KILL_AFTER:
+                        p = eng._pool._procs.get(0)
+                        if p is not None and p.is_alive():
+                            os.kill(p.pid, signal.SIGKILL)
+                            killed["after"] = len(eng.history.arrivals)
+                            return
+                    time.sleep(0.002)
+            threading.Thread(target=killer, daemon=True).start()
+        wire_done = parent_wire(eng)
+        try:
+            hist, wall, check_ms, commits = run_timed(torch, kernels, eng,
+                                                      scn, reset=True)
+        finally:
+            parent_spans = wire_done()
+        counts = kernels.launch_counts()
+        label = f"{name} over processes" + (" (SIGKILL)" if kill else "")
+        bad = run.compare(scn, hist)
+        assert not bad, f"{label}: {bad}"
+        assert run.arrival_rows(hist) == sim_rows, \
+            f"{label}: the arrivals are not the sim twin's"
+        params = eng.server.state.params
+        fails = []
+        trace._cmp_fingerprint(fails, trace.param_fingerprint(params),
+                               sim_fp, **TOL_FP)
+        assert not fails, f"{label}: fingerprint off the sim twin's: {fails}"
+        digest = trace.param_digest(params)
+        s = eng.stats_summary()
+        rounds = s["rounds"]
+        applied = sum(not a["dropped"] for a in hist.arrivals)
+        want = dict.fromkeys(counts, 0)
+        want.update(dict.fromkeys(single, applied))
+        assert counts == want, \
+            f"{label}: parent launches {counts}, want {want}"
+        child_want = dict.fromkeys(child, rounds)
+        assert s["child_launches"] == child_want, \
+            f"{label}: child launches {s['child_launches']}, want {child_want}"
+        assert s["transport"] == "socket" and rounds >= applied, s
+        for k in single:
+            totals[k][0] += counts[k]
+            totals[k][1] += applied
+        for k in child:
+            totals[k][0] += s["child_launches"][k]
+            totals[k][1] += rounds
+        if kill:
+            assert killed and s["proc_restarts"] >= 1, (killed, s)
+        else:
+            digests[name] = digest
+        if name == "chaos_lossy":
+            assert digest == digests["socket_hetero"], \
+                f"{label}: not socket_hetero's bits"
+            assert all(s["delivery"][k] > 0
+                       for k in CHAOS_TWINS[name]), s["delivery"]
+        means = [e["mean"] for e in hist.evals]
+        assert means and all(math.isfinite(x) for x in means), (name, means)
+        print(json.dumps({
+            "socket": label, "overrides": overrides,
+            "config": f"tinygpt-15m full width, {scn.n_workers} worker "
+                      f"processes {scn.paces}, H={scn.inner_steps}, batch "
+                      "4 x 128, deterministic commit order",
+            "arrivals_equal": "golden and sim twin",
+            "digest_equal_sim": digest == sim_digest,
+            "launches_parent": {k: v for k, v in counts.items() if v},
+            "launches_children": s["child_launches"], "applied": applied,
+            "killed_after_commits": killed.get("after"),
+            "proc_exits": s["proc_exits"],
+            "proc_restarts": s["proc_restarts"],
+            **spawn_line(eng),
+            **per_arrival(wall, commits, len(hist.arrivals)),
+            "threaded_twin": th_ms, "sim_twin": sim_ms,
+            "parent_wire": parent_spans,
+            **{k: v for k, v in runtime_line(eng, hist, wall,
+                                             check_ms).items()
+               if k != "ms_per_arrival"},
+            "eval_means": means}))
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    task, res = wire_inputs
+    print(json.dumps({"socket_wire": "tinygpt-15m full width: params + "
+                                     "AdamW m, v out; delta + m, v back",
+                      "reps": WIRE_REPS,
+                      **wire_timing(torch, task, res, dev)}))
+    del task, res, wire_inputs
+    twins.clear()
+
+    def beacon_clock(eng):
+        """Each beacon the server thread takes in: its worker, its send
+        instant (the child's clock) and the instant it was taken in."""
+        seen = []
+        note = eng._note_heartbeat
+
+        def noted(env):
+            seen.append((env.wid, env.sent_time, time.monotonic()))
+            return note(env)
+        eng._note_heartbeat = noted
+        return seen
+
+    def beacon_line(seen, interval):
+        """Per worker outside the partition: the largest gap between two
+        beacons' send instants (where the child could not send) and the
+        lag from send to intake (where the parent had not yet read)."""
+        out = {}
+        for wid in sorted({w for w, _, _ in seen} - {PARTITIONED}):
+            sent = sorted(t for w, t, _ in seen if w == wid)
+            lag = sorted(1e3 * (r - t) for w, t, r in seen if w == wid)
+            gaps = [1e3 * (b - a) for a, b in zip(sent, sent[1:])]
+            out[wid] = {"beacons": len(sent),
+                        "send_gap_ms_max": max(gaps, default=0.0),
+                        "send_gaps_over_threshold": sum(
+                            g >= 3e3 * interval for g in gaps),
+                        "lag_ms_median": lag[len(lag) // 2],
+                        "lag_ms_max": lag[-1]}
+        return out
+
+    scn = registry.get_scenario("chaos_partition").overridden(
+        **FULL_WIDTH, transport="socket")
+    for i in range(SOCKET_PARTITION_RUNS):
+        rec = TelemetryRecorder()
+        eng = scn.build(device=dev, telemetry=rec)
+        seen = beacon_clock(eng)
+        wire_done = parent_wire(eng)
+        try:
+            hist, wall, check_ms, commits = run_timed(torch, kernels, eng,
+                                                      scn, reset=True)
+        finally:
+            parent_spans = wire_done()
+        counts = kernels.launch_counts()
+        applied = sum(not a["dropped"] for a in hist.arrivals)
+        assert len(hist.arrivals) == scn.outer_steps, hist.arrivals
+        want = dict.fromkeys(counts, 0)
+        want.update(dict.fromkeys(HELOCO, applied))
+        assert counts == want, f"chaos_partition: launches {counts}"
+        for k in HELOCO:
+            totals[k][0] += counts[k]
+            totals[k][1] += applied
+        means = [e["mean"] for e in hist.evals]
+        assert means and all(math.isfinite(x) for x in means), means
+        deaths = [f.wid for f in rec.faults() if f.event == "liveness_dead"]
+        assert PARTITIONED in deaths, \
+            f"chaos_partition: worker {PARTITIONED} never declared dead"
+        events = [(f.event, f.wid) for f in rec.faults()
+                  if f.event in ("liveness_dead", "liveness_revive")]
+        false_deaths = [(j, wid) for j, (ev, wid) in enumerate(events)
+                        if ev == "liveness_dead" and wid != PARTITIONED]
+        unrevived = [wid for j, wid in false_deaths
+                     if ("liveness_revive", wid) not in events[j + 1:]]
+        s = eng.stats_summary()
+        print(json.dumps({
+            "socket_free": "chaos_partition", "run": i,
+            "config": "tinygpt-15m full width, "
+            f"{scn.n_workers} worker processes {scn.paces}, "
+            f"H={scn.inner_steps}, batch 4 x 128, pace_scale "
+            f"{scn.pace_scale}, beats every "
+            f"{scn.faults.heartbeat_interval} s, dead after "
+            f"{scn.faults.liveness_misses} misses",
+            "launches_parent": {k: v for k, v in counts.items() if v},
+            "liveness_deaths_by_wid": deaths,
+            "revivals_by_wid": [f.wid for f in rec.faults()
+                                if f.event == "liveness_revive"],
+            "false_deaths_by_wid": [wid for _, wid in false_deaths],
+            "false_deaths_unrevived": unrevived,
+            "beacons_by_wid": beacon_line(seen,
+                                          scn.faults.heartbeat_interval),
+            "delivery_channels": s["delivery_channels"],
+            "parent_wire": parent_spans,
+            **spawn_line(eng),
+            **per_arrival(wall, commits, len(hist.arrivals)),
+            **{k: v for k, v in runtime_line(eng, hist, wall,
+                                             check_ms).items()
+               if k != "ms_per_arrival"},
+            "eval_means": means}))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def socket_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only socket``: the socket phase alone (packed.cu built)."""
+    t0 = time.perf_counter()
+    socket_phase(torch, kernels, dev)
+    print(f"socket phase: {time.perf_counter() - t0:.1f}s")
 
 
 def single_tensor_phase(torch, kernels, specs, dev):
@@ -2648,7 +3083,8 @@ def main(argv=None) -> int:
                          "times a packed server's commits without and with "
                          "telemetry (telemetry_only); wallclock builds "
                          "packed.cu and runs the wall-clock phase "
-                         "(wallclock_only)")
+                         "(wallclock_only); socket builds packed.cu and runs "
+                         "the socket phase (socket_only)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2724,6 +3160,11 @@ def main(argv=None) -> int:
         totals[k][1] += arrivals
     print(f"wall-clock phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    for k, (launches, arrivals) in socket_phase(torch, all_kernels).items():
+        totals[k][0] += launches
+        totals[k][1] += arrivals
+    print(f"socket phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     replay_phase(torch)
     print(f"replay phase: {time.perf_counter() - t0:.1f}s")
     # the int8 kernels' path is the per-tensor entry points: launches per
@@ -2777,7 +3218,8 @@ def main(argv=None) -> int:
 # --only: the source each one-phase run builds, and the phase
 ONLY = {"int8": ("quantize", int8_only), "leaf": ("leaf", leaf_only),
         "telemetry": ("packed", telemetry_only),
-        "wallclock": ("packed", wallclock_only)}
+        "wallclock": ("packed", wallclock_only),
+        "socket": ("packed", socket_only)}
 
 
 if __name__ == "__main__":

@@ -64,9 +64,8 @@ from repro_torch.train.inner import eval_loss, pseudo_gradient, run_inner
 Params = Dict[str, torch.Tensor]
 
 # RunConfig axes the port's engine does not run yet: (field, default,
-# ROADMAP item). Every axis of RunConfig runs; the socket transport, which
-# is not a RunConfig axis, waits for A18
-# (``scenarios/spec.py:Scenario.unported_axes``).
+# ROADMAP item). Every axis of RunConfig runs, and so does every Scenario
+# axis (``scenarios/spec.py:Scenario.unported_axes``).
 UNPORTED_AXES: Tuple[Tuple[str, Any, str], ...] = ()
 
 

@@ -43,8 +43,14 @@ through the crash and rejoin machinery.
 
 A crash bumps the worker's generation, so its round in flight, which still
 lands through the transport, is dropped at the server. A worker's thread
-is torn down only on an elastic leave or at shutdown. ``transport="socket"``
-(worker processes) is ROADMAP A18.
+is torn down only on an elastic leave or at shutdown.
+
+``transport="socket"`` runs each worker in a process of its own instead
+(``async_engine/proc.py``): the same protocol and commit orders over a
+socket rendezvous and length-prefixed frames, the children injecting the
+run's faults on their side of the wire. A worker process that dies outside
+a graceful stop is respawned, and the round it held is resubmitted from the
+same snapshot, so a deterministic run keeps its bits through a kill.
 """
 from __future__ import annotations
 
@@ -64,6 +70,9 @@ from repro_torch.async_engine.engine import (
 from repro_torch.async_engine.faults import (
     DELIVERY_COUNTERS, DeliveryTracker, FaultSpec, FaultyTransport,
 )
+from repro_torch.async_engine.proc import (
+    WorkerExit, WorkerFatal, WorkerProcessPool, device_result,
+)
 from repro_torch.async_engine.transport import (
     Ack, AckWaiter, Envelope, InProcTransport, KIND_ERROR, KIND_HEARTBEAT,
     KIND_RESULT, ReliableSender, Transport, TransportClosed,
@@ -77,6 +86,8 @@ from repro_torch.models.transformer import build_model
 TRANSPORTS = ("inproc", "socket")
 #: seconds the server waits for any arrival before it calls a worker wedged
 RESULT_TIMEOUT = 600.0
+#: respawns of a worker process for one round before the run fails
+MAX_RESPAWNS_PER_ROUND = 3
 
 
 @dataclass
@@ -121,15 +132,12 @@ class ConcurrentRuntime(EngineBase):
                 "partition windows are defined on the free-running virtual "
                 "clock; deterministic mode has no wall-to-virtual coupling "
                 "to evaluate them against (use mode='free')")
+        kind = "inproc"
         if isinstance(transport, str):
             if transport not in TRANSPORTS:
                 raise ValueError(f"transport must be one of {TRANSPORTS} "
                                  f"or a Transport instance: {transport!r}")
-            if transport == "socket":
-                raise NotImplementedError(
-                    "transport='socket' (worker processes) is not ported "
-                    "yet (ROADMAP A18)")
-            transport = None
+            kind, transport = transport, None
         super().__init__(run_cfg, device=device, init_params=init_params,
                          failures=failures, elastic=elastic,
                          telemetry=telemetry,
@@ -140,14 +148,25 @@ class ConcurrentRuntime(EngineBase):
         self.faults = faults
         # backpressure: two frames a worker in flight
         self._capacity = max(2 * len(self.workers), 4)
-        self.transport_kind = "inproc"
+        self.transport_kind = kind
+        self._pool: Optional[WorkerProcessPool] = None
+        # wid -> (incarnation, task) of the last round handed to a process
+        self._last_task: Dict[int, tuple] = {}
+        self._respawns: Dict[int, int] = {}             # task_id -> count
+        self._proc_counters = {"proc_exits": 0, "proc_restarts": 0}
+        self._child_launches: Dict[str, int] = {}
         self._own_transport = transport is None
         self._free_t0: Optional[float] = None
         self._channel_counters: Dict[str, Dict[str, int]] = {}
-        if transport is not None and faults is not None:
-            transport = self._wrap(transport, stream=0)
-        self.transport: Transport = transport or self._data_channel()
-        self._hb_channel: Transport = self._heartbeat_channel()
+        if kind == "socket":
+            # the heartbeat sink first: the pool routes child beacons to it
+            self._hb_channel: Transport = self._heartbeat_channel()
+            self.transport: Transport = self._data_channel()
+        else:
+            if transport is not None and faults is not None:
+                transport = self._wrap(transport, stream=0)
+            self.transport = transport or self._data_channel()
+            self._hb_channel = self._heartbeat_channel()
         self._sender = self._make_sender()
         self._hb_enabled = (faults is not None and faults.liveness_enabled
                             and mode == "free")
@@ -175,9 +194,11 @@ class ConcurrentRuntime(EngineBase):
             "queue_depth_samples": [], "overlap_samples": [],
             "compute_seconds_total": 0.0,
         }
-        # one card per worker, round robin, when there are several
+        # one card per worker, round robin, when there are several (worker
+        # processes resolve the engine's device themselves)
         self._pin: List[torch.device] = []
-        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+        if (self.device.type == "cuda" and torch.cuda.device_count() > 1
+                and kind != "socket"):
             self._pin = [torch.device("cuda", i)
                          for i in range(torch.cuda.device_count())]
 
@@ -194,6 +215,15 @@ class ConcurrentRuntime(EngineBase):
                                clock=self._virtual_now)
 
     def _data_channel(self) -> Transport:
+        if self.transport_kind == "socket":
+            # the pool's transport stays unwrapped: the worker processes
+            # inject faults on their side of the wire (same streams, same
+            # dice), so wrapping it too would inject twice
+            self._pool = WorkerProcessPool(
+                self.cfg, device=self.device, capacity=self._capacity,
+                faults=self.faults, mode=self.mode,
+                pace_scale=self.pace_scale, hb_sink=self._hb_channel)
+            return self._pool.transport
         inner = InProcTransport(self._capacity)
         return self._wrap(inner, stream=0) if self.faults else inner
 
@@ -201,6 +231,8 @@ class ConcurrentRuntime(EngineBase):
         # a side channel: beacons never queue behind pseudo-gradient
         # backpressure, and partitions silence them like any other frame
         inner = InProcTransport(max(64 * max(len(self.workers), 1), 256))
+        if self.transport_kind == "socket":
+            return inner                 # children wrap their own beacons
         return self._wrap(inner, stream=1) if self.faults else inner
 
     def _make_sender(self) -> ReliableSender:
@@ -337,10 +369,35 @@ class ConcurrentRuntime(EngineBase):
 
     def _submit(self, task: RoundTask):
         self._ensure_open()
+        if self._pool is not None:
+            inc = self._pool.ensure(task.wid)
+            if inc is not None:
+                self._fresh_process(task.wid)
+            self._pool.clock = (self._free_t0, self.pace_scale)
+            self._last_task[task.wid] = (self._pool.incarnation(task.wid),
+                                         task)
+            self._pool.submit(task.wid, task)
+            return
         th = self._threads.get(task.wid)
         if th is None or not th.is_alive():
             self._start_worker_thread(task.wid)
         self._inboxes[task.wid].put(task)
+
+    def _fresh_process(self, wid: int):
+        """A (re)started worker process begins a fresh delivery stream and
+        a fresh beat."""
+        self._delivery.reset_stream(wid)
+        self._last_beat[wid] = time.monotonic()
+        self._miss_counted[wid] = 0
+
+    def _start_processes(self):
+        """Start the live workers' processes together (each takes seconds
+        to import torch) before the first dispatch waits on them."""
+        if self._pool is None:
+            return
+        wids = [w.wid for w in self.workers.values() if w.alive]
+        for wid in self._pool.ensure_many(wids):
+            self._fresh_process(wid)
 
     def _recv_result(self, timeout: Optional[float] = None) -> RoundResult:
         """One accepted result. Duplicate, corrupt and quarantined frames
@@ -359,11 +416,21 @@ class ConcurrentRuntime(EngineBase):
             except TransportTimeout:
                 if timeout is not None:
                     raise
+                pool = self._pool
                 raise RuntimeError(
                     f"no arrival within {RESULT_TIMEOUT}s: a worker "
-                    f"thread is dead, wedged or quarantined (threads alive: "
+                    f"thread or process is dead, wedged or quarantined "
+                    f"(threads alive: "
                     f"{[w for w, t in self._threads.items() if t.is_alive()]}"
+                    f", processes alive: "
+                    f"{[w for w in self.workers if pool and pool.alive(w)]}"
                     f", quarantined: {sorted(self._delivery.quarantined)})")
+            if isinstance(msg, WorkerFatal):
+                raise RuntimeError(f"worker {msg.wid}'s process could not "
+                                   f"start: {msg.error}")
+            if isinstance(msg, WorkerExit):
+                self._handle_worker_exit(msg)
+                continue
             if isinstance(msg, Envelope):
                 payload = self._process_envelope(msg)
                 if payload is None:
@@ -373,8 +440,39 @@ class ConcurrentRuntime(EngineBase):
             if isinstance(msg, RoundError):
                 raise RuntimeError(f"worker {msg.wid} round {msg.round_seq} "
                                    f"failed: {msg.error}")
+            if self._pool is not None:
+                # checked on its host bytes; committed from the device
+                msg = device_result(msg, self.device)
             self.stats["compute_seconds_total"] += msg.compute_seconds
             return msg
+
+    # -------------------------------------------------- process supervision
+    def _handle_worker_exit(self, ev: WorkerExit):
+        """A worker process died outside a graceful stop. If the round the
+        engine waits on went to exactly that incarnation, respawn the
+        process and resubmit the same task snapshot (same task id), a
+        deterministic recompute of the round; anything else (a stale
+        incarnation, a crashed or departed worker) the generation machinery
+        covers. A round whose process dies ``MAX_RESPAWNS_PER_ROUND`` times
+        fails the run."""
+        self._proc_counters["proc_exits"] += 1
+        if self._pool is None or self._shut:
+            return
+        entry = self._last_task.get(ev.wid)
+        w = self.workers.get(ev.wid)
+        if (entry is not None and w is not None and w.alive
+                and entry[0] == ev.incarnation
+                and w.pending_task_id is not None
+                and entry[1].task_id == w.pending_task_id):
+            tid = entry[1].task_id
+            self._respawns[tid] = self._respawns.get(tid, 0) + 1
+            if self._respawns[tid] > MAX_RESPAWNS_PER_ROUND:
+                raise RuntimeError(
+                    f"worker {ev.wid}'s process died "
+                    f"{self._respawns[tid]} times on one round")
+            self._proc_counters["proc_restarts"] += 1
+            self._telemetry_fault("proc_restart", wid=ev.wid)
+            self._submit(entry[1])
 
     # --------------------------------------------------- delivery protocol
     def _process_envelope(self, env: Envelope) -> Optional[Any]:
@@ -403,6 +501,11 @@ class ConcurrentRuntime(EngineBase):
         if (spec is not None and not quarantined
                 and spec.drops_ack(env.wid, env.seq, env.attempt)):
             self._bump("acks_dropped")           # lost receipt: redelivery
+            return
+        if self._pool is not None:
+            self._pool.send_ack(env.wid,
+                                Ack(wid=env.wid, generation=env.generation,
+                                    seq=env.seq, quarantined=quarantined))
             return
         waiter = self._ack_waiters.get(env.wid)
         if waiter is not None:
@@ -567,6 +670,9 @@ class ConcurrentRuntime(EngineBase):
             self._results.pop(w.pending_task_id, None)
 
     def _on_worker_removed(self, w: Worker):
+        if self._pool is not None:
+            self._pool.kill(w.wid)
+        self._last_task.pop(w.wid, None)
         inbox = self._inboxes.pop(w.wid, None)
         if inbox is not None:
             inbox.put(None)                             # poison pill
@@ -585,8 +691,12 @@ class ConcurrentRuntime(EngineBase):
             if not self._own_transport:
                 raise RuntimeError("transport closed; inject a fresh one")
             self._fold_fault_counters()
-            self.transport = self._data_channel()
-            self._hb_channel = self._heartbeat_channel()
+            if self.transport_kind == "socket":
+                self._hb_channel = self._heartbeat_channel()
+                self.transport = self._data_channel()     # a fresh pool
+            else:
+                self.transport = self._data_channel()
+                self._hb_channel = self._heartbeat_channel()
             self._sender = self._make_sender()
             self._shut = False
 
@@ -600,11 +710,40 @@ class ConcurrentRuntime(EngineBase):
                     self._fault_accum[k] = self._fault_accum.get(k, 0) + v
                     acc[k] = acc.get(k, 0) + v
 
+    def _harvest_child_counters(self):
+        """Fold what the worker processes reported at their graceful stop
+        into the run's totals: injected faults join the fault tallies (so
+        ``delivery_stats`` reads as on the in-process backend), resends
+        join the delivery counters, rounds the runtime's; kernel launches
+        are kept apart (``stats_summary()["child_launches"]``)."""
+        if self._pool is None:
+            return
+        pool = self._pool
+        for channel, counters in pool.child_counters.items():
+            acc = self._channel_counters.setdefault(channel, {})
+            for k, v in counters.items():
+                acc[k] = acc.get(k, 0) + v
+                if channel == "protocol":
+                    if k in DELIVERY_COUNTERS:
+                        self._bump(k, v)
+                else:
+                    self._fault_accum[k] = self._fault_accum.get(k, 0) + v
+        for k, v in pool.child_launches.items():
+            self._child_launches[k] = self._child_launches.get(k, 0) + v
+        self.stats["rounds"] += pool.child_rounds
+        pool.child_counters.clear()
+        pool.child_launches.clear()
+        pool.child_rounds = 0
+
     def shutdown(self):
-        """Tear the worker threads down. Idempotent; ``run`` or ``restore``
-        after it rebuilds the channel and the workers."""
+        """Tear the worker threads or processes down. Idempotent; ``run``
+        or ``restore`` after it rebuilds the channel and the workers."""
         self._shut = True
-        self.transport.close()
+        if self._pool is not None:
+            self._pool.close()           # stop, stats harvest, join
+            self._harvest_child_counters()
+        else:
+            self.transport.close()
         self._hb_channel.close()
         for stop in self._hb_stops.values():
             stop.set()
@@ -656,6 +795,8 @@ class ConcurrentRuntime(EngineBase):
         t0 = time.monotonic()
         self._run_t0 = t0
         try:
+            self._ensure_open()
+            self._start_processes()
             if self.mode == "free" and not self.server.method.sync:
                 hist = self._run_free(eval_every, eval_fn, ckpt_every,
                                       ckpt_dir, budget)
@@ -815,11 +956,15 @@ class ConcurrentRuntime(EngineBase):
             if isinstance(tr, FaultyTransport):
                 for k, v in tr.counters.items():
                     out[k] = out.get(k, 0) + v
+        for k, v in self._proc_counters.items():
+            if v:
+                out[k] = out.get(k, 0) + v
         return out
 
     def delivery_channels(self) -> Dict[str, Dict[str, int]]:
-        """The injected-fault counters by channel, "data" and
-        "heartbeat"."""
+        """The injected-fault counters by channel, "data" and "heartbeat"
+        (on the socket transport what the worker processes tallied on
+        their side of the wire, and their resends under "protocol")."""
         out = {k: dict(v) for k, v in self._channel_counters.items()}
         for name, tr in (("data", self.transport),
                          ("heartbeat", self._hb_channel)):
@@ -859,5 +1004,9 @@ class ConcurrentRuntime(EngineBase):
             "delivery": self.delivery_stats(),
             "delivery_channels": self.delivery_channels(),
             "transport": self.transport_kind,
+            "proc_exits": self._proc_counters["proc_exits"],
+            "proc_restarts": self._proc_counters["proc_restarts"],
+            # the worker processes' kernel launches (graceful stops only)
+            "child_launches": dict(self._child_launches),
             "flush": dict(getattr(self.server, "flush_totals", {})),
         }

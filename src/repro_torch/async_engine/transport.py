@@ -191,6 +191,13 @@ def _leaves(delta) -> Iterator[Any]:
         yield delta
 
 
+@dataclass(frozen=True)
+class Bf16Bits:
+    """A bf16 tensor in host form: its 16-bit patterns (numpy has no
+    bf16), as the socket transport ships it."""
+    bits: np.ndarray
+
+
 def host_bytes(leaf) -> memoryview:
     """The leaf's bytes on the host as a flat byte view, without the
     ``tobytes()`` copy: a tensor is copied to the host once (bf16 read as
@@ -200,6 +207,8 @@ def host_bytes(leaf) -> memoryview:
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
         arr = t.cpu().numpy()
+    elif isinstance(leaf, Bf16Bits):
+        arr = leaf.bits
     else:
         arr = np.asarray(leaf)
     return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))

@@ -31,7 +31,10 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
         --scenario paper_hetero_severe --ckpt-dir ckpts --resume --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --engine \\
         wallclock --workers 3 --paces 1,2,6 --outer 10 --inner 3 --batch 2 \\
-        --seq 16 [--free --pace-scale 0.02] [--chaos] --device cpu
+        --seq 16 [--free --pace-scale 0.02] [--chaos] [--transport socket] \\
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --scenario \\
+        wallclock_hetero --engine wallclock --transport socket --device cpu
 
 ``--telemetry PATH`` streams the run's records live to a JSONL file (the
 reference's schema; a "runtime" record every ``--telemetry-every`` commits,
@@ -40,7 +43,8 @@ reference's schema; a "runtime" record every ``--telemetry-every`` commits,
 commits (the reference's format); with ``--resume`` the run starts from the
 latest checkpoint there, if there is one. ``--engine wallclock`` runs the
 threaded runtime (deterministic commit order, or ``--free`` with
-``--pace-scale``; ``--chaos`` injects the lossy-channel preset) and prints
+``--pace-scale``; ``--chaos`` injects the lossy-channel preset;
+``--transport socket`` runs each worker in a process of its own) and prints
 its ``stats_summary()``, which ``--stats-json`` then writes.
 """
 from __future__ import annotations
@@ -85,6 +89,7 @@ def scenario_from_args(args) -> Scenario:
         arch=args.arch, smoke=args.smoke,
         engine=args.engine,
         mode="free" if args.free else "deterministic",
+        transport=args.transport,
         pace_scale=args.pace_scale,
         n_workers=args.workers,
         worker_paces=tuple(float(p) for p in args.paces.split(",")),
@@ -176,6 +181,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--pace-scale", type=float, default=0.0,
                     help="wallclock + free: wall seconds per virtual second "
                          "of worker pace (0: no throttling)")
+    ap.add_argument("--transport", default="inproc",
+                    choices=["inproc", "socket"],
+                    help="wallclock engine backend: worker threads over the "
+                         "in-process queue, or worker processes over the "
+                         "socket transport")
     ap.add_argument("--chaos", action="store_true",
                     help="wallclock engine: inject chaos_lossy's lossy "
                          "channel (20%% drop, 10%% dup, 20%% reorder, "
@@ -185,6 +195,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     if args.chaos and args.engine != "wallclock":
         ap.error("--chaos needs --engine wallclock (the simulator has no "
                  "transport to inject faults into)")
+    if args.transport == "socket" and args.engine != "wallclock":
+        ap.error("--transport socket needs --engine wallclock (the "
+                 "simulator has no worker processes)")
     return args
 
 
@@ -199,6 +212,8 @@ def main(argv: Optional[Sequence[str]] = None):
         scn = registry.get_scenario(args.scenario)
         if args.full_width:
             scn = scn.overridden(**FULL_WIDTH)
+        if args.transport != "inproc" and scn.engine == "wallclock":
+            scn = scn.overridden(transport=args.transport)
         if args.commit_batch > 1:
             scn = scn.overridden(commit_batch=args.commit_batch)
         print(f"scenario {scn.name}: {scn.description}")

@@ -7,9 +7,10 @@ the reference's, so ``Scenario.to_dict()`` equals the reference's (and the
 run config, the engine, the wall-clock runtime's options and the failure
 and membership schedules, with those of a committed pace trace when the
 scenario names one), and ``build()`` hands back a port engine from them on
-the device it is given; a scenario that asks for an axis the port does not
-run yet (``transport='socket'``, ROADMAP A18) raises
-``NotImplementedError`` naming its ROADMAP item before anything runs.
+the device it is given (``transport='socket'`` runs the wall-clock
+workers in processes of their own); a scenario that asks for an axis the
+port does not run raises ``NotImplementedError`` naming its ROADMAP item
+before anything runs.
 """
 from __future__ import annotations
 
@@ -239,10 +240,7 @@ class Scenario:
         """The axes set here that the port cannot run yet, each with its
         ROADMAP item (empty when ``build`` will run)."""
         from repro_torch.async_engine.engine import unported_axes
-        out = []
-        if self.transport != "inproc":
-            out.append(f"transport={self.transport!r} (ROADMAP A18)")
-        return tuple(out + unported_axes(self.run_config()))
+        return tuple(unported_axes(self.run_config()))
 
     def materialize(self) -> Materialized:
         """Compile the spec into the engine factory's keywords."""

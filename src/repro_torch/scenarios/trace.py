@@ -240,6 +240,7 @@ def _verify_banded(fails: List[str], got: Dict, want: Dict,
 
 def verify(scn: Scenario, golden_dir=GOLDEN_DIR, *,
            cross_engine: bool = False, device="cuda",
+           transport: Optional[str] = None,
            fresh: Optional[Dict[str, Any]] = None,
            obs: bool = False) -> VerifyResult:
     """Run ``scn`` on ``device`` and compare it with its committed golden
@@ -247,14 +248,17 @@ def verify(scn: Scenario, golden_dir=GOLDEN_DIR, *,
 
     ``cross_engine=True`` (sim scenarios only) replays the scenario on the
     deterministic wall-clock runtime and also runs it on the simulator.
-    ``fresh`` injects a precomputed trace document of the run (a testing
+    ``transport`` overrides the wall-clock backend of the fresh run only
+    ("socket": worker processes); the golden's recorded spec is compared
+    untouched, since the backend must not change the trace. ``fresh`` injects a precomputed trace document of the run (a testing
     hook). ``obs=True`` (the
     replay with the whole observability stack on) waits for ROADMAP A19."""
     if obs:
         raise NotImplementedError("verify(obs=True) needs the span tracer "
                                   "and the observability stack (ROADMAP A19)")
     path = golden_path(scn.name, golden_dir)
-    tag = " [cross-engine wallclock]" if cross_engine else ""
+    tag = (" [cross-engine wallclock]" if cross_engine else "") + (
+        f" [transport={transport}]" if transport else "")
     res = VerifyResult(name=scn.name + tag, ok=True)
     if not path.exists():
         res.ok = False
@@ -270,12 +274,18 @@ def verify(scn: Scenario, golden_dir=GOLDEN_DIR, *,
     if cross_engine and scn.engine != "sim":
         res.failures.append("cross-engine verify only applies to sim "
                             "scenarios")
+    if (transport and transport != scn.transport and not cross_engine
+            and scn.engine != "wallclock"):
+        res.failures.append("a transport override of a sim scenario needs "
+                            "cross_engine=True (the socket backend is the "
+                            "wall-clock runtime's)")
     if res.failures:
         res.ok = False
         return res
 
     if cross_engine:
-        replay = scn.overridden(engine="wallclock", mode="deterministic")
+        replay = scn.overridden(engine="wallclock", mode="deterministic",
+                                transport=transport or scn.transport)
         got = fresh or run_trace(replay, device)
         twin = run_trace(scn, device)
         _cmp_counts(res.failures, got, want)
@@ -285,7 +295,9 @@ def verify(scn: Scenario, golden_dir=GOLDEN_DIR, *,
         res.details["digest_equal"] = (got["param_digest"]
                                        == twin["param_digest"])
     else:
-        got = fresh or run_trace(scn, device)
+        run_scn = (scn.overridden(transport=transport)
+                   if transport and transport != scn.transport else scn)
+        got = fresh or run_trace(run_scn, device)
         if scn.exact:
             _cmp_counts(res.failures, got, want)
         else:

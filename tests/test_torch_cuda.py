@@ -27,7 +27,10 @@ plain path's (tests/test_torch_serve.py's bf16 bound). Checkpoints: a
 state saved from the card restores to the card bit for bit, with the hash
 of the same bits saved from the CPU; a full-width run checkpointed at 6
 and resumed to 12 on the card has the arrivals of the same save and
-resume on the CPU at smoke width.
+resume on the CPU at smoke width. Worker processes on the card
+(``transport="socket"``): the golden's arrivals and the final parameters
+within ``trace._cmp_fingerprint``'s band (rtol 1e-5, atol 1e-6) of the
+card's sim twin.
 """
 import numpy as np
 import pytest
@@ -856,3 +859,44 @@ def test_wallclock_pins_workers_round_robin_on_several_cards(
         fails, trace.param_fingerprint(eng.server.state.params),
         trace.param_fingerprint(sim.server.state.params))
     assert fails == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, overrides", [
+    ("socket_hetero", {}),
+    ("int8_dylu", {"engine": "wallclock", "transport": "socket"})])
+def test_socket_worker_processes_on_the_card(cuda, name, overrides):
+    """The deterministic runtime over worker processes on the card, at
+    smoke width: the golden's arrivals, the final parameters within
+    ``_cmp_fingerprint``'s tolerance of the card's sim twin from the same
+    bits, the server's sweeps once per applied arrival in the parent, and
+    under int8 the int8 sweeps once per round in the children (their own
+    counts, reported at their graceful stop)."""
+    from repro_torch import bridge
+    from repro_torch.scenarios import registry, run, trace
+    scn = registry.get_scenario(name).overridden(**overrides)
+    twin = scn.overridden(engine="sim", mode="deterministic", faults=None,
+                          transport="inproc")
+    sim = twin.build(device="cuda")
+    init = bridge.to_numpy(sim.server.state.params)
+    sim.run()
+    eng = scn.build(device="cuda", init_params=init)
+    kernels.reset_launch_counts()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert run.arrival_rows(hist) == run.load_golden(name)["arrivals"]
+    fails = []
+    trace._cmp_fingerprint(
+        fails, trace.param_fingerprint(eng.server.state.params),
+        trace.param_fingerprint(sim.server.state.params))
+    assert fails == []
+    s = eng.stats_summary()
+    applied = sum(not a["dropped"] for a in hist.arrivals)
+    want = dict.fromkeys(counts, 0)
+    want.update(packed_row_stats=applied, packed_correct_outer=applied)
+    assert s["transport"] == "socket" and counts == want
+    int8 = ("packed_rowabs", "packed_quant", "packed_dequant")
+    assert s["child_launches"] == (
+        dict.fromkeys(int8, s["rounds"]) if overrides else {})
+    assert s["rounds"] >= applied

@@ -10,9 +10,12 @@ committed golden traces.
     the time; ``paper_hetero_severe`` is tests/test_torch_engine.py's) are
     reproduced exactly: arrivals, ``tokens``, ``comm_bytes``,
     ``final_time``;
-  * a scenario with an axis the port lacks (``transport='socket'``,
-    ROADMAP A18) raises before it runs; the wall-clock scenarios run
-    (tests/test_torch_wallclock.py);
+  * every registered scenario runs on the port, the wall-clock ones
+    (tests/test_torch_wallclock.py) and ``socket_hetero`` on worker
+    processes (tests/test_torch_proc.py) too; the refusal of an axis the
+    port lacks, held with a test-only axis, raises before anything runs,
+    and ``socket_hetero`` builds into a socket runtime that starts no
+    process before its first round;
   * ``fedbuff``, ``crash_rejoin``, ``poly_stale``, ``drop_stale`` and
     ``elastic_membership`` against a live reference
     run from the same bits, with the bands of tests/test_torch_methods.py
@@ -40,11 +43,14 @@ PORTED = ("delayed_nesterov", "fedbuff", "dcasgd", "poly_stale",
           "noniid_dirichlet", "crash_rejoin", "elastic_membership",
           "int8_dylu", "hogwild_rampup", "trace_paced", "gossip_ring",
           "gossip_random")
-# the registered wall-clock scenarios the port runs (all but socket_hetero)
+# the registered wall-clock scenarios the port runs (all of them)
 WALLCLOCK = ("wallclock_hetero", "delayed_nesterov_wallclock",
              "fedbuff_wallclock", "dcasgd_wallclock", "wallclock_free",
-             "chaos_lossy", "chaos_corrupt", "chaos_partition")
-UNPORTED = ("socket_hetero",)
+             "chaos_lossy", "chaos_corrupt", "chaos_partition",
+             "socket_hetero")
+# an axis the port refuses, for the refusal machinery's test only: the
+# scenario's n_workers set away from a "default" no scenario has
+TEST_AXIS = ("n_workers", 0, "A99")
 
 
 def test_registry_names_match_reference():
@@ -116,31 +122,50 @@ def test_launcher_flags_reproduce_the_golden(name):
                                               golden["comm_bytes"])
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_axis_raises_before_running(name, monkeypatch):
+@pytest.mark.parametrize("name", ["socket_hetero"])
+def test_unported_axis_raises_before_running(name, monkeypatch, capsys):
+    """Every axis runs now, so the refusal is held with a test-only one:
+    ``Scenario.build`` raises naming its ROADMAP item before any engine is
+    built, and ``run list`` marks the scenario."""
     def never(*a, **k):
         raise AssertionError("an engine was built")
     monkeypatch.setattr(engine_lib, "make_engine", never)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        registry.get_scenario(name).build(device="cpu")
+    monkeypatch.setattr(engine_lib, "UNPORTED_AXES", (TEST_AXIS,))
+    scn = registry.get_scenario(name)
+    assert scn.unported_axes() == ("n_workers=4 (ROADMAP A99)",)
+    with pytest.raises(NotImplementedError, match="ROADMAP A99"):
+        scn.build(device="cpu")
+    assert run.main(["list"]) == 0
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.split()[0] == name)
+    assert "[not yet: n_workers=4 (ROADMAP A99)]" in line
 
 
 def test_engine_refuses_an_unported_run_config():
-    """The socket transport (worker processes, ROADMAP A18) is refused
+    """``socket_hetero`` (worker processes, ``async_engine/proc.py``) builds
     through every entry point, ``Scenario.build``, ``make_engine`` with a
-    Scenario and the runtime's own constructor, before any engine runs
-    (the wall-clock engine this test held until A13 runs now,
-    tests/test_torch_wallclock.py; the topology axis it held until A14,
-    tests/test_torch_topology.py)."""
-    scn = registry.get_scenario("drop_stale").overridden(engine="wallclock",
-                                                         transport="socket")
-    with pytest.raises(NotImplementedError, match="transport.*A18"):
-        scn.build(device="cpu")
-    with pytest.raises(NotImplementedError, match="transport.*A18"):
-        engine_lib.make_engine(scn, device="cpu")
-    with pytest.raises(NotImplementedError, match="A18"):
-        engine_lib.make_engine(scn.run_config(), "wallclock", device="cpu",
-                               transport="socket")
+    Scenario and ``make_engine`` with its run config and the runtime's
+    options, into a ``ConcurrentRuntime`` on the socket transport that has
+    started no process before its first round (the wall-clock engine this
+    test held until A13 runs too, tests/test_torch_wallclock.py; the
+    topology axis it held until A14, tests/test_torch_topology.py)."""
+    from repro_torch.async_engine.runtime import ConcurrentRuntime
+    scn = registry.get_scenario("socket_hetero")
+    m = scn.materialize()
+    engines = [scn.build(device="cpu"),
+               engine_lib.make_engine(scn, device="cpu"),
+               engine_lib.make_engine(m.run_cfg, "wallclock", device="cpu",
+                                      **m.engine_kw)]
+    try:
+        for eng in engines:
+            assert isinstance(eng, ConcurrentRuntime)
+            assert eng.transport_kind == "socket"
+            assert eng.transport is eng._pool.transport
+            assert not eng._pool._procs and not eng._pool._conns
+    finally:
+        for eng in engines:
+            eng.shutdown()
+    assert all(eng._pool._closing for eng in engines)
 
 
 # delayed_nesterov's, noniid_dirichlet's and flexible_shards' live runs

@@ -54,7 +54,8 @@ def _init():
 
 def _twin(scn):
     """The fault-free sim scenario with ``scn``'s run config."""
-    return scn.overridden(engine="sim", mode="deterministic", faults=None)
+    return scn.overridden(engine="sim", mode="deterministic", faults=None,
+                          transport="inproc")
 
 
 @functools.cache
@@ -155,8 +156,13 @@ def test_worker_error_and_unported_options_raise():
     with pytest.raises(RuntimeError, match="inner round failed"):
         eng.run()
     assert not eng._threads                      # torn down anyway
-    with pytest.raises(NotImplementedError, match="A18"):
-        ConcurrentRuntime(rc, device="cpu", transport="socket")
+    sock = ConcurrentRuntime(rc, device="cpu", transport="socket")
+    try:
+        assert sock.transport_kind == "socket" and not sock._pool._procs
+    finally:
+        sock.shutdown()
+    with pytest.raises(ValueError, match="transport must be"):
+        ConcurrentRuntime(rc, device="cpu", transport="tcp")
     with pytest.raises(ValueError, match="free"):
         ConcurrentRuntime(rc, device="cpu", faults=FaultSpec(
             partitions=(PartitionSpec(0.0, 1.0),)))
