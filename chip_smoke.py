@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only telemetry
     python3 chip_smoke.py --only wallclock
     python3 chip_smoke.py --only socket
+    python3 chip_smoke.py --only obs
 
 Phases, in order; any failure exits non-zero (``--only int8`` runs the
 int8 kernels' checks and times of phase 2, the card's read, write and copy
@@ -16,8 +17,9 @@ kernels: their checks and times of phase 2 with the 43-leaf correction
 pass, the card's rates, phase 4 and the leaf build report; ``--only
 telemetry`` builds the packed sweeps and times a packed server's commit
 calls without and with telemetry, and the pieces telemetry adds; ``--only
-wallclock`` builds the packed sweeps and runs the wall-clock phase, and
-``--only socket`` the socket phase):
+wallclock`` builds the packed sweeps and runs the wall-clock phase,
+``--only socket`` the socket phase, and ``--only obs`` the obs phase with
+its untraced twins run in it):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
@@ -130,8 +132,17 @@ wallclock`` builds the packed sweeps and runs the wall-clock phase, and
      ms per arrival beside both twins, the spawn and rendezvous seconds, the
      wire's pieces on one full-width task and result; then
      ``chaos_partition`` over processes in free mode at full width, twice,
-     the partitioned worker declared dead and the deaths outside the
-     partition printed;
+     each with a recorder (so the children ship obs frames), the
+     partitioned worker declared dead, the deaths outside the partition
+     and the host's memory after the run printed. The obs phase
+     (``obs_phase``): ``paper_hetero_severe`` on the simulator,
+     ``wallclock_hetero`` on the threaded runtime and ``socket_hetero``
+     over worker processes at full width, each traced by
+     a ``SpanTracer`` with a live telemetry stream, held to its untraced
+     run of the phases before (the golden's arrivals, the same digest and
+     launches, a valid trace, a process row and a final obs report from
+     every child, the console's and the dashboard's panels), with the
+     ms per arrival traced and untraced and each span's ms per arrival;
   4. the single-tensor path: ``kernels.ops.outer_update_block`` over the 43
      leaves of a full-width state, one outer_update_2d launch a leaf, each
      bit for bit against the plain version;
@@ -309,6 +320,11 @@ SOCKET_KILL_AFTER = 3
 SOCKET_PARTITION_RUNS = 2
 # the wire pieces' host times on one full-width task and result: median of
 WIRE_REPS = 5
+# the obs phase: each run traced with a live telemetry sink on its engine
+# beside its untraced twin, with the kernels each applied arrival launches
+OBS = (("paper_hetero_severe", "sim"),
+       ("wallclock_hetero", "threaded runtime"),
+       ("socket_hetero", "worker processes"))
 REPLACES = {
     "packed_row_stats": "src/repro/kernels/packed.py:59",
     "packed_correct_outer": "src/repro/kernels/packed.py:175",
@@ -1263,18 +1279,33 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
     return counts, singles, n_fused, means, server_ms_by_k.get(1)
 
 
-def slice_phase(torch, kernels):
+def slice_phase(torch, kernels, untraced):
     """Every slice scenario, then ``paper_hetero_severe`` on a per-leaf
     kernel server, its evals held to the packed run's; returns per kernel
     (launches, arrivals of the runs it served: committed alone for a
-    single-arrival kernel, fused for a multi one)."""
+    single-arrival kernel, fused for a multi one). The packed
+    ``paper_hetero_severe`` run goes into ``untraced`` for the obs phase."""
     totals = {k: [0, 0] for k in REPLACES}
     runs = [(*entry, False) for entry in SLICE]
     runs.append(("paper_hetero_severe", {}, PER_LEAF, (), True))
     packed_run = {}
     for name, overrides, single, fused, per_leaf in runs:
+        obs_twin = name in dict(OBS) and not overrides and not per_leaf
+        result = {} if obs_twin else None
         counts, singles, n_fused, means, server_ms = run_scenario(
-            torch, kernels, name, overrides, single, fused, per_leaf)
+            torch, kernels, name, overrides, single, fused, per_leaf,
+            result=result)
+        if obs_twin:
+            from repro_torch.scenarios import trace
+            line = result["line"]
+            untraced[name] = {
+                "digest": trace.param_digest(
+                    {k[2:]: v for k, v in result["state"].items()
+                     if k.startswith("p/")}),
+                "launches": dict(counts), "child_launches": {},
+                "ms_per_arrival": line["wall_ms_per_arrival"],
+                "ms_per_arrival_after_first": None,
+                "phase": "slice (spans synchronised around each call)"}
         for k in single:
             totals[k][0] += counts[k]
             totals[k][1] += singles
@@ -1655,6 +1686,19 @@ def crc_timing(torch, params):
             "reps": CRC_REPS}
 
 
+def host_memory():
+    """GiB: this process' resident memory and the machine's available
+    memory, from ``/proc``."""
+    def kib(path, key):
+        with open(path) as f:
+            for ln in f:
+                if ln.startswith(key + ":"):
+                    return int(ln.split()[1])
+        return 0
+    return {"rss_gib": kib("/proc/self/status", "VmRSS") / 2**20,
+            "available_gib": kib("/proc/meminfo", "MemAvailable") / 2**20}
+
+
 def run_timed(torch, kernels, eng, scn, reset=False):
     """Run ``eng`` with ``scn``'s eval cadence to a synchronised end: its
     history, wall seconds, the ms of each delivery check on the server
@@ -1690,7 +1734,7 @@ def run_timed(torch, kernels, eng, scn, reset=False):
     return hist, time.perf_counter() - t0, check_ms, commits
 
 
-def wallclock_phase(torch, kernels, dev="cuda"):
+def wallclock_phase(torch, kernels, untraced, dev="cuda"):
     """The wall-clock runtime (``async_engine/runtime.py``) on the card.
 
     (a) Each WALLCLOCK run at full width, batch 4 x 128, on the
@@ -1714,14 +1758,21 @@ def wallclock_phase(torch, kernels, dev="cuda"):
     deaths and revivals by worker and the heartbeat misses are printed.
 
     Returns per kernel (launches, arrivals or rounds of the runs it
-    served)."""
+    served); ``wallclock_hetero``'s run goes into ``untraced`` for the obs
+    phase."""
     from repro_torch import bridge
     from repro_torch.launch.train import FULL_WIDTH
     from repro_torch.scenarios import registry, run, trace
     from repro_torch.telemetry import TelemetryRecorder
 
     def timed_run(eng, scn, reset=False):
-        return run_timed(torch, kernels, eng, scn, reset)[:3]
+        hist, wall, check_ms, commits = run_timed(torch, kernels, eng, scn,
+                                                  reset)
+        if reset and scn.name in dict(OBS) and scn.name not in untraced:
+            untraced[scn.name] = untraced_entry(
+                eng, hist, wall, commits, kernels.launch_counts(),
+                "wall-clock")
+        return hist, wall, check_ms
 
     # a short sim run first, so that no timed run pays the first launches
     timed_run(registry.get_scenario("wallclock_hetero").overridden(
@@ -1878,7 +1929,7 @@ def wallclock_phase(torch, kernels, dev="cuda"):
 
 def wallclock_only(torch, kernels, specs, dev, bound, log, lib):
     """``--only wallclock``: the wall-clock phase alone (packed.cu built)."""
-    wallclock_phase(torch, kernels, dev)
+    wallclock_phase(torch, kernels, {}, dev)
 
 
 def wire_timing(torch, task, res, dev):
@@ -1952,7 +2003,7 @@ def wire_timing(torch, task, res, dev):
     return out
 
 
-def socket_phase(torch, kernels, dev="cuda"):
+def socket_phase(torch, kernels, untraced, dev="cuda"):
     """The runtime over worker processes (``async_engine/proc.py``) on the
     card.
 
@@ -1980,7 +2031,8 @@ def socket_phase(torch, kernels, dev="cuda"):
     (``false_deaths_by_wid``) and those never revived.
 
     Returns per kernel (launches, arrivals or rounds of the runs it
-    served)."""
+    served); ``socket_hetero``'s run (not the SIGKILL one) goes into
+    ``untraced`` for the obs phase."""
     import os
     import signal
     import threading
@@ -2132,6 +2184,9 @@ def socket_phase(torch, kernels, dev="cuda"):
             assert killed and s["proc_restarts"] >= 1, (killed, s)
         else:
             digests[name] = digest
+            if name in dict(OBS) and not overrides:
+                untraced[name] = untraced_entry(eng, hist, wall, commits,
+                                                counts, "socket")
         if name == "chaos_lossy":
             assert digest == digests["socket_hetero"], \
                 f"{label}: not socket_hetero's bits"
@@ -2250,6 +2305,7 @@ def socket_phase(torch, kernels, dev="cuda"):
                                           scn.faults.heartbeat_interval),
             "delivery_channels": s["delivery_channels"],
             "parent_wire": parent_spans,
+            "host_memory_after": host_memory(),
             **spawn_line(eng),
             **per_arrival(wall, commits, len(hist.arrivals)),
             **{k: v for k, v in runtime_line(eng, hist, wall,
@@ -2265,8 +2321,211 @@ def socket_phase(torch, kernels, dev="cuda"):
 def socket_only(torch, kernels, specs, dev, bound, log, lib):
     """``--only socket``: the socket phase alone (packed.cu built)."""
     t0 = time.perf_counter()
-    socket_phase(torch, kernels, dev)
+    socket_phase(torch, kernels, {}, dev)
     print(f"socket phase: {time.perf_counter() - t0:.1f}s")
+
+
+def untraced_entry(eng, hist, wall, commits, counts, phase):
+    """What the obs phase holds a traced run to: an untraced run's digest,
+    launches (the children's too) and ms per arrival, and where it ran."""
+    from repro_torch.scenarios import trace
+    n = len(hist.arrivals)
+    s = eng.stats_summary() if hasattr(eng, "stats_summary") else {}
+    return {"digest": trace.param_digest(eng.server.state.params),
+            "launches": dict(counts),
+            "child_launches": s.get("child_launches", {}),
+            "ms_per_arrival": 1e3 * wall / n,
+            "ms_per_arrival_after_first":
+                1e3 * (commits[-1] - commits[0]) / max(len(commits) - 1, 1),
+            "phase": phase}
+
+
+def span_table(events, n):
+    """Count, total ms, ms per arrival (of ``n``), median and largest ms of
+    each span name."""
+    by = {}
+    for name, _cat, ph, _start, dur, _tid, _args in events:
+        if ph == "X":
+            by.setdefault(name, []).append(1e3 * dur)
+    return {name: {"count": len(ms), "total_ms": sum(ms),
+                   "ms_per_arrival": sum(ms) / n,
+                   "median_ms": statistics.median(ms), "max_ms": max(ms)}
+            for name, ms in sorted(by.items(), key=lambda kv: -sum(kv[1]))}
+
+
+def obs_phase(torch, kernels, untraced, dev="cuda"):
+    """Observability (``repro_torch.obs``) at full width on the card.
+
+    Each OBS run traced (a ``SpanTracer``) with a ``TelemetryRecorder``
+    streaming live to ``build/obs/<name>.jsonl`` (a "runtime" record after
+    every commit), beside its untraced twin: the one an earlier phase ran
+    (``untraced``, filled by the slice, wall-clock and socket phases) or,
+    when no phase did (``--only obs``), one run here first. Checks: the
+    golden's arrivals; the parameter digest bit-equal to the twin's; the
+    launches (the children's too) the twin's; the written trace valid by
+    ``validate_chrome_trace``; over processes a process row of child spans
+    and a final obs report from every worker (``assert_child_reports``) and
+    a "transport" record from each child pid; the console's render and the
+    dashboard's panels of the stream non-empty where the run feeds them
+    (arrivals and their rate, staleness, quality, per-language loss,
+    workers, runtime health; transport over processes), the two views
+    equal, the stream drift-free. Prints per run the ms per arrival traced
+    and untraced, each span name's count and ms per arrival (the parent's
+    and the children's apart), the trace's events and bytes and, over
+    processes, the obs frames per child and the merged wire counters. The
+    simulator's run once more traced without telemetry (the same bits):
+    its ``server_commit`` spans beside the first run's, what the server's
+    stats path adds to a commit.
+    Returns per kernel (launches, applied arrivals)."""
+    from repro_torch.launch.train import FULL_WIDTH
+    from repro_torch.obs import web
+    from repro_torch.obs.console import ConsoleState, render
+    from repro_torch.obs.spans import SpanTracer, validate_chrome_trace
+    from repro_torch.obs.tail import read_complete_lines
+    from repro_torch.scenarios import registry, run
+    from repro_torch.scenarios import trace as trace_lib
+    from repro_torch.telemetry import StreamDecoder, TelemetryRecorder, schema
+
+    out_dir = ROOT / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    totals = {k: [0, 0] for k in HELOCO}
+    if len(untraced) < len(OBS):
+        # no timed run pays the first launches
+        warm = registry.get_scenario("paper_hetero_severe").overridden(
+            **FULL_WIDTH, outer_steps=2)
+        run_timed(torch, kernels, warm.build(device=dev), warm)
+    for name, engine in OBS:
+        scn = registry.get_scenario(name).overridden(**FULL_WIDTH)
+        twin = untraced.get(name)
+        if twin is None:
+            eng = scn.build(device=dev)
+            hist, wall, _, commits = run_timed(torch, kernels, eng, scn,
+                                               reset=True)
+            twin = untraced_entry(eng, hist, wall, commits,
+                                  kernels.launch_counts(), "obs phase")
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        sink = out_dir / f"{name}.jsonl"
+        rec, tr = TelemetryRecorder(sink=str(sink)), SpanTracer()
+        eng = scn.build(device=dev, telemetry=rec, tracer=tr,
+                        runtime_record_every=1)
+        try:
+            hist, wall, _, commits = run_timed(torch, kernels, eng, scn,
+                                               reset=True)
+        finally:
+            rec.close()
+        counts = kernels.launch_counts()
+        label = f"{name} traced ({engine})"
+        bad = run.compare(scn, hist)
+        assert not bad, f"{label}: {bad}"
+        traced = untraced_entry(eng, hist, wall, commits, counts, "obs")
+        assert traced["digest"] == twin["digest"], \
+            f"{label}: not the untraced run's bits"
+        assert counts == twin["launches"], \
+            f"{label}: launches {counts}, untraced {twin['launches']}"
+        assert traced["child_launches"] == twin["child_launches"], label
+        applied = sum(not a["dropped"] for a in hist.arrivals)
+        for k in HELOCO:
+            assert counts[k] == applied, (label, counts)
+            totals[k][0] += counts[k]
+            totals[k][1] += applied
+        path = tr.write(str(out_dir / f"{name}.trace.json"))
+        with open(path) as f:
+            doc = json.load(f)
+        problems = validate_chrome_trace(doc)
+        assert not problems, f"{label}: trace invalid: {problems[:4]}"
+        n = len(hist.arrivals)
+        line = {"obs": name, "engine": engine,
+                "config": f"tinygpt-15m full width, {scn.n_workers} workers "
+                          f"{scn.paces}, H={scn.inner_steps}, batch 4 x 128",
+                "arrivals": n, "arrivals_equal": "golden",
+                "digest_equal_untraced": True, "untraced_from": twin["phase"],
+                "launches": {k: v for k, v in counts.items() if v},
+                "ms_per_arrival": {"traced": traced["ms_per_arrival"],
+                                   "untraced": twin["ms_per_arrival"]},
+                "ms_per_arrival_after_first": {
+                    "traced": traced["ms_per_arrival_after_first"],
+                    "untraced": twin["ms_per_arrival_after_first"]},
+                "spans": span_table(tr._events, n),
+                "trace_events": len(doc["traceEvents"]),
+                "trace_bytes": os.path.getsize(path)}
+        lines = read_complete_lines(str(sink))
+        dec = StreamDecoder(strict=True)
+        kinds = {}
+        for ln in lines:
+            kind = schema.kind_of(dec.decode(ln))
+            kinds[kind] = kinds.get(kind, 0) + 1
+        assert dec.drift_report() == [], dec.drift_report()
+        state = ConsoleState()
+        for ln in lines:
+            state.add_line(ln)
+        text = render(state, width=78, color=False)
+        panels = web.snapshot_panels(str(sink))
+        assert panels == state.panels(), f"{label}: console and web differ"
+        needles = ["arrivals", "staleness histogram", "cos(D,m)",
+                   "per-language loss", "workers", "runtime health"]
+        want = ["arrivals", "staleness", "quality", "per_language",
+                "workers", "runtime"]
+        if engine == "worker processes":
+            needles.append("transport (per worker process)")
+            want.append("transport")
+        missing = [x for x in needles if x not in text]
+        assert not missing, f"{label}: console lacks {missing}:\n{text}"
+        empty = [k for k in want if not panels[k]]
+        assert not empty, f"{label}: empty panels {empty}"
+        assert panels["arrivals"]["commits"] == n and \
+            panels["arrivals"]["rate_per_sec"] > 0, panels["arrivals"]
+        line.update(stream_records=kinds, console_lines=len(text.splitlines()),
+                    panels=sorted(k for k, v in panels.items() if v))
+        if engine == "worker processes":
+            eng.assert_child_reports()
+            report = eng.stats_summary()["child_obs"]
+            wids = list(range(scn.n_workers))
+            assert report["final"] == wids, report
+            rows = sorted(e["args"]["name"] for e in doc["traceEvents"]
+                          if e["name"] == "process_name" and e["pid"])
+            assert rows == sorted(f"heloco-worker-{w} (pid {p})"
+                                  for w, p in eng._child_wire), rows
+            assert sorted(w for w, _ in eng._child_wire) == wids, rows
+            tps = {r.pid for r in map(StreamDecoder().decode, lines)
+                   if isinstance(r, schema.TransportMetrics)}
+            assert tps == {p for _, p in eng._child_wire}, tps
+            assert len(panels["transport"]["workers"]) >= scn.n_workers
+            child = [e for row in tr._foreign.values()
+                     for e in row["events"]]
+            line.update(child_rows=rows,
+                        child_spans=span_table(child, n),
+                        obs_frames_by_wid=report["reports"],
+                        obs_final=report["final"], wire=report["wire"])
+        if engine == "sim":
+            bare = SpanTracer()
+            other = scn.build(device=dev, tracer=bare)
+            run_timed(torch, kernels, other, scn, reset=True)
+            assert trace_lib.param_digest(other.server.state.params) == \
+                twin["digest"], f"{name} traced without telemetry"
+            assert kernels.launch_counts() == counts, name
+
+            def commit_ms(events):
+                return statistics.median(1e3 * e[4] for e in events
+                                         if e[0] == "server_commit")
+            line["server_commit_ms_median"] = {
+                "telemetry": commit_ms(tr._events),
+                "no_telemetry": commit_ms(bare._events)}
+            del other
+        print(json.dumps(line))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def obs_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only obs``: the obs phase alone (packed.cu built), each untraced
+    twin run in it."""
+    t0 = time.perf_counter()
+    obs_phase(torch, kernels, {}, dev)
+    print(f"obs phase: {time.perf_counter() - t0:.1f}s")
 
 
 def single_tensor_phase(torch, kernels, specs, dev):
@@ -3084,7 +3343,9 @@ def main(argv=None) -> int:
                          "telemetry (telemetry_only); wallclock builds "
                          "packed.cu and runs the wall-clock phase "
                          "(wallclock_only); socket builds packed.cu and runs "
-                         "the socket phase (socket_only)")
+                         "the socket phase (socket_only); obs builds "
+                         "packed.cu and runs the obs phase with its untraced "
+                         "twins (obs_only)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3137,8 +3398,10 @@ def main(argv=None) -> int:
     assert (layout.n_rows, layout.n_blocks) == (125_128, 43), layout.n_rows
     rows = kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
                         bf16_flops, tf32_flops)
+    # the untraced runs the obs phase holds its traced ones to
+    untraced = {}
     t0 = time.perf_counter()
-    totals = slice_phase(torch, all_kernels)
+    totals = slice_phase(torch, all_kernels, untraced)
     print(f"slice phase: {time.perf_counter() - t0:.1f}s")
     # outer_update_2d's path is the single-tensor entry point: launches per
     # leaf of one outer step
@@ -3154,16 +3417,23 @@ def main(argv=None) -> int:
         totals[k][1] += arrivals
     print(f"run-control phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    for k, (launches, arrivals) in wallclock_phase(torch,
-                                                   all_kernels).items():
+    for k, (launches, arrivals) in wallclock_phase(torch, all_kernels,
+                                                   untraced).items():
         totals[k][0] += launches
         totals[k][1] += arrivals
     print(f"wall-clock phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    for k, (launches, arrivals) in socket_phase(torch, all_kernels).items():
+    for k, (launches, arrivals) in socket_phase(torch, all_kernels,
+                                                untraced).items():
         totals[k][0] += launches
         totals[k][1] += arrivals
     print(f"socket phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, (launches, arrivals) in obs_phase(torch, all_kernels,
+                                             untraced).items():
+        totals[k][0] += launches
+        totals[k][1] += arrivals
+    print(f"obs phase: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     replay_phase(torch)
     print(f"replay phase: {time.perf_counter() - t0:.1f}s")
@@ -3219,7 +3489,7 @@ def main(argv=None) -> int:
 ONLY = {"int8": ("quantize", int8_only), "leaf": ("leaf", leaf_only),
         "telemetry": ("packed", telemetry_only),
         "wallclock": ("packed", wallclock_only),
-        "socket": ("packed", socket_only)}
+        "socket": ("packed", socket_only), "obs": ("packed", obs_only)}
 
 
 if __name__ == "__main__":

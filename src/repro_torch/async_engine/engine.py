@@ -26,7 +26,11 @@ record per commit (with the server's update-quality stats), one "flush"
 record per commit-buffer flush, one "eval" record per evaluation and, every
 ``runtime_record_every`` commits, a "runtime" snapshot of worker
 membership. The hooks only observe: no RNG, no tensor is touched, and the
-server's stats are extra outputs of the kernels it launches anyway.
+server's stats are extra outputs of the kernels it launches anyway. With an
+``obs.spans.SpanTracer`` it records the reference's spans: ``worker_round``
+and ``compress_roundtrip`` in ``execute_round``, ``server_commit``,
+``server_commit_batch``, ``eval`` and ``checkpoint`` on the server side
+(on the card each ends when its device work has run; see ``obs.spans``).
 
 The arrival sequence depends only on paces, H, the schedule, the batching
 and the failure and membership events, so it equals the reference's
@@ -58,6 +62,7 @@ from repro_torch.data.synthetic import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import build_model
+from repro_torch.obs.spans import NULL_TRACER
 from repro_torch.optim.adamw import AdamState, init_adam
 from repro_torch.train.inner import eval_loss, pseudo_gradient, run_inner
 
@@ -442,22 +447,28 @@ class RoundResult:
 
 
 def execute_round(task: RoundTask, *, model, cfg: RunConfig, specs,
-                  layout=None) -> RoundResult:
+                  layout=None, tracer=None) -> RoundResult:
     """The functional inner round: H AdamW steps from the task's params on
     the worker's shard or mixture, then the pseudo-gradient, compressed
     with error feedback when the run asks for it (int8 through the packed
-    ``layout``, the server's, when one is given)."""
+    ``layout``, the server's, when one is given). ``tracer``: spans
+    ``worker_round`` (the steps and the pseudo-gradient) and
+    ``compress_roundtrip``."""
+    tracer = tracer if tracer is not None else NULL_TRACER
     t0 = _time.perf_counter()
-    sampler = ShardSampler(specs, task.lang,
-                           task.batch_size or cfg.batch_size, cfg.seq_len,
-                           seed=cfg.seed * 977 + task.wid,
-                           mixture=task.mixture)
-    result = run_inner(model, cfg.inner, task.params, task.opt, sampler,
-                       task.h_steps, step_offset=task.inner_step_offset)
-    delta = pseudo_gradient(task.params, result.params)
-    delta, ef, nbytes = roundtrip_with_error_feedback(
-        delta, task.ef, cfg.outer.compression, cfg.outer.topk_ratio,
-        layout=layout)
+    with tracer.span("worker_round", cat="compute", wid=task.wid,
+                     s_i=task.s_i, h=task.h_steps):
+        sampler = ShardSampler(specs, task.lang,
+                               task.batch_size or cfg.batch_size,
+                               cfg.seq_len, seed=cfg.seed * 977 + task.wid,
+                               mixture=task.mixture)
+        result = run_inner(model, cfg.inner, task.params, task.opt, sampler,
+                           task.h_steps, step_offset=task.inner_step_offset)
+        delta = pseudo_gradient(task.params, result.params)
+    with tracer.span("compress_roundtrip", cat="compute", wid=task.wid):
+        delta, ef, nbytes = roundtrip_with_error_feedback(
+            delta, task.ef, cfg.outer.compression, cfg.outer.topk_ratio,
+            layout=layout)
     if not cfg.outer.error_feedback:
         ef = None
     return RoundResult(task_id=task.task_id, wid=task.wid,
@@ -479,15 +490,17 @@ class EngineBase:
                  init_params: Optional[Mapping[str, np.ndarray]] = None,
                  failures: Optional[List[FailureEvent]] = None,
                  elastic: Optional[List[ElasticEvent]] = None,
-                 telemetry=None, runtime_record_every: int = 0):
+                 telemetry=None, tracer=None, runtime_record_every: int = 0):
         """``init_params``: start from these parameters (numpy arrays keyed
         by path, see ``bridge``) instead of a fresh draw from ``run_cfg.seed``;
         the port's counterpart of the reference's ``restore``, used to start
         both packages from the same bits. ``failures``/``elastic``: crash and
         membership events, applied in time order. ``telemetry``: a
         ``telemetry.TelemetryRecorder`` (or None) the run streams its
-        records into; ``runtime_record_every``: a "runtime" record every N
-        commits (0: none)."""
+        records into; ``tracer``: an ``obs.spans.SpanTracer`` (None: the
+        shared no-op) timing rounds, commits, evals and checkpoints;
+        ``runtime_record_every``: a "runtime" record every N commits (0:
+        none)."""
         missing = unported_axes(run_cfg)
         if missing:
             raise NotImplementedError(
@@ -506,6 +519,7 @@ class EngineBase:
             if set(params) != set(self.model.param_specs()):
                 raise ValueError("init_params do not match the model's leaves")
         self.telemetry = telemetry
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.runtime_record_every = int(runtime_record_every or 0)
         if run_cfg.topology != "hub":
             # NoLoCo-style exchange: per-worker replicas and pairwise peer
@@ -651,7 +665,8 @@ class EngineBase:
         layout = (self.server.layout
                   if self.cfg.outer.compression == "int8" else None)
         return execute_round(task, model=self.model, cfg=self.cfg,
-                             specs=self.specs, layout=layout)
+                             specs=self.specs, layout=layout,
+                             tracer=self.tracer)
 
     # ----------------------------------------------------------------- commit
     def _commit_worker(self, w: Worker, res: RoundResult):
@@ -673,9 +688,11 @@ class EngineBase:
 
     def _commit(self, w: Worker, res: RoundResult):
         self._commit_worker(w, res)
-        rec = self.server.on_arrival(res.delta, res.s_i, res.wid,
-                                     sim_time=self.time,
-                                     lang=self._lang_name(res))
+        with self.tracer.span("server_commit", cat="server", wid=res.wid,
+                              s_i=res.s_i):
+            rec = self.server.on_arrival(res.delta, res.s_i, res.wid,
+                                         sim_time=self.time,
+                                         lang=self._lang_name(res))
         self.history.append_arrival(dict(rec.__dict__))
         if self.telemetry is not None:
             self.telemetry.record_arrival(rec, mixture=w.mixture,
@@ -689,14 +706,16 @@ class EngineBase:
         instead of one outer step each. ``reason`` labels the last flush
         (why the batch was capped: batch-full, eval or close)."""
         recs = []
-        for w, res in pairs:
-            self._commit_worker(w, res)
-            out = self.server.buffer_arrival(res.delta, res.s_i, res.wid,
-                                             sim_time=self.time,
-                                             lang=self._lang_name(res))
-            if out:
-                recs.extend(out)
-        recs.extend(self.server.flush(reason))
+        with self.tracer.span("server_commit_batch", cat="server",
+                              k=len(pairs)):
+            for w, res in pairs:
+                self._commit_worker(w, res)
+                out = self.server.buffer_arrival(res.delta, res.s_i, res.wid,
+                                                 sim_time=self.time,
+                                                 lang=self._lang_name(res))
+                if out:
+                    recs.extend(out)
+            recs.extend(self.server.flush(reason))
         for (w, _res), rec in zip(pairs, recs):
             self.history.append_arrival(dict(rec.__dict__))
             if self.telemetry is not None:
@@ -718,7 +737,8 @@ class EngineBase:
         log.clear()
 
     def _eval(self, eval_fn):
-        ev = eval_fn(self.server.state.params, self.server.t, self.time)
+        with self.tracer.span("eval", cat="eval", step=self.server.t):
+            ev = eval_fn(self.server.state.params, self.server.t, self.time)
         self.history.evals.append(ev)
         if self.telemetry is not None:
             self.telemetry.record_eval(ev)
@@ -768,7 +788,8 @@ class EngineBase:
         if eval_every and eval_fn and t % eval_every == 0:
             self._eval(eval_fn)
         if ckpt_every and ckpt_dir and t % ckpt_every == 0:
-            self.checkpoint(ckpt_dir)
+            with self.tracer.span("checkpoint", cat="ckpt", step=t):
+                self.checkpoint(ckpt_dir)
         if (self.telemetry is not None and self.runtime_record_every
                 and self.history.total_arrivals
                 % self.runtime_record_every == 0):
@@ -998,31 +1019,33 @@ def make_engine(run_cfg: RunConfig, engine: Optional[str] = None, *,
                 init_params: Optional[Mapping[str, np.ndarray]] = None,
                 failures: Optional[List[FailureEvent]] = None,
                 elastic: Optional[List[ElasticEvent]] = None,
-                telemetry=None, runtime_record_every: Optional[int] = None,
-                **runtime_kw):
+                telemetry=None, tracer=None,
+                runtime_record_every: Optional[int] = None, **runtime_kw):
     """Build a training engine: "sim" (the default, the virtual clock) or
     "wallclock" (the threaded ``runtime.ConcurrentRuntime``; the keywords
     ``mode``, ``pace_scale``, ``faults``, ``transport``, ... go to it).
 
     ``telemetry``: an optional ``telemetry.TelemetryRecorder`` the run
-    streams arrival, flush, eval, runtime and fault records into
-    (observation, not configuration). ``runtime_record_every``: a "runtime"
-    record every N commits (None defers to a Scenario's
-    ``telemetry_every``; 0 disables). Also takes a
-    ``repro_torch.scenarios`` ``Scenario`` as the first argument: its
-    ``materialize()`` then names the run config, the engine, the runtime's
-    options and the schedules, and only ``device``, ``init_params``,
-    ``telemetry`` and ``runtime_record_every`` may be given beside it."""
+    streams arrival, flush, eval, runtime and fault records into, and
+    ``tracer``: an optional ``obs.spans.SpanTracer`` recording round,
+    transport, commit, eval and checkpoint spans (both observation, not
+    configuration). ``runtime_record_every``: a "runtime" record every N
+    commits (None defers to a Scenario's ``telemetry_every``; 0 disables).
+    Also takes a ``repro_torch.scenarios`` ``Scenario`` as the first
+    argument: its ``materialize()`` then names the run config, the engine,
+    the runtime's options and the schedules, and only ``device``,
+    ``init_params``, ``telemetry``, ``tracer`` and
+    ``runtime_record_every`` may be given beside it."""
     if hasattr(run_cfg, "materialize"):          # a Scenario
         if engine is not None or failures or elastic or runtime_kw:
             raise TypeError("pass the engine choice, schedules and options "
                             "inside the Scenario, not alongside it")
         return run_cfg.build(device=device, init_params=init_params,
-                             telemetry=telemetry,
+                             telemetry=telemetry, tracer=tracer,
                              runtime_record_every=runtime_record_every)
     engine = engine or "sim"
     kw = dict(device=device, init_params=init_params, failures=failures,
-              elastic=elastic, telemetry=telemetry,
+              elastic=elastic, telemetry=telemetry, tracer=tracer,
               runtime_record_every=runtime_record_every or 0)
     if engine == "sim":
         if runtime_kw:

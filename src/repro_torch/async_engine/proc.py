@@ -21,11 +21,16 @@ followed by a pickled tuple ``(tag, ...)``, byte for byte the reference's:
                                                   the heartbeat connection
                     ("msg", Envelope)             credited data frame
                     ("hb", Envelope)              uncredited heartbeat
+                    ("ctrl", "obs", {...})        span batch and wire
+                                                  counters, every
+                                                  ``obs_every`` rounds and
+                                                  once ``final`` at stop
                     ("ctrl", "stats", {...})      fault, protocol and work
                                                   tallies at graceful stop
                     ("ctrl", "fatal", {...})      the child could not start
   parent -> child   ("assign", {wid, credit, cfg, faults, mode, device,
-                               torch settings, hb_nonce, t_parent, ...})
+                               torch settings, hb_nonce, t_parent, obs,
+                               obs_every})
                     ("reject", reason)            no rendezvous slot
                     ("task", RoundTask, clock)    dispatched round
                     ("ack", Ack)                  delivery receipt
@@ -69,6 +74,16 @@ worker process whose connection drops outside a graceful stop surfaces as a
 ``WorkerExit`` in the parent's receive stream, and the runtime respawns it
 and resubmits the same ``RoundTask`` snapshot (same task id), so a
 deterministic run replays its golden straight through a process kill.
+
+Observability: a pool built with ``obs=True`` has each child run its own
+``obs.spans.SpanTracer`` (its rounds and its sender's transport spans) and
+ship the new spans with its cumulative wire counters, rounds and compute
+seconds as an obs frame every ``obs_every`` rounds and once more, marked
+``final``, at its graceful stop, ahead of its stats frame. The frames go on
+the data connection, small and rare beside the result frames. Span times
+stay in the child's clock; the parent re-bases them with ``epoch_offset``,
+the child's tracer epoch plus its rendezvous clock offset. ``on_obs``
+receives each payload; ``obs_reports`` and ``obs_final`` count them.
 """
 from __future__ import annotations
 
@@ -76,7 +91,6 @@ import dataclasses
 import multiprocessing as mp
 import os
 import pickle
-import queue as _queue
 import socket
 import struct
 import sys
@@ -733,12 +747,22 @@ class WorkerProcessPool:
                  faults=None, mode: str = "deterministic",
                  pace_scale: float = 0.0,
                  hb_sink: Optional[Transport] = None,
-                 family: Optional[str] = None):
+                 family: Optional[str] = None,
+                 obs: bool = False, obs_every: int = 4):
         self.run_cfg = run_cfg
         self.device = str(torch.device(device))
         self.faults = faults
         self.mode = mode
         self.pace_scale = pace_scale
+        #: children trace and ship obs frames every ``obs_every`` rounds
+        self.obs = bool(obs)
+        self.obs_every = max(1, int(obs_every))
+        #: the parent's hook for each child obs payload (the runtime's)
+        self.on_obs: Optional[Callable[[Dict], None]] = None
+        #: wid -> obs frames received (any incarnation)
+        self.obs_reports: Dict[int, int] = {}
+        #: wids whose final obs frame arrived
+        self.obs_final: set = set()
         self.transport = SocketTransport(capacity=capacity, family=family,
                                          hb_sink=hb_sink)
         self.transport.on_join = self._on_join
@@ -795,7 +819,8 @@ class WorkerProcessPool:
                 "cfg": self.run_cfg, "faults": self.faults,
                 "mode": self.mode, "pace_scale": self.pace_scale,
                 "device": self.device, "torch": torch_settings(),
-                "hb_nonce": hb_nonce, "t_parent": time.perf_counter()}
+                "hb_nonce": hb_nonce, "t_parent": time.perf_counter(),
+                "obs": self.obs, "obs_every": self.obs_every}
 
     def _on_ready(self, conn: _Conn):
         ev = self._ready.get((conn.wid, conn.incarnation))
@@ -813,6 +838,16 @@ class WorkerProcessPool:
         self.transport.push_local(WorkerExit(conn.wid, conn.incarnation))
 
     def _on_control(self, conn: _Conn, tag: str, obj: Any):
+        if tag == "obs" and isinstance(obj, dict):
+            wid = obj.get("wid", conn.wid)
+            with self._lock:
+                if wid is not None:
+                    self.obs_reports[wid] = self.obs_reports.get(wid, 0) + 1
+                    if obj.get("final"):
+                        self.obs_final.add(wid)
+            if self.on_obs is not None:
+                self.on_obs(obj)
+            return
         if tag == "fatal" and isinstance(obj, dict):
             self.fatal = WorkerFatal(conn.wid, conn.incarnation,
                                      str(obj.get("error")))
@@ -962,6 +997,48 @@ _STOP = object()
 _EOF = object()
 
 
+class _TaskSlot:
+    """The child's task intake: only the newest dispatched task waits.
+    Every dispatch moves the worker's pending round to its newest task, so
+    a task overtaken before the loop takes it could never commit; it is
+    dropped on arrival (counted in ``skipped``), and its ~192 MB host copy
+    with it. A queue would keep every one: while a round and its delivery
+    run, each false liveness death and revival sends a new task, and at
+    full width they piled up until the host ran out of memory (ROADMAP
+    C4). ``end`` (stop or disconnect) wins over a waiting task."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._task: Any = None
+        self._end: Any = None
+        self.skipped = 0
+
+    def put(self, task: Any) -> None:
+        with self._cond:
+            if self._task is not None:
+                self.skipped += 1
+            self._task = task
+            self._cond.notify()
+
+    def end(self, why: Any) -> None:
+        with self._cond:
+            if self._end is None:
+                self._end = why
+            self._cond.notify()
+
+    def get(self) -> Any:
+        with self._cond:
+            while self._task is None and self._end is None:
+                self._cond.wait()
+            if self._end is not None:
+                if self._task is not None:
+                    self.skipped += 1
+                    self._task = None
+                return self._end
+            task, self._task = self._task, None
+            return task
+
+
 def _setup(assign: Dict[str, Any]):
     """The child's immutable run state from the assigned ``RunConfig``: its
     device (no fallback), the parent's torch settings, the model, the
@@ -992,7 +1069,8 @@ def _worker_main(address: Tuple[str, Any], nonce: str) -> None:
     wrappers when the run injects faults (stream 0 data, stream 1
     heartbeats: the threaded runtime's dice keys, so chaos runs replay).
     At a graceful stop the child reports its fault and protocol counters,
-    its rounds and its kernel launches."""
+    its rounds and its kernel launches, after its final obs frame when the
+    assign frame turns obs on."""
     try:
         client = SocketClient.connect(address,
                                       {"nonce": nonce, "pid": os.getpid()})
@@ -1029,7 +1107,7 @@ def _worker_main(address: Tuple[str, Any], nonce: str) -> None:
         scale = clock["scale"] if clock["scale"] > 0 else 1.0
         return (time.monotonic() - t0) / scale
 
-    tasks: "_queue.Queue" = _queue.Queue()
+    tasks = _TaskSlot()
     waiter = AckWaiter()
     client.on_ack = waiter.put
 
@@ -1038,12 +1116,12 @@ def _worker_main(address: Tuple[str, Any], nonce: str) -> None:
         tasks.put(task)
 
     def on_stop():
-        tasks.put(_STOP)
+        tasks.end(_STOP)
         waiter.close()                   # abandon an in-flight retry loop
 
     def on_disconnect():
         waiter.close()
-        tasks.put(_EOF)
+        tasks.end(_EOF)
 
     client.on_task = on_task
     client.on_stop = on_stop
@@ -1056,8 +1134,36 @@ def _worker_main(address: Tuple[str, Any], nonce: str) -> None:
         data_tx = FaultyTransport(data_tx, faults, stream=0, clock=vnow)
         hb_tx = FaultyTransport(hb_tx, faults, stream=1, clock=vnow)
     retries = {"n": 0}
+    compute = {"rounds": 0, "compute_s": 0.0}
+    obs_every = assign["obs_every"]
+    tracer = None
+    if assign["obs"]:
+        from repro_torch.obs.spans import SpanTracer
+        tracer = SpanTracer()
+
+    def ship_obs(final: bool = False) -> None:
+        """The spans recorded since the last frame, the wire counters of
+        both connections, resends, rounds and compute seconds."""
+        if tracer is None:
+            return
+        wire = dict(client.wire)
+        if hb_client is not None:
+            for k, v in hb_client.wire.items():
+                wire[k] += v
+        payload = {
+            "wid": wid, "pid": os.getpid(), "final": bool(final),
+            "offset": client.clock_offset,
+            "metrics": {**wire, "retries": retries["n"], **compute},
+            "epoch_offset": tracer._epoch + client.clock_offset,
+            "spans": tracer.export_new(),
+        }
+        try:
+            client.send_ctrl("obs", payload)
+        except (OSError, TransportClosed):
+            pass
+
     sender = ReliableSender(
-        data_tx, spec=faults,
+        data_tx, spec=faults, tracer=tracer,
         on_retry=lambda env, att: retries.__setitem__("n", retries["n"] + 1))
 
     last_gen = {"g": 0}
@@ -1079,31 +1185,22 @@ def _worker_main(address: Tuple[str, Any], nonce: str) -> None:
                     return
         threading.Thread(target=hb_loop, daemon=True).start()
 
-    rounds = skipped = 0
     seq = 0
     while True:
         task = tasks.get()
-        while task is not _STOP and task is not _EOF:
-            # a task overtaken in the queue by a newer one is stale: every
-            # dispatch moves the worker's pending round to the newest task,
-            # so the older one's result could never commit
-            try:
-                newer = tasks.get_nowait()
-            except _queue.Empty:
-                break
-            skipped += 1
-            task = newer
         if task is _STOP or task is _EOF:
             break
         last_gen["g"] = task.generation
         t0 = time.monotonic()
         try:
             out: Any = execute_round(device_task(task, device), model=model,
-                                     cfg=cfg, specs=specs, layout=layout)
+                                     cfg=cfg, specs=specs, layout=layout,
+                                     tracer=tracer)
         except Exception as e:                           # noqa: BLE001
             out = RoundError(task.wid, task.generation, task.round_seq,
                              repr(e))
-        rounds += 1
+        compute["rounds"] += 1
+        compute["compute_s"] += time.monotonic() - t0
         if task.sleep_per_step > 0 and not isinstance(out, RoundError):
             rest = (task.h_steps * task.sleep_per_step
                     - (time.monotonic() - t0))
@@ -1121,10 +1218,14 @@ def _worker_main(address: Tuple[str, Any], nonce: str) -> None:
                            crc=payload_crc(out))
         if not sender.send(env, waiter):
             break                                # channel torn down
+        if compute["rounds"] % obs_every == 0:
+            ship_obs()
     hb_stop.set()
+    ship_obs(final=True)
     stats: Dict[str, Any] = {
         "protocol": {"retries": retries["n"],
-                     "stale_tasks_skipped": skipped}, "rounds": rounds,
+                     "stale_tasks_skipped": tasks.skipped},
+        "rounds": compute["rounds"],
         "launches": {k: v for k, v in kernels.launch_counts().items() if v}}
     if isinstance(data_tx, FaultyTransport):
         stats["data"] = dict(data_tx.counters)

@@ -51,6 +51,14 @@ socket rendezvous and length-prefixed frames, the children injecting the
 run's faults on their side of the wire. A worker process that dies outside
 a graceful stop is respawned, and the round it held is resubmitted from the
 same snapshot, so a deterministic run keeps its bits through a kill.
+
+Observability: with a ``tracer`` the worker threads record their rounds'
+spans and their ``ReliableSender``'s transport spans in it. Over processes,
+with a tracer or a ``telemetry`` recorder, each child runs its own tracer
+and wire counters and ships them every few rounds and once at its graceful
+stop (a ``("ctrl", "obs", ...)`` frame); ``_on_obs`` merges the spans as a
+process row of that child's pid and writes one "transport" record a frame,
+and ``assert_child_reports`` fails a run in which a child never reported.
 """
 from __future__ import annotations
 
@@ -124,7 +132,7 @@ class ConcurrentRuntime(EngineBase):
                  mode: str = "deterministic",
                  pace_scale: float = 0.0,
                  faults: Optional[FaultSpec] = None,
-                 telemetry=None, runtime_record_every: int = 0):
+                 telemetry=None, tracer=None, runtime_record_every: int = 0):
         if mode not in ("deterministic", "free"):
             raise ValueError(f"mode must be 'deterministic' or 'free': {mode}")
         if faults is not None and faults.partitions and mode != "free":
@@ -140,7 +148,7 @@ class ConcurrentRuntime(EngineBase):
             kind, transport = transport, None
         super().__init__(run_cfg, device=device, init_params=init_params,
                          failures=failures, elastic=elastic,
-                         telemetry=telemetry,
+                         telemetry=telemetry, tracer=tracer,
                          runtime_record_every=runtime_record_every)
         self.mode = mode
         self._run_t0: Optional[float] = None
@@ -158,6 +166,11 @@ class ConcurrentRuntime(EngineBase):
         self._own_transport = transport is None
         self._free_t0: Optional[float] = None
         self._channel_counters: Dict[str, Dict[str, int]] = {}
+        # the children's obs frames arrive on the pool's reader threads, so
+        # merging them into the tracer and the recorder takes _obs_lock;
+        # _child_wire keeps the latest cumulative counters per (wid, pid)
+        self._obs_lock = threading.Lock()
+        self._child_wire: Dict[tuple, Dict[str, Any]] = {}
         if kind == "socket":
             # the heartbeat sink first: the pool routes child beacons to it
             self._hb_channel: Transport = self._heartbeat_channel()
@@ -222,7 +235,9 @@ class ConcurrentRuntime(EngineBase):
             self._pool = WorkerProcessPool(
                 self.cfg, device=self.device, capacity=self._capacity,
                 faults=self.faults, mode=self.mode,
-                pace_scale=self.pace_scale, hb_sink=self._hb_channel)
+                pace_scale=self.pace_scale, hb_sink=self._hb_channel,
+                obs=self.tracer.enabled or self.telemetry is not None)
+            self._pool.on_obs = self._on_obs
             return self._pool.transport
         inner = InProcTransport(self._capacity)
         return self._wrap(inner, stream=0) if self.faults else inner
@@ -237,7 +252,7 @@ class ConcurrentRuntime(EngineBase):
 
     def _make_sender(self) -> ReliableSender:
         return ReliableSender(
-            self.transport, spec=self.faults,
+            self.transport, spec=self.faults, tracer=self.tracer,
             default_timeout=self._RELIABLE_ACK_TIMEOUT,
             on_retry=lambda env, attempt: self._bump("retries"))
 
@@ -360,7 +375,8 @@ class ConcurrentRuntime(EngineBase):
         layout = (self.server.layout
                   if self.cfg.outer.compression == "int8" else None)
         res = execute_round(task, model=self._thread_model(), cfg=self.cfg,
-                            specs=self.specs, layout=layout)
+                            specs=self.specs, layout=layout,
+                            tracer=self.tracer)
         if moved:
             res = dataclasses.replace(
                 res, delta=_to(res.delta, self.device),
@@ -735,6 +751,82 @@ class ConcurrentRuntime(EngineBase):
         pool.child_launches.clear()
         pool.child_rounds = 0
 
+    # ------------------------------------------ cross-process observability
+    def _on_obs(self, payload: Dict) -> None:
+        """One child's obs frame: its span batch merged into the tracer as
+        a process row of its pid, and a cumulative "transport" record. Runs
+        on a pool reader thread, so the shared state is taken under
+        ``_obs_lock``; a malformed frame is dropped and never raises. Only
+        observes: touches no engine state and no tensor."""
+        try:
+            wid = int(payload["wid"])
+            pid = int(payload["pid"])
+        except (KeyError, TypeError, ValueError):
+            return
+        metrics = payload.get("metrics") or {}
+        final = bool(payload.get("final"))
+        offset = float(payload.get("offset", 0.0))
+        with self._obs_lock:
+            self._child_wire[(wid, pid)] = dict(metrics, final=final,
+                                                clock_offset_s=offset)
+            spans = payload.get("spans")
+            if self.tracer.enabled and spans is not None:
+                self.tracer.ingest_remote(
+                    pid=pid,
+                    epoch_offset=float(payload.get("epoch_offset", 0.0)),
+                    events=spans.get("events", []),
+                    names=spans.get("names", {}),
+                    process_name=f"heloco-worker-{wid} (pid {pid})")
+            if self.telemetry is not None:
+                self.telemetry.record_transport(
+                    wid=wid, pid=pid,
+                    frames_sent=int(metrics.get("frames_sent", 0)),
+                    frames_recv=int(metrics.get("frames_recv", 0)),
+                    bytes_sent=int(metrics.get("bytes_sent", 0)),
+                    bytes_recv=int(metrics.get("bytes_recv", 0)),
+                    ser_s=float(metrics.get("ser_s", 0.0)),
+                    deser_s=float(metrics.get("deser_s", 0.0)),
+                    crc_rejects=int(metrics.get("crc_rejects", 0)),
+                    retries=int(metrics.get("retries", 0)),
+                    credit_wait_s=float(metrics.get("credit_wait_s", 0.0)),
+                    rounds=int(metrics.get("rounds", 0)),
+                    compute_s=float(metrics.get("compute_s", 0.0)),
+                    clock_offset_s=offset, final=final)
+
+    def child_obs_report(self) -> Dict[str, Any]:
+        """What the worker processes reported: obs frames by wid, the wids
+        whose final report arrived, and the latest cumulative wire counters
+        summed over every (wid, pid) incarnation. Empty off the socket
+        transport."""
+        if self._pool is None:
+            return {"reports": {}, "final": [], "wire": {}}
+        with self._obs_lock:
+            wire: Dict[str, float] = {}
+            for snap in self._child_wire.values():
+                for k, v in snap.items():
+                    if isinstance(v, (int, float)) and not isinstance(v, bool):
+                        wire[k] = wire.get(k, 0) + v
+        return {"reports": dict(self._pool.obs_reports),
+                "final": sorted(self._pool.obs_final),
+                "wire": wire}
+
+    def assert_child_reports(self) -> None:
+        """Raise if a worker process the run dispatched to never shipped an
+        obs frame (over processes with tracing or telemetry on): a silent
+        child means the collection path is broken, not that the run was
+        quiet."""
+        if self._pool is None or not self._pool.obs:
+            return
+        silent = sorted(w for w in self._last_task
+                        if w not in self._pool.obs_reports)
+        if silent:
+            raise RuntimeError(
+                f"cross-process observability enabled but worker(s) "
+                f"{silent} never reported in over the obs control "
+                f"channel (reports: {dict(self._pool.obs_reports)}): "
+                f"child-side collection is broken or the processes died "
+                f"before their first report")
+
     def shutdown(self):
         """Tear the worker threads or processes down. Idempotent; ``run``
         or ``restore`` after it rebuilds the channel and the workers."""
@@ -1008,5 +1100,7 @@ class ConcurrentRuntime(EngineBase):
             "proc_restarts": self._proc_counters["proc_restarts"],
             # the worker processes' kernel launches (graceful stops only)
             "child_launches": dict(self._child_launches),
+            # what the worker processes reported (socket + obs only)
+            "child_obs": self.child_obs_report(),
             "flush": dict(getattr(self.server, "flush_totals", {})),
         }

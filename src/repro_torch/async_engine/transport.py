@@ -28,7 +28,6 @@ rejects frames whose recomputed CRC disagrees with the envelope
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import threading
 import time
@@ -42,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import Packed, leaf_order
+from repro_torch.obs.spans import NULL_TRACER
 
 
 class TransportClosed(Exception):
@@ -272,21 +272,6 @@ class AckWaiter:
         return self._closed
 
 
-class _NullTracer:
-    """Span tracer that records nothing (the port has no span tracer yet,
-    ROADMAP A19)."""
-    enabled = False
-
-    def span(self, *_a, **_k):
-        return contextlib.nullcontext()
-
-    def instant(self, *_a, **_k) -> None:
-        pass
-
-
-NULL_TRACER = _NullTracer()
-
-
 class ReliableSender:
     """The sender half of at-least-once delivery: send the frame, wait for
     the server's receipt, resend with exponential backoff and deterministic
@@ -296,7 +281,9 @@ class ReliableSender:
     ``spec``: an optional ``faults.FaultSpec`` with the protocol knobs
     (``ack_timeout``, ``backoff_base``, ``max_backoff``, ``retry_jitter``);
     without one the fault-free defaults apply. ``on_retry`` is called once
-    per resend."""
+    per resend. ``tracer``: an ``obs.spans.SpanTracer`` (None: the shared
+    no-op) recording a ``transport.send`` and a ``transport.ack_wait`` span
+    per attempt and a ``transport.retry`` instant per resend."""
 
     #: ack wait on a fault-free channel before a (harmless) resend
     DEFAULT_ACK_TIMEOUT = 5.0

@@ -35,10 +35,17 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --scenario \\
         wallclock_hetero --engine wallclock --transport socket --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --scenario paper_hetero_severe --trace t.json --telemetry t.jsonl \\
+        --device cpu
 
 ``--telemetry PATH`` streams the run's records live to a JSONL file (the
 reference's schema; a "runtime" record every ``--telemetry-every`` commits,
-1 by default), and ``--stats-json PATH`` writes the run's summary.
+1 by default), ``--trace PATH`` writes the run's spans as Chrome
+trace-event JSON (over worker processes the children's rows merged in;
+``python -m repro_torch.obs trace --validate PATH`` checks it), and
+``--stats-json PATH`` writes the run's summary. Over processes with any of
+the three, a worker that never shipped an obs frame fails the run.
 ``--ckpt-dir DIR`` writes ``DIR/step_<t>.npz`` every ``--ckpt-every``
 commits (the reference's format); with ``--resume`` the run starts from the
 latest checkpoint there, if there is one. ``--engine wallclock`` runs the
@@ -60,6 +67,7 @@ from repro_torch.async_engine.faults import FaultSpec
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import methods as outer_methods
 from repro_torch.device import resolve_device
+from repro_torch.obs.spans import SpanTracer
 from repro_torch.scenarios import registry
 from repro_torch.scenarios.spec import Scenario
 from repro_torch.telemetry import TelemetryRecorder
@@ -168,6 +176,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="a runtime-health telemetry record every N "
                          "commits (default 1 when --telemetry is set, "
                          "else the scenario's telemetry_every)")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="record the run's spans and write them as Chrome "
+                         "trace-event JSON (Perfetto-loadable) to this path")
     ap.add_argument("--stats-json", default="", metavar="PATH",
                     help="write the run's summary (arrivals, tokens, "
                          "comm_bytes, mean staleness) as JSON at exit")
@@ -223,12 +234,13 @@ def main(argv: Optional[Sequence[str]] = None):
                   else (scn.eval_cadence if args.scenario else 10))
     recorder = (TelemetryRecorder(sink=args.telemetry) if args.telemetry
                 else None)
+    tracer = SpanTracer() if args.trace else None
     # runtime-health cadence: the flag, else on whenever telemetry is
     # streamed, else the scenario's own telemetry_every
     runtime_every = (args.telemetry_every
                      if args.telemetry_every is not None
                      else (1 if args.telemetry else None))
-    eng = scn.build(device=device, telemetry=recorder,
+    eng = scn.build(device=device, telemetry=recorder, tracer=tracer,
                     runtime_record_every=runtime_every)
     if args.resume and args.ckpt_dir:
         latest = ckpt.latest(args.ckpt_dir)
@@ -249,6 +261,11 @@ def main(argv: Optional[Sequence[str]] = None):
           f"arrivals={len(hist.arrivals)} tokens={hist.tokens} "
           f"mean_staleness={sum(taus) / len(taus):.2f} "
           f"comm={hist.comm_bytes / 1e6:.1f}MB wall={wall:.2f}s")
+    # over worker processes with any observability output asked for, a
+    # child that never shipped an obs frame fails the run
+    if ((args.trace or args.stats_json or args.telemetry)
+            and hasattr(eng, "assert_child_reports")):
+        eng.assert_child_reports()
     summary = None
     if hasattr(eng, "stats_summary"):
         summary = eng.stats_summary()
@@ -275,6 +292,10 @@ def main(argv: Optional[Sequence[str]] = None):
         print(f"telemetry -> {args.telemetry}: {t['arrivals']} arrivals "
               f"mean_cos={t['mean_cos_align']:.3f} "
               f"mean_corrected_frac={t['mean_corrected_frac']:.3f}")
+    if tracer is not None:
+        path = tracer.write(args.trace)
+        print(f"trace -> {path}: {len(tracer)} events (load in "
+              f"https://ui.perfetto.dev or chrome://tracing)")
     return hist
 
 

@@ -15,6 +15,8 @@ committed golden traces.
         --transport socket --device cpu
     PYTHONPATH=src python -m repro_torch.scenarios.run list \\
         --transport-filter socket
+    PYTHONPATH=src python -m repro_torch.scenarios.run verify \\
+        paper_hetero_severe socket_hetero --obs --device cpu
 
 ``verify`` runs each scenario on the device (the card unless ``--device
 cpu``) and holds it to ``results/golden/<name>.json`` through
@@ -26,7 +28,10 @@ replay's parameter fingerprint to the simulator's run. ``--transport
 socket`` reruns the wall-clock scenarios (and, with ``--cross``, the sim
 scenarios' replays) over worker processes against the same goldens: the
 backend must not change the trace. ``--transport-filter`` keeps only the
-scenarios registered on one transport. The goldens' evals
+scenarios registered on one transport. ``--obs`` reruns each check with
+the whole observability stack on (a live telemetry sink, runtime records,
+a span tracer and, over processes, the children's obs frames): the run
+must still verify and its Chrome trace validate. The goldens' evals
 and parameter digest are the reference's own initial draw and are not a
 target here. It exits non-zero on a mismatch and records no golden.
 ``compare`` holds a finished run to a golden's arrivals the same way, and
@@ -84,6 +89,11 @@ def main(argv=None) -> int:
     p.add_argument("--cross", action="store_true",
                    help="also replay sim scenarios on the deterministic "
                         "wall-clock runtime")
+    p.add_argument("--obs", action="store_true",
+                   help="rerun with the whole observability stack on "
+                        "(live telemetry, span tracing; the children's obs "
+                        "frames over processes): observation must not "
+                        "change the golden trace")
     p.add_argument("--diff-dir", default="",
                    help="write a JSON report of each failure here")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -112,7 +122,7 @@ def main(argv=None) -> int:
                 skipped += 1
                 continue
             res = trace.verify(scn, cross_engine=cross, device=device,
-                               transport=args.transport)
+                               transport=args.transport, obs=args.obs)
             total += 1
             failed += not res.ok
             print(f"{'PASS' if res.ok else 'FAIL'} {res.name} on {device}"

@@ -275,13 +275,15 @@ class Scenario:
 
     def build(self, device="cuda",
               init_params: Optional[Mapping[str, np.ndarray]] = None,
-              telemetry=None, runtime_record_every: Optional[int] = None):
+              telemetry=None, tracer=None,
+              runtime_record_every: Optional[int] = None):
         """Ready-to-run port engine for this scenario on ``device``.
         ``init_params``: start from these parameters (numpy arrays keyed by
         path) instead of a fresh draw from the seed. ``telemetry``: a
         ``TelemetryRecorder`` the run streams into, its provenance set to
-        this scenario; ``runtime_record_every``: a "runtime" record every N
-        commits (None: ``telemetry_every``)."""
+        this scenario; ``tracer``: an ``obs.spans.SpanTracer`` the run
+        records its spans in; ``runtime_record_every``: a "runtime" record
+        every N commits (None: ``telemetry_every``)."""
         missing = self.unported_axes()
         if missing:
             raise NotImplementedError(
@@ -300,6 +302,7 @@ class Scenario:
         return make_engine(m.run_cfg, m.engine, device=device,
                            init_params=init_params, failures=m.failures,
                            elastic=m.elastic, telemetry=telemetry,
+                           tracer=tracer,
                            runtime_record_every=runtime_record_every,
                            **m.engine_kw)
 

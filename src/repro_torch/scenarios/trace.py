@@ -108,22 +108,33 @@ def arrival_rows(hist) -> List[list]:
 
 
 def run_scenario(scn: Scenario, device="cuda",
-                 init_params: Optional[Mapping[str, np.ndarray]] = None):
+                 init_params: Optional[Mapping[str, np.ndarray]] = None,
+                 telemetry=None, tracer=None):
     """Build and run a scenario on ``device`` (from ``init_params`` when
-    given) with its golden's eval cadence; returns (engine, history)."""
+    given) with its golden's eval cadence; returns (engine, history).
+    ``telemetry`` (a ``TelemetryRecorder``) and ``tracer`` (an
+    ``obs.spans.SpanTracer``) observe the run; over worker processes with
+    either on, a child that never shipped an obs frame fails it
+    (``assert_child_reports``)."""
     from repro_torch.async_engine.engine import make_eval_fn
-    eng = scn.build(device=device, init_params=init_params)
+    eng = scn.build(device=device, init_params=init_params,
+                    telemetry=telemetry, tracer=tracer)
     hist = eng.run(eval_every=scn.eval_cadence,
                    eval_fn=make_eval_fn(eng, batch=scn.eval_batch))
+    if ((telemetry is not None or tracer is not None)
+            and hasattr(eng, "assert_child_reports")):
+        eng.assert_child_reports()
     return eng, hist
 
 
 def run_trace(scn: Scenario, device="cuda",
-              init_params: Optional[Mapping[str, np.ndarray]] = None
-              ) -> Dict[str, Any]:
-    """Run the scenario (``run_scenario``) and collect its trace document;
-    a wall-clock run adds its ``stats_summary()`` as "stats"."""
-    eng, hist = run_scenario(scn, device, init_params)
+              init_params: Optional[Mapping[str, np.ndarray]] = None,
+              telemetry=None, tracer=None) -> Dict[str, Any]:
+    """Run the scenario (``run_scenario``, with ``telemetry`` and
+    ``tracer`` observing it) and collect its trace document; a wall-clock
+    run adds its ``stats_summary()`` as "stats". Observation must not
+    change the document."""
+    eng, hist = run_scenario(scn, device, init_params, telemetry, tracer)
     params = eng.server.state.params
     doc = {
         "schema": SCHEMA_VERSION,
@@ -250,16 +261,42 @@ def verify(scn: Scenario, golden_dir=GOLDEN_DIR, *,
     deterministic wall-clock runtime and also runs it on the simulator.
     ``transport`` overrides the wall-clock backend of the fresh run only
     ("socket": worker processes); the golden's recorded spec is compared
-    untouched, since the backend must not change the trace. ``fresh`` injects a precomputed trace document of the run (a testing
-    hook). ``obs=True`` (the
-    replay with the whole observability stack on) waits for ROADMAP A19."""
-    if obs:
-        raise NotImplementedError("verify(obs=True) needs the span tracer "
-                                  "and the observability stack (ROADMAP A19)")
+    untouched, since the backend must not change the trace. ``fresh``
+    injects a precomputed trace document of the run (a testing hook).
+    ``obs=True`` runs the fresh run with the whole observability stack on
+    (a ``TelemetryRecorder`` with a live sink, a "runtime" record at the
+    scenario's cadence, a ``SpanTracer`` and, over worker processes, the
+    children's obs frames) and holds it to the same fields, and its trace
+    to ``validate_chrome_trace`` with at least one span: observation must
+    not change the run."""
     path = golden_path(scn.name, golden_dir)
     tag = (" [cross-engine wallclock]" if cross_engine else "") + (
-        f" [transport={transport}]" if transport else "")
+        f" [transport={transport}]" if transport else "") + (
+        " [obs]" if obs else "")
     res = VerifyResult(name=scn.name + tag, ok=True)
+
+    def fresh_run(run_scn: Scenario) -> Dict[str, Any]:
+        if fresh is not None:
+            return fresh
+        if not obs:
+            return run_trace(run_scn, device)
+        import tempfile
+        from repro_torch.obs.spans import SpanTracer, validate_chrome_trace
+        from repro_torch.telemetry import TelemetryRecorder
+        tr = SpanTracer()
+        with tempfile.TemporaryDirectory() as td:
+            rec = TelemetryRecorder(sink=os.path.join(td, "live.jsonl"))
+            try:
+                got = run_trace(run_scn, device, telemetry=rec, tracer=tr)
+            finally:
+                rec.close()
+        for p in validate_chrome_trace(tr.to_chrome())[:4]:
+            res.failures.append(f"obs trace invalid: {p}")
+        if len(tr) == 0:
+            res.failures.append("obs stack produced no trace spans")
+        res.details["trace_events"] = len(tr)
+        return got
+
     if not path.exists():
         res.ok = False
         res.failures.append(f"missing golden trace {path}")
@@ -286,7 +323,7 @@ def verify(scn: Scenario, golden_dir=GOLDEN_DIR, *,
     if cross_engine:
         replay = scn.overridden(engine="wallclock", mode="deterministic",
                                 transport=transport or scn.transport)
-        got = fresh or run_trace(replay, device)
+        got = fresh_run(replay)
         twin = run_trace(scn, device)
         _cmp_counts(res.failures, got, want)
         _cmp_fingerprint(res.failures, got["param_fingerprint"],
@@ -297,7 +334,7 @@ def verify(scn: Scenario, golden_dir=GOLDEN_DIR, *,
     else:
         run_scn = (scn.overridden(transport=transport)
                    if transport and transport != scn.transport else scn)
-        got = fresh or run_trace(run_scn, device)
+        got = fresh_run(run_scn)
         if scn.exact:
             _cmp_counts(res.failures, got, want)
         else:

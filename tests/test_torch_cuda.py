@@ -30,7 +30,10 @@ and resumed to 12 on the card has the arrivals of the same save and
 resume on the CPU at smoke width. Worker processes on the card
 (``transport="socket"``): the golden's arrivals and the final parameters
 within ``trace._cmp_fingerprint``'s band (rtol 1e-5, atol 1e-6) of the
-card's sim twin.
+card's sim twin. Span tracing (``repro_torch.obs.spans``): a traced
+full-width run ends in the untraced run's digest with the same launches; a
+device span lasts at least the device work it queued (a host span only its
+enqueue); the untraced path makes no CUDA event and no synchronise.
 """
 import numpy as np
 import pytest
@@ -900,3 +903,107 @@ def test_socket_worker_processes_on_the_card(cuda, name, overrides):
     assert s["child_launches"] == (
         dict.fromkeys(int8, s["rounds"]) if overrides else {})
     assert s["rounds"] >= applied
+
+
+# ---------------------------------------------------------------------------
+# Span tracing on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_traced_full_width_run_ends_in_the_untraced_digest(cuda):
+    from repro_torch.launch.train import FULL_WIDTH
+    from repro_torch.obs.spans import SpanTracer, validate_chrome_trace
+    from repro_torch.scenarios import registry, run, trace
+    scn = registry.get_scenario("paper_hetero_severe").overridden(
+        **FULL_WIDTH)
+    kernels.reset_launch_counts()
+    off, _ = run.run(scn, "cuda")
+    torch.cuda.synchronize()
+    off_counts = kernels.launch_counts()
+    tr = SpanTracer()
+    kernels.reset_launch_counts()
+    on, hist = run.run(scn, "cuda", tracer=tr)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == off_counts
+    assert run.compare(scn, hist) == []
+    assert trace.param_digest(on.server.state.params) == \
+        trace.param_digest(off.server.state.params)
+    doc = tr.to_chrome()
+    assert validate_chrome_trace(doc) == []
+    assert sum(e["name"] == "server_commit" for e in doc["traceEvents"]) \
+        == len(hist.arrivals)
+
+
+def _sleep_cycles_for(ms, dev):
+    """Cycles of ``torch.cuda._sleep`` that hold the stream about ``ms``,
+    and the device ms they took."""
+    cycles = 10_000_000
+    while True:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        took = a.elapsed_time(b)
+        if took >= ms:
+            return cycles, took
+        cycles *= 2
+
+
+@pytest.mark.cuda
+def test_a_device_span_lasts_at_least_its_device_work(cuda):
+    from repro_torch.obs.spans import SpanTracer
+    cycles, dev_ms = _sleep_cycles_for(50.0, cuda)
+    tr = SpanTracer()
+    with tr.span("held", cat="compute"):
+        torch.cuda._sleep(cycles)
+    with tr.span("enqueued", cat="transport"):
+        torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    dur = {e[0]: 1e3 * e[4] for e in tr._events}
+    assert dur["held"] >= 0.95 * dev_ms, (dur, dev_ms)
+    assert dur["enqueued"] < 0.5 * dev_ms, (dur, dev_ms)
+
+
+@pytest.mark.cuda
+def test_the_untraced_path_makes_no_event_and_no_synchronise(cuda,
+                                                              monkeypatch):
+    """A sim run on the card with the shared no-op tracer creates no CUDA
+    event and calls no synchronise; traced, one event a device span."""
+    from collections import Counter
+    from repro_torch.obs.spans import DEVICE_CATS, SpanTracer
+    from repro_torch.scenarios import registry, run
+    calls = Counter()
+    real_event = torch.cuda.Event
+
+    class CountingEvent(real_event):
+        def __new__(cls, *a, **k):
+            calls["Event"] += 1
+            return super().__new__(cls, *a, **k)
+
+        def synchronize(self):
+            calls["Event.synchronize"] += 1
+            return super().synchronize()
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(torch.cuda, "Event", CountingEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        counted("synchronize", torch.cuda.synchronize))
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        counted("Stream.synchronize",
+                                torch.cuda.Stream.synchronize))
+    scn = registry.get_scenario("paper_hetero_severe")
+    run.run(scn, "cuda")
+    assert calls == Counter()
+    tr = SpanTracer()
+    run.run(scn, "cuda", tracer=tr)
+    device_spans = sum(e[1] in DEVICE_CATS for e in tr._events)
+    assert device_spans > 0
+    assert calls == Counter({"Event": device_spans,
+                             "Event.synchronize": device_spans})

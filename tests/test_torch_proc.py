@@ -238,6 +238,38 @@ def test_rendezvous_assigns_once_and_rejects_reused_and_unknown_nonces():
         pool.close()
 
 
+@pytest.mark.parametrize("puts, end, want, skipped", [
+    (["t1"], None, "t1", 0),
+    (["t1", "t2", "t3"], None, "t3", 2),
+    (["t1", "t2"], "stop", "stop", 2),
+    ([], "eof", "eof", 0),
+])
+def test_child_task_slot_keeps_only_the_newest_task(puts, end, want,
+                                                     skipped):
+    """The child's intake holds one task: an overtaken one is dropped on
+    arrival and counted, and a stop or disconnect wins over a waiting
+    task (counted too), as the loop's skip of overtaken tasks did."""
+    slot = proc._TaskSlot()
+    for t in puts:
+        slot.put(t)
+    if end is not None:
+        slot.end(end)
+    assert slot.get() == want
+    assert slot.skipped == skipped
+
+
+def test_child_task_slot_get_waits_for_a_put():
+    slot = proc._TaskSlot()
+    got = []
+    th = threading.Thread(target=lambda: got.append(slot.get()))
+    th.start()
+    time.sleep(0.05)
+    assert not got
+    slot.put("t1")
+    th.join(timeout=5.0)
+    assert got == ["t1"] and slot.skipped == 0
+
+
 def test_heartbeats_join_on_a_connection_of_their_own():
     """In free mode with liveness on, the assign frame carries a one-time
     nonce for a second connection, whose beacons reach the heartbeat sink
