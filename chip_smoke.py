@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only wallclock
     python3 chip_smoke.py --only socket
     python3 chip_smoke.py --only obs
+    python3 chip_smoke.py --only families
 
 Phases, in order; any failure exits non-zero (``--only int8`` runs the
 int8 kernels' checks and times of phase 2, the card's read, write and copy
@@ -19,13 +20,18 @@ telemetry`` builds the packed sweeps and times a packed server's commit
 calls without and with telemetry, and the pieces telemetry adds; ``--only
 wallclock`` builds the packed sweeps and runs the wall-clock phase,
 ``--only socket`` the socket phase, and ``--only obs`` the obs phase with
-its untraced twins run in it):
+its untraced twins run in it; ``--only families`` the flash kernels'
+build report, flash_attention_fwd's checks and times and the families
+phase):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
      from ``-Xptxas -v``, and its instruction counts from ``cuobjdump
-     -sass``: every bf16 kernel must hold HGMMA (wgmma) and UTMALDG (TMA
-     loads), every fp32 kernel HMMA (3xTF32 ``mma.sync``); the same for
+     -sass``: on the wgmma route (D 32, 64, 128) every bf16 kernel must
+     hold HGMMA (wgmma) and UTMALDG (TMA loads), every fp32 kernel HMMA
+     (3xTF32 ``mma.sync``); on the mma route (every other multiple of 16
+     up to 256) every bf16 kernel HMMA (``mma.sync``), every fp32 kernel
+     FFMA (SIMT); the same for
      the int8 quantize and dequantize kernels, and the per-leaf
      correct_apply (one block, stacked) and outer_update kernels, each of
      which must hold 128-bit global loads and stores (LDG/STG .128), with
@@ -165,7 +171,9 @@ its untraced twins run in it):
      flash_attention_fwd there too, bf16 within 2e-2 and fp32
      within 2e-5 of its plain version at the serve shape (BH 32, S 1024,
      D 32), the prompt-128 shape, at (BH 16, S 4096, D 128) and on a
-     rectangular 128 x 384, causal and not, timed beside
+     rectangular 128 x 384, on the mma route at D 16 (ragged 200), 80
+     (128 x 384) and 256 (384 x 128), and at each family's serve shape
+     (D 64, 80, 128, 256), causal and not, timed beside
      ``scaled_dot_product_attention``, with each case's ratio to it and
      its share of the bound);
   7. serving: full-width tinygpt-15m in its compute dtype (bf16), prefill
@@ -177,7 +185,20 @@ its untraced twins run in it):
      tokens, the plain path (the flash kernel's plain version, on the card)
      gives logits within 2e-2 of their largest |value| at every step, and
      each greedy token is its argmax or tied with it within one bf16 step;
-  8. print the card's name and power limit, the kernel summary line, and
+  8. the attention families (``families_phase``), bf16: serving at full
+     width, qwen2-7b, granite-moe-1b-a400m, paligemma-3b (256 patches,
+     then the prompt) and hubert-xlarge (frame features, prefill only) at
+     full depth, granite-3-8b, command-r-35b, starcoder2-15b and
+     llama4-scout-17b-a16e cut to 2 layers, each drawn on the card and
+     freed before the next: 4 prompts of 128 tokens and 24 greedy tokens
+     (3 runs, medians), each prefill one flash_attention_fwd launch a layer
+     and nothing else, decode none, finite logits, both paths held to each
+     other as in 7; prefill ms, decode ms a token, peak memory and init
+     seconds printed. Then ``paper_hetero_severe`` with granite-moe at full
+     width cut to 4 of 24 layers: the golden's arrivals, each applied
+     arrival one packed_row_stats and one packed_correct_outer launch and
+     nothing else, finite evals, every tensor on the card;
+  9. print the card's name and power limit, the kernel summary line, and
      the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device, or without the rest of the repository, it exits
@@ -362,9 +383,22 @@ TOL_LOGITS = 2e-2
 # tests with q_chunk 32
 FLASH_SHAPES = ((32, 1024, 1024, 32), (32, 128, 128, 32),
                 (16, 4096, 4096, 128), (2, 128, 384, 64))
-# the flash kernels' mangled names (route, D, 64-row q tiles per CTA), and
-# a SASS line's opcode
+# the mma route's head dims (16: every smoke config, 80: hubert, 256:
+# paligemma), ragged, Sq < Skv and Sq > Skv; then each family's prefill at
+# the families phase's serve shape (batch 4 x heads, prompt 128; paligemma
+# 256 patches + 128 tokens), by D: granite-moe 64, hubert 80 (the encoder:
+# its own case is not causal), qwen2-7b 128 (the other 128-wide configs
+# differ in BH only), paligemma 256
+FLASH_MMA_SHAPES = ((16, 200, 200, 16), (2, 128, 384, 80),
+                    (2, 384, 128, 256))
+FLASH_FAMILY_SHAPES = {"granite-moe-1b-a400m": (64, 128, 128, 64),
+                       "hubert-xlarge": (64, 128, 128, 80),
+                       "qwen2-7b": (112, 128, 128, 128),
+                       "paligemma-3b": (32, 384, 384, 256)}
+# the flash kernels' mangled names: the wgmma route's (type, D, 64-row q
+# tiles per CTA) and the mma route's (type, D); and a SASS line's opcode
 FLASH_KERNEL = re.compile(r"flash_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d)E")
+FLASH_MMA_KERNEL = re.compile(r"flash_mma_kernelI(13__nv_bfloat16|f)Li(\d+)EE")
 # the per-tensor int8 sweeps' kernel names in the compiler's report and SASS
 INT8_SWEEP = re.compile(r"\d(quant_kernel|dequant_kernel)E")
 # the per-leaf elementwise sweeps' kernel names (correct_apply's template
@@ -376,6 +410,21 @@ SASS_OP = re.compile(
 # the serve phase: batch x prompt, greedy tokens, then one long prefill;
 # each timed as the median of ``repeats`` runs
 SERVE = dict(batch=4, prompt=128, gen=24, long_prompt=1024, repeats=5)
+# the families phase: each attention family's config at full width, at full
+# depth (None) or cut to the layers given (35 B and 109 B do not fit one
+# card; the others at 2 layers to keep the phase short), served at SERVE's
+# batch, prompt and tokens, timed as the median of FAMILY_REPEATS runs
+FAMILIES = (("qwen2-7b", None), ("granite-moe-1b-a400m", None),
+            ("paligemma-3b", None), ("hubert-xlarge", None),
+            ("granite-3-8b", 2), ("command-r-35b", 2),
+            ("starcoder2-15b", 2), ("llama4-scout-17b-a16e", 2))
+FAMILY_REPEATS = 3
+# the families' band: at least TOL_LOGITS, else this many times the
+# reference arithmetic's own distance from the plain path (hold_to_plain)
+FLOOR_FACTOR = 1.5
+# and its training run: (scenario, arch, layers), granite-moe at full width
+# cut to 4 of its 24 layers
+FAMILY_TRAIN = ("paper_hetero_severe", "granite-moe-1b-a400m", 4)
 # tinygpt-15m's 43 leaves: the per-leaf HeLoCo arrival launches the two
 # correction kernels once per leaf
 N_LEAVES = 43
@@ -599,7 +648,7 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
     # the fp32 route runs 3xTF32: three TF32 products per operation, or
     # one fp32 FMA where that would be faster
     flash_rows = flash_phase(torch, dev, bound, bf16_flops,
-                             max(flops, tf32_flops / 3))
+                             max(flops, tf32_flops / 3), flops)
 
     n = R * 128
     plane, table_bytes = n * f4, R * 4
@@ -1124,27 +1173,40 @@ def cpu_arrivals(scn):
 
 
 def run_scenario(torch, kernels, name, overrides, single, fused,
-                 per_leaf=False, recorder=None, result=None):
+                 per_leaf=False, recorder=None, result=None, layers=None):
     """One slice scenario at full width on cuda, through the scenario layer,
     with ``overrides``. ``single``: the kernels an arrival committed on its
     own launches once (or a mapping of kernel to launches per arrival);
     ``fused``: those a fused run of K >= 2 arrivals launches once.
     ``per_leaf``: the engine's server swapped for a per-leaf kernel server
     before the run. ``recorder``: a TelemetryRecorder the run streams into.
+    ``layers``: the model cut to this depth (the engine built from the
+    scenario's materialized config with the cut). Arrivals are held to the
+    golden's unless ``overrides`` set more than the arch, which does not
+    change them; then to the port's CPU run of the override at smoke width.
     Returns the launch counts of this run, the applied arrivals committed
     on their own, the fused arrivals, the eval means and the median server
     ms of an arrival committed on its own; ``result`` (a dict) also
     receives the final state's tensors, the history and the printed line."""
-    from repro_torch.async_engine.engine import make_eval_fn
+    import dataclasses
+    from repro_torch.async_engine.engine import make_engine, make_eval_fn
     from repro_torch.async_engine.server import Synchronizer
     from repro_torch.launch.train import FULL_WIDTH
     from repro_torch.scenarios import registry, run
 
     scn = registry.get_scenario(name).overridden(**FULL_WIDTH, **overrides)
-    # with a recorder, a "runtime" record after every commit (the
-    # launcher's cadence with --telemetry)
-    eng = scn.build(device="cuda", telemetry=recorder,
-                    runtime_record_every=None if recorder is None else 1)
+    if layers:
+        m = scn.materialize()
+        run_cfg = dataclasses.replace(m.run_cfg, model=dataclasses.replace(
+            m.run_cfg.model, n_layers=layers))
+        eng = make_engine(run_cfg, m.engine, device="cuda",
+                          failures=m.failures, elastic=m.elastic,
+                          **m.engine_kw)
+    else:
+        # with a recorder, a "runtime" record after every commit (the
+        # launcher's cadence with --telemetry)
+        eng = scn.build(device="cuda", telemetry=recorder,
+                        runtime_record_every=None if recorder is None else 1)
     if per_leaf:
         eng.server = Synchronizer(eng.server.state.params, eng.cfg.outer,
                                   eng.cfg.n_workers, packed=False,
@@ -1194,7 +1256,7 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
     if hasattr(eng.server, "_step_update_multi"):
         eng.server._step_update_multi = fused_step
     eval_fn = timed(make_eval_fn(eng, batch=scn.eval_batch), "eval")
-    target = cpu_arrivals(scn) if overrides else None
+    target = cpu_arrivals(scn) if set(overrides) - {"arch"} else None
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1248,7 +1310,9 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
         "server": ("per-leaf, use_kernel" if per_leaf else "packed"
                    if scn.topology == "hub"
                    else f"peer mixer ({scn.topology})"),
-        "config": f"tinygpt-15m full width, {scn.n_workers} workers "
+        "config": f"{eng.cfg.model.name} full width"
+                  f"{f', {layers} layers' if layers else ''}, "
+                  f"{scn.n_workers} workers "
                   f"{scn.paces}, H={scn.inner_steps}, batch 4 x 128, "
                   f"commit_batch {scn.commit_batch}",
         "params": sum(t.numel() for t in state.params.values()),
@@ -2753,27 +2817,37 @@ def flash_flops(sq, skv, d, causal):
     return 4 * d * kept
 
 
-def flash_phase(torch, dev, bound, bf16_peak, fp32_peak):
+def flash_phase(torch, dev, bound, bf16_peak, fp32_peak, simt_peak):
     """flash_attention_fwd of ``csrc/flash_attention.cu`` against its plain
-    version, bf16 (wgmma) within 2e-2 and fp32 (3xTF32) within 2e-5, at
-    FLASH_SHAPES, causal and not; then timed beside
+    version, bf16 within 2e-2 and fp32 within 2e-5, at FLASH_SHAPES (the
+    wgmma route: bf16 wgmma, fp32 3xTF32), FLASH_MMA_SHAPES (the mma route:
+    bf16 mma.sync, fp32 SIMT) and FLASH_FAMILY_SHAPES (both routes), causal
+    and not; then timed beside
     ``scaled_dot_product_attention`` at each shape, with the ratio to it and
-    the share of the bound (operations at ``bf16_peak`` or ``fp32_peak``).
+    the share of the bound (operations at ``bf16_peak``, or in fp32 at
+    ``fp32_peak`` on the wgmma route and ``simt_peak`` on the mma route).
     Returns the serve shape's bf16 causal row, the main path's, with the
     others under ``cases``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(5)
     cases, errs = [], {}
-    for bh, sq, skv, d in FLASH_SHAPES:
+    shapes = [(shape, None) for shape in FLASH_SHAPES + FLASH_MMA_SHAPES]
+    shapes += [(shape, arch) for arch, shape in FLASH_FAMILY_SHAPES.items()]
+    for (bh, sq, skv, d), family in shapes:
+        route = "wgmma" if d in fa.HEAD_DIMS else "mma"
         base = [torch.randn((bh, s, d), generator=gen, device=dev)
                 for s in (sq, skv, skv)]
-        chunk = 32 if sq != skv else 128
+        # the reference's chunks where they divide the sequences, else one
+        chunk = 32 if sq != skv else min(128, sq)
+        chunk = chunk if sq % chunk == 0 else sq
+        kv_chunk = 128 if skv % 128 == 0 else skv
         for dtype in ("bfloat16", "float32"):
             q, k, v = (t.to(getattr(torch, dtype)) for t in base)
             for causal in (True, False):
                 got = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                             q_chunk=chunk)
+                                             q_chunk=chunk,
+                                             kv_chunk=kv_chunk)
                 want = fa.flash_attention_fwd_ref(q, k, v, causal)
                 torch.cuda.synchronize()
                 assert got.dtype == q.dtype and got.shape == q.shape
@@ -2795,17 +2869,20 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak):
                 el = q.element_size()
                 nbytes = el * bh * d * (2 * sq + 2 * skv)
                 nflops = bh * flash_flops(sq, skv, d, causal)
-                peak = bf16_peak if dtype == "bfloat16" else fp32_peak
+                peak = bf16_peak if dtype == "bfloat16" else (
+                    fp32_peak if route == "wgmma" else simt_peak)
                 b_ms, by = bound(nbytes, nflops, peak)
                 # timed on q, k, v rotating over copies that exceed L2
                 qs, ks, vs = cold(q), cold(k), cold(v)
                 ms = time_ms(lambda: fa.flash_attention_fwd(
-                    qs(), ks(), vs(), causal=causal, q_chunk=chunk),
+                    qs(), ks(), vs(), causal=causal, q_chunk=chunk,
+                    kv_chunk=kv_chunk),
                     iters=10)
                 lib_ms = time_ms(lambda: sdpa(qs(), ks(), vs()), iters=10)
                 cases.append({
                     "name": "flash_attention_fwd", "dtype": dtype,
                     "causal": causal, "BH": bh, "Sq": sq, "Skv": skv, "D": d,
+                    "route": route, "family_serve_shape": family,
                     "ms": ms,
                     "plain_ms": time_ms(lambda: fa.flash_attention_fwd_ref(
                         qs(), ks(), vs(), causal), iters=10),
@@ -2815,8 +2892,9 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak):
                                     "scaled_dot_product_attention",
                     "vs_library": ms / lib_ms, "bound_share": b_ms / ms,
                     "bytes": nbytes, "flops": nflops})
-                print(f"flash {dtype} causal={causal} ({bh}, {sq}, {skv}, "
-                      f"{d}): {ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+                print(f"flash {route} {dtype} causal={causal} ({bh}, {sq}, "
+                      f"{skv}, {d}){f' [{family}]' if family else ''}: "
+                      f"{ms:.4f} ms, SDPA {lib_ms:.4f} ms "
                       f"({ms / lib_ms:.2f}x), bound {b_ms:.4f} ms ({by}), "
                       f"{b_ms / ms:.1%} of it; err {err:.2e}")
                 print(json.dumps({"kernel": "flash_attention_fwd",
@@ -2831,7 +2909,9 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak):
     assert (main_row["dtype"], main_row["causal"]) == ("bfloat16", True)
     main_row["max_abs_err"] = max(errs.values())
     main_row["cases"] = [{k: c[k] for k in ("dtype", "causal", "BH", "Sq",
-                                             "Skv", "D", "ms", "plain_ms",
+                                             "Skv", "D", "route",
+                                             "family_serve_shape", "ms",
+                                             "plain_ms",
                                              "bound_ms", "library_ms",
                                              "vs_library", "bound_share",
                                              "max_abs_err")} for c in cases]
@@ -2896,13 +2976,19 @@ def flash_build_report(log, lib):
     """Each flash kernel's registers, shared memory and spills from
     ``-Xptxas -v`` (and any wgmma serialisation it reports), and its static
     instruction counts from ``cuobjdump -sass`` of the built library. Fails
-    unless every bf16 kernel holds HGMMA (wgmma) and UTMALDG (TMA loads)
-    and every fp32 kernel HMMA (the 3xTF32 ``mma.sync``) and UTMALDG, or if
-    ``cuobjdump`` is missing."""
+    unless every kernel of each route holds what the route is: the wgmma
+    route's bf16 kernels HGMMA (wgmma) and UTMALDG (TMA loads), its fp32
+    kernels HMMA (the 3xTF32 ``mma.sync``) and UTMALDG; the mma route's
+    bf16 kernels HMMA (``mma.sync``), its fp32 kernels FFMA (SIMT), at each
+    of its 13 head dims; or if ``cuobjdump`` is missing."""
     def route(line):
         m = FLASH_KERNEL.search(line)
+        if m:
+            return (("bf16" if m.group(1) != "f" else "fp32")
+                    + f" D={m.group(2)} q{64 * int(m.group(3))}")
+        m = FLASH_MMA_KERNEL.search(line)
         return m and (("bf16" if m.group(1) != "f" else "fp32")
-                      + f" D={m.group(2)} q{64 * int(m.group(3))}")
+                      + f" D={m.group(2)} mma")
     ptxas_report(log, route, "flash kernels")
     counts = {}
     for name, ops in sass_counts(lib, route).items():
@@ -2910,18 +2996,25 @@ def flash_build_report(log, lib):
         for op, k in ops.items():
             base = op.split(".")[0]
             counts[name][base] = counts[name].get(base, 0) + k
-    # bf16 and fp32 at D 32, 64, 128 with 64-row q tiles; bf16 D 128 also
-    # with 128-row ones
-    assert len(counts) == 7, sorted(counts)
+    # the wgmma route: bf16 and fp32 at D 32, 64, 128 with 64-row q tiles,
+    # bf16 D 128 also with 128-row ones; the mma route: bf16 and fp32 at
+    # every other multiple of 16 up to 256
+    from repro_torch.kernels.flash_attention import MMA_DIMS
+    assert len(counts) == 7 + 2 * len(MMA_DIMS), sorted(counts)
     for name, c in sorted(counts.items()):
         print(f"sass {name}: " + ", ".join(
             f"{op} {c.get(op, 0)}" for op in
             ("HGMMA", "HMMA", "UTMALDG", "LDS", "FFMA", "MUFU")))
-        need = ("HGMMA", "UTMALDG") if name.startswith("bf16") else (
-            "HMMA", "UTMALDG")
+        if name.endswith("mma"):
+            need = ("HMMA",) if name.startswith("bf16") else ("FFMA",)
+        else:
+            need = ("HGMMA", "UTMALDG") if name.startswith("bf16") else (
+                "HMMA", "UTMALDG")
         assert all(c.get(op, 0) > 0 for op in need), (name, c)
-    print(f"flash kernels: HGMMA and UTMALDG in every bf16 kernel, HMMA and "
-          f"UTMALDG in every fp32 kernel ({_cuobjdump()} -sass)")
+    print(f"flash kernels: wgmma route HGMMA and UTMALDG in every bf16 "
+          f"kernel, HMMA and UTMALDG in every fp32 kernel; mma route HMMA "
+          f"in every bf16 kernel, FFMA in every fp32 kernel "
+          f"({_cuobjdump()} -sass)")
 
 
 def wide_access_report(log, lib, route, names, label):
@@ -3070,6 +3163,22 @@ def leaf_only(torch, kernels, specs, dev, bound, log, lib):
     leaf_build_report(log, lib)
 
 
+def families_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only families``: the flash kernels' build report and SASS check,
+    flash_attention_fwd's checks and times (``flash_phase``, every case),
+    and the families phase (serving each family at full width, training
+    granite-moe at 4 layers)."""
+    _, flops, bf16_flops, tf32_flops = peaks_for(
+        torch.cuda.get_device_name(0))
+    flash_build_report(log, lib)
+    print(json.dumps({"flash_cases": flash_phase(
+        torch, dev, bound, bf16_flops, max(flops, tf32_flops / 3), flops)}))
+    t0 = time.perf_counter()
+    print(json.dumps({"families_launches": families_phase(torch, kernels,
+                                                          dev)}))
+    print(f"families phase: {time.perf_counter() - t0:.1f}s")
+
+
 def telemetry_only(torch, kernels, specs, dev, bound, log, lib):
     """``--only telemetry``: what telemetry adds to a packed server's commit
     at full width, away from the inner rounds. For HeLoCo and FedBuff, one
@@ -3173,6 +3282,150 @@ def telemetry_only(torch, kernels, specs, dev, bound, log, lib):
     print(json.dumps({"telemetry_pieces_ms": pieces, "R": r}))
 
 
+def plain_flash(q, k, v, *, causal=True, q_chunk=128, kv_chunk=128):
+    """flash_attention_fwd's plain version under the wrapper's signature:
+    what the serving checks' plain path attends with."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_fwd_ref(q, k, v, causal)
+
+
+def reference_arithmetic_flash(q, k, v, *, causal=True, q_chunk=128,
+                               kv_chunk=128):
+    """The reference model's own prefill attention arithmetic
+    (``repro/models/attention.py:_flash_chunk_fwd``): fp32 scores, the
+    masked exp, p / l rounded to q's dtype before P V in q's dtype. A
+    third path, exact in fp32 like the other two, whose distance from the
+    plain path measures how far bf16 rounding alone moves a model's
+    logits (``hold_to_plain``)."""
+    import torch
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) \
+        * float(np.float32(q.shape[-1] ** -0.5))
+    if causal:
+        rows = torch.arange(q.shape[1], device=q.device)[:, None]
+        cols = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return torch.einsum("bqk,bkd->bqd",
+                        (p / p.sum(-1, keepdim=True)).to(q.dtype), v)
+
+
+class flash_path:
+    """Within the block, prefill attention goes through the flash kernel
+    (``path=None``), its plain version on the card (``"plain"``) or the
+    reference model's arithmetic (``"reference"``)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        from repro_torch.models import attention as attn_lib
+        self.kernel = attn_lib.flash_attention_fwd
+        if self.path:
+            attn_lib.flash_attention_fwd = {
+                "plain": plain_flash,
+                "reference": reference_arithmetic_flash}[self.path]
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as attn_lib
+        attn_lib.flash_attention_fwd = self.kernel
+
+
+def serve_run(torch, kernels, model, params, batch, gen, plain=False):
+    """One prefill of ``batch`` and ``gen`` greedy tokens through the
+    launcher's steps (prefill only for an encoder), the launches of each
+    read apart; ``plain``: prefill attention through the flash kernel's
+    plain version."""
+    from repro_torch.launch import serve
+    with flash_path("plain" if plain else None):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        logits, caches, t_prefill = serve.prefill(model, params, batch, gen)
+        at_prefill = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        tokens, t_decode = (logits.argmax(-1)[:, None], None) \
+            if model.cfg.encoder_only else serve.decode(
+                model, params, logits, caches, serve.seq_len(batch), gen)
+        at_decode = kernels.launch_counts()
+    return {"logits": logits, "tokens": tokens, "at_prefill": at_prefill,
+            "at_decode": at_decode, "prefill_ms": 1e3 * t_prefill,
+            "decode_ms": None if t_decode is None else 1e3 * t_decode}
+
+
+def teacher_forced(model, params, batch, tokens, path):
+    """The logits of the prefill and of each decode step fed ``tokens``
+    (the kernel path's greedy choices), on the kernel path (``path``
+    None), the plain one or the reference arithmetic's (``flash_path``)."""
+    from repro_torch.launch import serve
+    with flash_path(path):
+        s, gen = serve.seq_len(batch), tokens.shape[1]
+        logits, caches = model.prefill(params, batch, s + gen)
+        out = [logits]
+        for i in range(gen - 1):
+            logits, caches = model.decode(params, tokens[:, i], caches, s + i)
+            out.append(logits)
+    return out
+
+
+def hold_to_plain(torch, model, params, batch, tokens, label, floor=False):
+    """Both paths fed the kernel path's greedy ``tokens``, step by step: at
+    the prefill and at every decode step their logits agree within
+    TOL_LOGITS of their largest |value|, and each greedy token is the plain
+    path's, or tied with it (within one step of the compute dtype at the
+    top logit: random bf16 logits tie, and a tie may break either way).
+
+    ``floor``: the band is the larger of TOL_LOGITS and FLOOR_FACTOR times
+    the farthest the reference model's own attention arithmetic
+    (``reference_arithmetic_flash``) puts the logits from the plain path's
+    at any step, fed the same tokens. Through many random bf16 layers any
+    two implementations exact in fp32 part by a few percent: one bf16
+    rounding that flips where fp32 sums in another order is amplified
+    layer by layer, and in an MoE a near-tie token changes experts
+    (PERF.md §6, the families). A greedy token then counts as tied
+    within twice the band, what the logits' band allows. Returns the
+    largest
+    difference and the band, both as shares of the largest |logit|, the
+    tokens taken otherwise, and the reference arithmetic's largest share
+    (None without ``floor``)."""
+    forced, forced_plain = (teacher_forced(model, params, batch, tokens, p)
+                            for p in (None, "plain"))
+    band, ref_share = TOL_LOGITS, None
+    if floor:
+        ref_share = max(
+            (lr.float() - lp.float()).abs().max().item()
+            / lp.float().abs().max().item() for lr, lp in zip(
+                teacher_forced(model, params, batch, tokens, "reference"),
+                forced_plain))
+        band = max(TOL_LOGITS, FLOOR_FACTOR * ref_share)
+    errs, ties = [], 0
+    for i, (lk, lp) in enumerate(zip(forced, forced_plain)):
+        tok = tokens[:, i]
+        assert torch.isfinite(lk).all() and torch.equal(
+            lk.argmax(-1), tok), f"{label} step {i}: kernel path not repeatable"
+        dtype = lk.dtype
+        lk, lp = lk.float(), lp.float()
+        err = (lk - lp).abs().max().item()
+        scale = lp.abs().max().item()
+        assert err <= band * scale, (
+            f"{label} step {i}: kernel path's logits off the plain path's "
+            f"by {err} (scale {scale}, band {band}, the reference "
+            f"arithmetic's share {ref_share})")
+        top = lp.max(-1).values
+        step = torch.finfo(dtype).eps * torch.exp2(
+            torch.floor(torch.log2(top.abs())))
+        if floor:
+            # logits within band * scale of each other put the kernel
+            # path's choice at most twice that below the plain path's top
+            step = torch.clamp_min(step, 2 * band * scale)
+        chosen = lp.gather(1, tok[:, None])[:, 0]
+        assert (chosen >= top - step).all(), (
+            f"{label} step {i}: the kernel path's greedy tokens "
+            f"{tok.tolist()} are not the plain path's "
+            f"{lp.argmax(-1).tolist()}, nor tied with them")
+        ties += int((lp.argmax(-1) != tok).sum())
+        errs.append(err / scale)
+    return max(errs), band, ties, ref_share
+
+
 def serve_phase(torch, kernels, dev):
     """Full-width tinygpt-15m in its compute dtype: prefill of
     SERVE["batch"] prompts of SERVE["prompt"] tokens, SERVE["gen"] greedy
@@ -3181,17 +3434,11 @@ def serve_phase(torch, kernels, dev):
     flash_attention_fwd once per layer and nothing else, decode nothing;
     logits finite. Then both paths, the kernel path and the plain path
     (the flash kernel's plain version), are fed the kernel path's greedy
-    tokens: at the prefill and at every decode step their logits agree
-    within TOL_LOGITS of their largest |value|, and each greedy token is
-    the plain path's, or tied with it (within one step of the compute
-    dtype at the top logit: random bf16 logits tie, and a tie may break
-    either way). Each run is timed SERVE["repeats"] times (medians).
-    Returns flash_attention_fwd's launches and the prefills they served."""
+    tokens and held to each other (``hold_to_plain``). Each run is timed
+    SERVE["repeats"] times (medians). Returns flash_attention_fwd's
+    launches and the prefills they served."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve
     from repro_torch.models import Model
-    from repro_torch.models import attention as attn_lib
     cfg = get_config("tinygpt-15m")
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), dev)
@@ -3200,50 +3447,8 @@ def serve_phase(torch, kernels, dev):
                                 ).to(dev)
                for s in (SERVE["prompt"], SERVE["long_prompt"])}
 
-    def plain_flash(q, k, v, *, causal=True, q_chunk=128, kv_chunk=128):
-        return fa.flash_attention_fwd_ref(q, k, v, causal)
-
     def run(prompt, gen, plain=False):
-        """One prefill and ``gen`` greedy tokens through the launcher's
-        steps, the launches of each read apart; ``plain``: prefill
-        attention through the flash kernel's plain version."""
-        kernel = attn_lib.flash_attention_fwd
-        if plain:
-            attn_lib.flash_attention_fwd = plain_flash
-        try:
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            logits, caches, t_prefill = serve.prefill(model, params, prompt,
-                                                      gen)
-            at_prefill = kernels.launch_counts()
-            kernels.reset_launch_counts()
-            tokens, t_decode = serve.decode(model, params, logits, caches,
-                                            prompt.shape[1], gen)
-            at_decode = kernels.launch_counts()
-        finally:
-            attn_lib.flash_attention_fwd = kernel
-        return {"logits": logits, "tokens": tokens, "at_prefill": at_prefill,
-                "at_decode": at_decode, "prefill_ms": 1e3 * t_prefill,
-                "decode_ms": 1e3 * t_decode}
-
-    def teacher_forced(prompt, tokens, plain):
-        """The logits of the prefill and of each decode step fed
-        ``tokens`` (the kernel path's greedy choices), on the kernel path
-        or the plain one."""
-        kernel = attn_lib.flash_attention_fwd
-        if plain:
-            attn_lib.flash_attention_fwd = plain_flash
-        try:
-            s, gen = prompt.shape[1], tokens.shape[1]
-            logits, caches = model.prefill(params, prompt, s + gen)
-            out = [logits]
-            for i in range(gen - 1):
-                logits, caches = model.decode(params, tokens[:, i], caches,
-                                              s + i)
-                out.append(logits)
-        finally:
-            attn_lib.flash_attention_fwd = kernel
-        return out
+        return serve_run(torch, kernels, model, params, prompt, gen, plain)
 
     none = dict.fromkeys(kernels.launch_counts(), 0)
     one_prefill = {**none, "flash_attention_fwd": cfg.n_layers}
@@ -3271,30 +3476,9 @@ def serve_phase(torch, kernels, dev):
         plain = plains[0]
         for r in plains:
             assert r["at_prefill"] == none == r["at_decode"], r
-        # both paths fed the kernel path's greedy tokens, step by step
-        forced, forced_plain = (teacher_forced(prompts[s], got["tokens"], p)
-                                for p in (False, True))
-        errs, ties = [], 0
-        for i, (lk, lp) in enumerate(zip(forced, forced_plain)):
-            tok = got["tokens"][:, i]
-            assert torch.isfinite(lk).all() and torch.equal(
-                lk.argmax(-1), tok), f"step {i}: kernel path not repeatable"
-            lk, lp = lk.float(), lp.float()
-            err = (lk - lp).abs().max().item()
-            scale = lp.abs().max().item()
-            assert err <= TOL_LOGITS * scale, (
-                f"prompt {s} step {i}: kernel path's logits off the plain "
-                f"path's by {err} (scale {scale})")
-            top = lp.max(-1).values
-            step = torch.finfo(logits.dtype).eps * torch.exp2(
-                torch.floor(torch.log2(top.abs())))
-            chosen = lp.gather(1, tok[:, None])[:, 0]
-            assert (chosen >= top - step).all(), (
-                f"prompt {s} step {i}: the kernel path's greedy tokens "
-                f"{tok.tolist()} are not the plain path's "
-                f"{lp.argmax(-1).tolist()}, nor tied with them")
-            ties += int((lp.argmax(-1) != tok).sum())
-            errs.append(err)
+        err, _, ties, _ = hold_to_plain(torch, model, params, prompts[s],
+                                        got["tokens"], f"prompt {s}")
+
         def med(rs, key):
             return statistics.median(r[key] for r in rs)
 
@@ -3319,7 +3503,7 @@ def serve_phase(torch, kernels, dev):
                    med(plains, "decode_ms") / (gen - 1) if gen > 1 else None),
                "device_prefill_ms": device["prefill"],
                "device_decode_step_ms": device["decode_step"],
-               "logits_max_abs_diff": max(errs), "band": TOL_LOGITS,
+               "logits_max_diff_share": err, "band": TOL_LOGITS,
                "greedy_tokens": got["tokens"].numel(),
                "greedy_ties_taken_otherwise": ties,
                "free_running_tokens_equal": torch.equal(got["tokens"],
@@ -3328,6 +3512,94 @@ def serve_phase(torch, kernels, dev):
         print(json.dumps({"serve": f"tinygpt-15m full width, "
                                    f"{cfg.compute_dtype}", **row}))
     return launches, prefills
+
+
+def families_phase(torch, kernels, dev):
+    """The attention families at full width in their own compute dtype
+    (bf16). (a) Serving: each FAMILIES arch (its depth cut where one is
+    given) from a draw on the card, at SERVE's batch, prompt and greedy
+    tokens (paligemma: 256 patch embeddings, then the prompt; hubert: frame
+    features, a prefill only): with the counts set to 0 just before each
+    and read just after, every prefill launches flash_attention_fwd once a
+    layer and nothing else, decode nothing, logits finite, and both paths
+    fed the kernel path's greedy tokens agree (``hold_to_plain``); prefill
+    ms and decode ms a token (medians of FAMILY_REPEATS), peak device
+    memory and init seconds printed; each model freed before the next.
+    (b) Training: FAMILY_TRAIN's scenario on its arch at full width and
+    the cut depth, through ``run_scenario``: the golden's arrivals, each
+    applied arrival launching packed_row_stats and packed_correct_outer
+    once and nothing else, finite evals, every tensor on the card.
+    Returns per kernel (launches, prefills or arrivals they served)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    launches = prefills = 0
+    for arch, layers in FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = Model(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch = serve.make_inputs(cfg, SERVE["batch"], SERVE["prompt"], 0,
+                                  dev)
+        gen = 1 if cfg.encoder_only else SERVE["gen"]
+        one_prefill = {**none, "flash_attention_fwd": cfg.n_layers}
+        serve_run(torch, kernels, model, params, batch, 2)     # warm-up
+        serve_run(torch, kernels, model, params, batch, 2, plain=True)
+        runs = [serve_run(torch, kernels, model, params, batch, gen)
+                for _ in range(FAMILY_REPEATS)]
+        got = runs[0]
+        for r in runs:
+            assert r["at_prefill"] == one_prefill, \
+                f"{arch}: prefill launched {r['at_prefill']}"
+            assert r["at_decode"] == none, \
+                f"{arch}: decode launched {r['at_decode']}"
+            assert torch.equal(r["tokens"], got["tokens"]), \
+                f"{arch}: greedy tokens not repeatable"
+            launches += cfg.n_layers
+            prefills += 1
+        assert got["logits"].dtype == getattr(torch, cfg.compute_dtype) and \
+            torch.isfinite(got["logits"]).all(), f"{arch}: logits not finite"
+        err, band, ties, ref_share = hold_to_plain(
+            torch, model, params, batch, got["tokens"], arch, floor=True)
+        decode = None if cfg.encoder_only else statistics.median(
+            r["decode_ms"] for r in runs) / (gen - 1)
+        print(json.dumps({
+            "family": arch, "family_kind": cfg.family, "layers": cfg.n_layers,
+            "depth_cut": f"{layers} of {get_config(arch).n_layers} layers"
+                         if layers else None,
+            "compute_dtype": cfg.compute_dtype, "head_dim": cfg.head_dim,
+            "causal": cfg.causal,
+            "params": sum(t.numel() for t in params.values()),
+            "batch": SERVE["batch"], "sequence": serve.seq_len(batch),
+            "gen": gen, "repeats": FAMILY_REPEATS, "init_s": init_s,
+            "prefill_ms": statistics.median(r["prefill_ms"] for r in runs),
+            "decode_ms_per_token": decode,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "flash_launches_per_prefill": cfg.n_layers,
+            "logits_max_diff_share": err, "band": band,
+            "reference_arithmetic_share": ref_share,
+            "greedy_ties_taken_otherwise": ties,
+            "tokens": got["tokens"][:2].tolist()}))
+        del params, batch, runs, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    name, arch, layers = FAMILY_TRAIN
+    counts, singles, _, means, _ = run_scenario(
+        torch, kernels, name, {"arch": arch}, HELOCO, (), layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": (launches, prefills),
+            **{k: (counts[k], singles) for k in HELOCO}}
 
 
 def main(argv=None) -> int:
@@ -3345,7 +3617,9 @@ def main(argv=None) -> int:
                          "(wallclock_only); socket builds packed.cu and runs "
                          "the socket phase (socket_only); obs builds "
                          "packed.cu and runs the obs phase with its untraced "
-                         "twins (obs_only)")
+                         "twins (obs_only); families builds flash_attention.cu "
+                         "and packed.cu, checks and times the flash kernels "
+                         "and runs the families phase (families_only)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3374,7 +3648,7 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
     t0 = time.perf_counter()
-    logs = _build.build_all([ONLY[args.only][0]] if args.only
+    logs = _build.build_all(ONLY[args.only][0] if args.only
                             else _build.SOURCES)
     for src, (secs, log) in logs.items():
         print(f"build {src}.cu: {secs:.1f}s")
@@ -3384,7 +3658,7 @@ def main(argv=None) -> int:
     assert len(specs) == N_LEAVES, len(specs)
     dev = torch.device("cuda")
     if args.only:
-        src, run_only = ONLY[args.only]
+        (src, *_), run_only = ONLY[args.only]
         run_only(torch, all_kernels, specs, dev, bound_of(bw, flops),
                  logs[src][1], _build.target(src))
         print(smi)
@@ -3446,6 +3720,12 @@ def main(argv=None) -> int:
     # flash_attention_fwd's path is serving: launches per prefill
     totals["flash_attention_fwd"] = list(serve_phase(torch, all_kernels, dev))
     print(f"serve phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, (launches, served) in families_phase(torch, all_kernels,
+                                                dev).items():
+        totals[k][0] += launches
+        totals[k][1] += served
+    print(f"families phase: {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for r in rows:
@@ -3485,11 +3765,13 @@ def main(argv=None) -> int:
     return 0
 
 
-# --only: the source each one-phase run builds, and the phase
-ONLY = {"int8": ("quantize", int8_only), "leaf": ("leaf", leaf_only),
-        "telemetry": ("packed", telemetry_only),
-        "wallclock": ("packed", wallclock_only),
-        "socket": ("packed", socket_only), "obs": ("packed", obs_only)}
+# --only: the sources each one-phase run builds (the first one's build
+# report goes to the phase), and the phase
+ONLY = {"int8": (("quantize",), int8_only), "leaf": (("leaf",), leaf_only),
+        "telemetry": (("packed",), telemetry_only),
+        "wallclock": (("packed",), wallclock_only),
+        "socket": (("packed",), socket_only), "obs": (("packed",), obs_only),
+        "families": (("flash_attention", "packed"), families_only)}
 
 
 if __name__ == "__main__":

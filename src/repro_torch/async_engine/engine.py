@@ -505,6 +505,12 @@ class EngineBase:
         if missing:
             raise NotImplementedError(
                 "the port's engine does not run " + "; ".join(missing))
+        if run_cfg.model.frontend.kind != "none":
+            # as the reference's: its sampler yields tokens, no frame
+            # features or patch embeddings
+            raise ValueError(f"{run_cfg.model.name}: the engine trains "
+                             "token models; the sampler yields no "
+                             f"{run_cfg.model.frontend.kind} inputs")
         self.cfg = run_cfg
         self.device = resolve_device(device)
         self.model = build_model(run_cfg.model)

@@ -9,9 +9,8 @@ workers keep computing. Every thread issues its work on the device's
 default stream, so program order alone orders a round after the snapshot
 it reads and a commit after the round that made its delta, and a run's
 bits do not depend on how the threads interleave. Each worker thread
-binds parameters to a model object of its own: ``functional_call`` swaps
-a module's parameters in place for the call, so two threads may not share
-one. With more than one visible card, worker ``wid`` runs on card
+builds a model object of its own (a model holds only its config, so this
+costs nothing). With more than one visible card, worker ``wid`` runs on card
 ``wid % n`` (its inputs are moved there and its results back).
 
 Two commit orders:

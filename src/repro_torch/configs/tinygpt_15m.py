@@ -15,4 +15,6 @@ CONFIG = ModelConfig(
     norm="layernorm",
     mlp_act="gelu",
     tied_embeddings=True,
+    remat=False,
+    scan_layers=False,
 )

@@ -683,6 +683,261 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// The mma route: D a multiple of 16 up to 256, outside {32, 64, 128}
+// ---------------------------------------------------------------------------
+//
+// A CTA of four warps owns a 64-row q tile and walks its kv tiles (64 rows)
+// with one (m, l, acc) per row, as Rows::softmax keeps it: warp w owns rows
+// 16 w .. 16 w + 15, and a thread holds the same (row, column) pairs of the
+// score tile and of the output as in the wgmma route. Q, then each K and V
+// tile, are copied into shared memory with 16-byte loads by all 128 threads
+// (rows past Sq or Skv zero-filled), between two __syncthreads; no TMA, no
+// ring: a simple kernel first. Rows are padded by 16 bytes so the fragment
+// loads below hit 32 distinct banks.
+//   bf16  tensor cores through mma.sync m16n8k16 (HMMA): S = Q K^T with A =
+//         Q and B = K read as 32-bit pairs along D; P V with A = P from the
+//         score registers rounded to bf16 (as in the wgmma route and SDPA)
+//         and B = V, which is stored transposed (D rows of 64 kv) so that its
+//         pairs along kv are 32-bit loads too.
+//   fp32  SIMT FMA in fp32: each thread forms its 32 scores as dot products
+//         over D from float4 rows of Q and K, and P V takes each kv column's
+//         p from the quad's owner by a shuffle.
+
+// c += a b, a: 16x16 bf16 (row), b: 16x8 bf16 (col), c: 16x8 fp32.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T, int D>
+struct Mma;
+
+template <int D>
+struct Mma<__nv_bfloat16, D> {
+  using T = __nv_bfloat16;
+  static constexpr int kLd = D + 8;          // Q and K rows, in elements
+  static constexpr int kLdV = kTile + 8;     // V^T rows (one per d)
+  static constexpr int kSmem = (2 * kTile * kLd + D * kLdV) * 2;
+
+  static __device__ __forceinline__ uint32_t pair(const T* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+
+  static __device__ __forceinline__ void store_v(T* sv, int r, int c,
+                                                 const uint4& val) {
+    const T* e = reinterpret_cast<const T*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sv[(c + j) * kLdV + r] = e[j];
+  }
+
+  // s = Q K^T (unscaled) of warp wq's 16 rows against the tile's 64.
+  static __device__ __forceinline__ void scores(float* s, const T* sq,
+                                                const T* sk, int wq,
+                                                int lane) {
+    const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    const T* qa = sq + (16 * wq + g) * kLd + 2 * c;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a[4] = {pair(qa + 16 * kk), pair(qa + 8 * kLd + 16 * kk),
+                             pair(qa + 16 * kk + 8),
+                             pair(qa + 8 * kLd + 16 * kk + 8)};
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const T* kb = sk + (8 * nb + g) * kLd + 16 * kk + 2 * c;
+        mma_bf16(&s[4 * nb], a, pair(kb), pair(kb + 8));
+      }
+    }
+  }
+
+  // acc += P V: a k16 step is score blocks 2 kk and 2 kk + 1 (kv 16 kk ..
+  // 16 kk + 15), whose accumulator registers are the A fragment's order.
+  static __device__ __forceinline__ void pv(float* acc, const float* p,
+                                            const T* sv, int lane) {
+    const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* pk = p + 8 * kk;
+      const uint32_t a[4] = {pack_bf16(pk[0], pk[1]), pack_bf16(pk[2], pk[3]),
+                             pack_bf16(pk[4], pk[5]), pack_bf16(pk[6], pk[7])};
+#pragma unroll
+      for (int db = 0; db < D / 8; ++db) {
+        const T* vb = sv + (8 * db + g) * kLdV + 16 * kk + 2 * c;
+        mma_bf16(&acc[4 * db], a, pair(vb), pair(vb + 8));
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void store(T* out, float x, float y) {
+    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(x, y);
+  }
+};
+
+template <int D>
+struct Mma<float, D> {
+  using T = float;
+  static constexpr int kLd = D + 4;          // Q, K and V rows
+  static constexpr int kSmem = 3 * kTile * kLd * 4;
+
+  static __device__ __forceinline__ void store_v(T* sv, int r, int c,
+                                                 const uint4& val) {
+    *reinterpret_cast<uint4*>(sv + r * kLd + c) = val;
+  }
+
+  // s = Q K^T (unscaled): s[4 j + 2 h + e] = row 16 wq + g + 8 h against kv
+  // row 8 j + 2 c + e, summed over D in fp32.
+  static __device__ __forceinline__ void scores(float* s, const T* sq,
+                                                const T* sk, int wq,
+                                                int lane) {
+    const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    const T* q0 = sq + (16 * wq + g) * kLd;
+#pragma unroll 2
+    for (int k4 = 0; k4 < D; k4 += 4) {
+      const float4 a0 = *reinterpret_cast<const float4*>(q0 + k4);
+      const float4 a1 = *reinterpret_cast<const float4*>(q0 + 8 * kLd + k4);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int j = i >> 1, e = i & 1;
+        const float4 b = *reinterpret_cast<const float4*>(
+            sk + (8 * j + 2 * c + e) * kLd + k4);
+        float* lo = &s[4 * j + e];
+        float* hi = &s[4 * j + 2 + e];
+        *lo = __fmaf_rn(a0.x, b.x, *lo);
+        *lo = __fmaf_rn(a0.y, b.y, *lo);
+        *lo = __fmaf_rn(a0.z, b.z, *lo);
+        *lo = __fmaf_rn(a0.w, b.w, *lo);
+        *hi = __fmaf_rn(a1.x, b.x, *hi);
+        *hi = __fmaf_rn(a1.y, b.y, *hi);
+        *hi = __fmaf_rn(a1.z, b.z, *hi);
+        *hi = __fmaf_rn(a1.w, b.w, *hi);
+      }
+    }
+  }
+
+  // acc += P V: kv column 8 j + 2 cc + e of rows g and g + 8 is held by the
+  // quad's lane cc; it is shuffled to the quad and multiplies V's row.
+  static __device__ __forceinline__ void pv(float* acc, const float* p,
+                                            const T* sv, int lane) {
+    const int c = lane & 3, quad = lane & ~3;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 = __shfl_sync(kFullMask, p[4 * j + e], quad | cc);
+          const float p1 = __shfl_sync(kFullMask, p[4 * j + 2 + e], quad | cc);
+          const T* vr = sv + (8 * j + 2 * cc + e) * kLd + 2 * c;
+#pragma unroll
+          for (int db = 0; db < D / 8; ++db) {
+            const float2 v = *reinterpret_cast<const float2*>(vr + 8 * db);
+            float* a = &acc[4 * db];
+            a[0] = __fmaf_rn(p0, v.x, a[0]);
+            a[1] = __fmaf_rn(p0, v.y, a[1]);
+            a[2] = __fmaf_rn(p1, v.x, a[2]);
+            a[3] = __fmaf_rn(p1, v.y, a[3]);
+          }
+        }
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void store(float* out, float x, float y) {
+    *reinterpret_cast<float2*>(out) = make_float2(x, y);
+  }
+};
+
+// Rows row0 .. row0 + 63 of a (n, D) matrix into shared memory (row stride
+// ld elements) with 16-byte loads, rows at or past n zero; each 16 bytes
+// handed to ``put(r, c, val)``.
+template <typename T, int D, typename Put>
+__device__ __forceinline__ void load_tile(const T* src, int row0, int n,
+                                          Put put) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  for (int i = threadIdx.x; i < kTile * kPerRow; i += 128) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n)
+      val = *reinterpret_cast<const uint4*>(
+          src + static_cast<size_t>(row0 + r) * D + c);
+    put(r, c, val);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(128, 1)
+flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int bh_count,
+                 int sq, int skv, int causal, float scale) {
+  using M = Mma<T, D>;
+  extern __shared__ unsigned char smem_raw[];   // 16-byte aligned: no
+                                                // static shared memory
+  T* s_q = reinterpret_cast<T*>(smem_raw);
+  T* s_k = s_q + kTile * M::kLd;
+  T* s_v = s_k + kTile * M::kLd;
+
+  // heaviest first, as flash_kernel
+  const int n_q = (sq + kTile - 1) / kTile;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x) / bh_count) * kTile;
+  const size_t bh = static_cast<size_t>(blockIdx.x) % bh_count;
+  const int n_kv = (skv + kTile - 1) / kTile;
+  const int n_tiles = causal ? min(n_kv, (q0 + kTile - 1) / kTile + 1) : n_kv;
+  const T* kb = k + bh * skv * D;
+  const T* vb = v + bh * skv * D;
+
+  const auto put_row = [](T* dst) {
+    return [dst](int r, int c, const uint4& val) {
+      *reinterpret_cast<uint4*>(dst + r * M::kLd + c) = val;
+    };
+  };
+  load_tile<T, D>(q + bh * sq * D, q0, sq, put_row(s_q));
+
+  const int lane = threadIdx.x & 31, wq = threadIdx.x >> 5;
+  const Rows rows{q0, wq, lane, q0 + wq * 16 + (lane >> 2), skv, causal,
+                  scale * kLog2e};
+  float s[32], acc[D / 2], alpha[2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.0f, 0.0f};   // this thread's columns; quad-summed last
+
+  for (int t = 0; t < n_tiles; ++t) {
+    __syncthreads();   // the previous tile is read
+    load_tile<T, D>(kb, t * kTile, skv, put_row(s_k));
+    load_tile<T, D>(vb, t * kTile, skv,
+                    [s_v](int r, int c, const uint4& val) {
+                      M::store_v(s_v, r, c, val);
+                    });
+    __syncthreads();
+    M::scores(s, s_q, s_k, wq, lane);
+    rows.softmax(s, m_run, l_run, alpha, t);
+    rescale<D / 2>(acc, alpha);
+    M::pv(acc, s, s_v, lane);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(kFullMask, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(kFullMask, l_run[h], 2);
+    l_run[h] = fmaxf(l_run[h], kLFloor);
+    const int row = rows.row_a + 8 * h;
+    if (row >= sq) continue;
+    T* out = o + (bh * sq + row) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      M::store(out + 8 * j, acc[4 * j + 2 * h] / l_run[h],
+               acc[4 * j + 2 * h + 1] / l_run[h]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -774,12 +1029,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
                               stream);
 }
 
+template <typename T, int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
+               int sq, int skv, int causal, float scale, cudaStream_t stream) {
+  const long long blocks =
+      static_cast<long long>((sq + kTile - 1) / kTile) * bh;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = Mma<T, D>::kSmem;
+  static_assert(bytes <= 232448, "shared memory per block");
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_mma_kernel<T, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_mma_kernel<T, D><<<static_cast<unsigned>(blocks), 128, bytes,
+                           stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), bh, sq, skv, causal,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
              int sq, int skv, int d, int causal, float scale, int sms,
              void* stream) {
   if (bh == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_MMA(D)                                                      \
+  case D:                                                                 \
+    return launch_mma<T, D>(q, k, v, o, bh, sq, skv, causal, scale, s);
   switch (d) {
     case 32:
       return launch<T, 32>(q, k, v, o, bh, sq, skv, causal, scale, sms, s);
@@ -787,9 +1065,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
       return launch<T, 64>(q, k, v, o, bh, sq, skv, causal, scale, sms, s);
     case 128:
       return launch<T, 128>(q, k, v, o, bh, sq, skv, causal, scale, sms, s);
+    FLASH_MMA(16) FLASH_MMA(48) FLASH_MMA(80) FLASH_MMA(96) FLASH_MMA(112)
+    FLASH_MMA(144) FLASH_MMA(160) FLASH_MMA(176) FLASH_MMA(192)
+    FLASH_MMA(208) FLASH_MMA(224) FLASH_MMA(240) FLASH_MMA(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_MMA
 }
 
 }  // namespace
@@ -797,7 +1079,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
 extern "C" {
 
 // q, o: (bh, sq, d); k, v: (bh, skv, d); contiguous, 16-byte aligned, all
-// bf16 (flash_fwd_bf16) or all fp32 (flash_fwd_f32); d in {32, 64, 128};
+// bf16 (flash_fwd_bf16) or all fp32 (flash_fwd_f32); d in {32, 64, 128}
+// (the wgmma + TMA route) or another multiple of 16 up to 256 (mma.sync);
 // skv >= 1; scale = d^-0.5 as fp32; sms = the device's SM count.
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    int bh, int sq, int skv, int d, int causal, float scale,

@@ -8,12 +8,16 @@ reference's signature and divisibility check; the CUDA kernel
 (``csrc/flash_attention.cu``) tiles by its own sizes and masks the ragged
 edge itself.
 
-The wrapper launches the kernel for CUDA tensors (bf16 through wgmma, fp32
-as 3xTF32 on the tensor cores; D in {32, 64, 128}) and raises on anything
-else; it runs the plain PyTorch version (``flash_attention_fwd_ref``, a
-masked fp32 softmax) only for tensors on the CPU. It counts its launches in
+The wrapper launches the kernel for CUDA tensors and raises on anything
+else. Two routes, by head dim: D in {32, 64, 128} (``HEAD_DIMS``) takes the
+wgmma + TMA kernels (bf16 through wgmma, fp32 as 3xTF32 on the tensor
+cores); any other multiple of 16 up to 256 (``MMA_DIMS``: 16, 80 for
+hubert and zamba2, 256 for paligemma, ...) a simpler kernel, bf16 on the
+tensor cores through ``mma.sync`` and fp32 as SIMT FMAs. It runs the plain
+PyTorch version (``flash_attention_fwd_ref``, a masked fp32 softmax) only
+for tensors on the CPU. It counts its launches in
 ``flash_attention_fwd.launches``. ``flash_attention_fwd_tiled`` repeats the
-kernel's walk over tiles in plain PyTorch, for the tests.
+kernels' walk over tiles in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)                      # the wgmma + TMA route
+MMA_DIMS = tuple(d for d in range(16, 257, 16) if d not in HEAD_DIMS)
 TILE = 64   # q rows per CTA and kv rows per tile of the CUDA kernel
 LOG2E = 1.4426950408889634
 _ptr = ctypes.c_void_p
@@ -58,14 +63,14 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_fwd_tiled(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True,
                               split: bool = True) -> torch.Tensor:
-    """The CUDA kernel's walk in fp32: q tiles of TILE rows, each with its
+    """The CUDA kernels' walk in fp32: q tiles of TILE rows, each with its
     kv tiles of TILE rows (those wholly above a causal tile's last row
     skipped) and a running (m, l, acc) from (-1e30, 0, 0) rescaled at every
     tile in the log2 domain; then acc / max(l, 1e-30) in q's dtype. With
-    ``split`` (the kernel's two warpgroups on one q tile) the kv tiles go
-    alternately to two states and the second is merged into the first;
-    without, one state walks them all (a warpgroup that owns its q tile).
-    Only the tests call it."""
+    ``split`` (the wgmma route's two warpgroups on one q tile) the kv tiles
+    go alternately to two states and the second is merged into the first;
+    without, one state walks them all (a wgmma warpgroup that owns its q
+    tile, or a CTA of the mma route). Only the tests call it."""
     bh, sq, d = q.shape
     skv = k.shape[1]
     scale2 = float(np.float32(np.float32(d ** -0.5) * np.float32(LOG2E)))
@@ -136,9 +141,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_fwd_ref(q, k, v, causal)
     if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention_fwd: bf16 or fp32, got {q.dtype}")
-    if d not in HEAD_DIMS or bh > 65535:
-        raise ValueError(f"flash_attention_fwd: D in {HEAD_DIMS} and "
-                         f"BH <= 65535, got D {d}, BH {bh}")
+    if d not in HEAD_DIMS + MMA_DIMS or bh > 65535:
+        raise ValueError(f"flash_attention_fwd: D a multiple of 16 up to "
+                         f"256 and BH <= 65535, got D {d}, BH {bh}")
     _build.check_cuda(q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_fwd: 16-byte aligned tensors")

@@ -1,7 +1,8 @@
 """Grouped-query attention: the training path and the KV-cache serving path.
 
-Port of ``repro/models/attention.py``. Training: q/k/v projections with
-RoPE on q and k, causal attention with fp32 scores and a masked fp32
+Port of ``repro/models/attention.py``. Training: q/k/v projections (with
+their biases under ``qkv_bias``) and RoPE on q and k, attention (causal, or
+not for an encoder) with fp32 scores and a masked fp32
 softmax, and the output projection, as plain PyTorch ops under autograd.
 The reference computes the same function through a chunked custom-vjp; the
 chunking only bounds memory.
@@ -16,32 +17,39 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.models.layers import apply_rope, meta_param
+from repro_torch.models.layers import Params, Shapes, apply_rope
 
 NEG_INF = -1e30
 
 
-class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = meta_param(cfg, d, h, hd)
-        self.wk = meta_param(cfg, d, kv, hd)
-        self.wv = meta_param(cfg, d, kv, hd)
-        self.wo = meta_param(cfg, h, hd, d)
+def attention_shapes(cfg: ModelConfig) -> Shapes:
+    """``init_attention``'s leaves: wq, wk, wv, wo, and the q, k, v biases
+    under ``qkv_bias``."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pd = cfg.param_dtype
+    out = {"wq": ((d, h, hd), pd), "wk": ((d, kv, hd), pd),
+           "wv": ((d, kv, hd), pd), "wo": ((h, hd, d), pd)}
+    if cfg.qkv_bias:
+        out.update(bq=((h, hd), pd), bk=((kv, hd), pd), bv=((kv, hd), pd))
+    return out
 
 
-def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+def qkv_project(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v (B, S, heads, D) in x's dtype: the projections, the biases
+    (before RoPE) and RoPE on q and k."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -65,8 +73,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, s, h, hd)
 
 
-def attn_output(p: Attention, ctx: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(ctx.dtype))
+def attn_output(p: Params, ctx: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +119,7 @@ def cache_write(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
     return cache
 
 
-def decode_attend(p: Attention, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+def decode_attend(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                   pos: int, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode: x (B,1,d), cache (B,T,KV,D), pos an int. Writes the

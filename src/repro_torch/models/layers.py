@@ -1,46 +1,58 @@
-"""Shared building blocks of the dense transformer: layernorm, RoPE, the gelu
-MLP, the tied embedding, and the fp32 cross-entropy.
+"""Shared building blocks: norms, RoPE, MLPs, embeddings and the LM head,
+and the fp32 cross-entropy.
 
-Port of ``repro/models/layers.py``. Each module declares its parameters on
-the ``meta`` device under the reference's leaf names; values are supplied
-per call (``Model.loss``), so one module serves every worker. Compute runs
-in ``cfg.compute_dtype``; parameters are stored in ``cfg.param_dtype``.
+Port of ``repro/models/layers.py``. Functions take their parameters as a
+dict of tensors under the reference's leaf names (``{"scale", "bias"}``,
+``{"w_gate", "w_up", "w_down", ...}``), so one model object serves every
+worker. Compute runs in ``cfg.compute_dtype``; parameters are stored in
+``cfg.param_dtype``.
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+Shapes = Dict[str, Tuple[Tuple[int, ...], str]]   # leaf -> (shape, dtype)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def meta_param(cfg: ModelConfig, *shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=getattr(torch, cfg.param_dtype),
-                                    device="meta"))
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_shapes(cfg: ModelConfig, d: int) -> Shapes:
+    """``init_norm``'s leaves: a scale, and a bias for layernorm only."""
+    out = {"scale": ((d,), cfg.param_dtype)}
+    if cfg.norm == "layernorm":
+        out["bias"] = ((d,), cfg.param_dtype)
+    return out
 
 
-class LayerNorm(nn.Module):
-    """Layernorm computed in fp32 and cast back to the input's dtype."""
-
-    def __init__(self, cfg: ModelConfig, d: int):
-        super().__init__()
-        self.eps = cfg.norm_eps
-        self.scale = meta_param(cfg, d)
-        self.bias = meta_param(cfg, d)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Layernorm or RMSNorm, computed in fp32 and cast back to x's dtype."""
+    xf = x.float()
+    if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-        out = (xf - mu) * torch.rsqrt(var + self.eps)
-        out = out * self.scale.float() + self.bias.float()
-        return out.to(x.dtype)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        var = (xf ** 2).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
+    return out.to(x.dtype)
 
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -59,32 +71,78 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-class MLP(nn.Module):
-    """gelu MLP; ``jax.nn.gelu`` defaults to the tanh approximation."""
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
 
-    def __init__(self, cfg: ModelConfig, d: int, ff: int):
-        super().__init__()
-        self.w_in = meta_param(cfg, d, ff)
-        self.w_down = meta_param(cfg, ff, d)
+def mlp_shapes(cfg: ModelConfig, d: int, ff: int) -> Shapes:
+    """``init_mlp``'s leaves: w_gate, w_up, w_down (swiglu, geglu) or w_in,
+    w_down (gelu), with their biases under ``mlp_bias``."""
+    pd = cfg.param_dtype
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        out = {"w_gate": ((d, ff), pd), "w_up": ((d, ff), pd)}
+    else:
+        out = {"w_in": ((d, ff), pd)}
+    out["w_down"] = ((ff, d), pd)
+    if cfg.mlp_bias:
+        for name in (("b_gate", "b_up") if cfg.mlp_act in ("swiglu", "geglu")
+                     else ("b_in",)):
+            out[name] = ((ff,), pd)
+        out["b_down"] = ((d,), pd)
+    return out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(x @ self.w_in.to(x.dtype), approximate="tanh")
-        return h @ self.w_down.to(x.dtype)
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
-class Embed(nn.Module):
-    """Token embedding, tied with the output head."""
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        g = x @ p["w_gate"].to(dt)
+        u = x @ p["w_up"].to(dt)
+        if cfg.mlp_bias:
+            g = g + p["b_gate"].to(dt)
+            u = u + p["b_up"].to(dt)
+        h = (F.silu(g) if cfg.mlp_act == "swiglu" else gelu(g)) * u
+    else:
+        h = x @ p["w_in"].to(dt)
+        if cfg.mlp_bias:
+            h = h + p["b_in"].to(dt)
+        h = gelu(h)
+    out = h @ p["w_down"].to(dt)
+    if cfg.mlp_bias:
+        out = out + p["b_down"].to(dt)
+    return out
 
-    def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        self.cfg = cfg
-        self.tok = meta_param(cfg, cfg.vocab_size, cfg.d_model)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.tok.to(dtype_of(self.cfg))[tokens]
+# ---------------------------------------------------------------------------
+# Embeddings / LM head
+# ---------------------------------------------------------------------------
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.tok.to(x.dtype).T
+def embed_shapes(cfg: ModelConfig) -> Shapes:
+    """``init_embed``'s leaves: the token table, and the output head when
+    the embeddings are not tied."""
+    out = {"tok": ((cfg.vocab_size, cfg.d_model), cfg.param_dtype)}
+    if not cfg.tied_embeddings:
+        out["lm_head"] = ((cfg.d_model, cfg.vocab_size), cfg.param_dtype)
+    return out
+
+
+def embed_tokens(p: Params, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    x = p["tok"].to(dtype_of(cfg))[tokens]
+    if cfg.embed_scale:
+        # sqrt(d_model) cast to the compute dtype first, as the reference
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def lm_logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tied_embeddings:
+        return x @ p["tok"].to(x.dtype).T
+    return x @ p["lm_head"].to(x.dtype)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,196 +1,316 @@
-"""The dense transformer of the HeLoCo training slice and of serving.
+"""Model assembly: the attention families of the reference's ``Model``.
 
-Port of the dense family of ``repro/models/transformer.py:Model`` with an
-unrolled ``blocks_list`` stack. The module tree mirrors the reference's
-parameter tree, so ``named_parameters()`` with ``.`` turned into ``/`` gives
-the reference's key paths. The module's own parameters live on the ``meta``
-device; ``init`` draws values, and ``loss``, ``prefill`` and ``decode`` run
-on a given parameter dict, so workers share one module.
+Port of ``repro/models/transformer.py`` for the families that run through
+``apply_attn_block``: ``dense``, ``moe``, ``audio`` (an encoder over frame
+features) and ``vlm`` (patch embeddings prepended to the text). The
+recurrent families ``hybrid`` and ``ssm`` are ROADMAP A17b.
+
+Parameters are a flat dict of tensors keyed by the reference's ``/``-joined
+key paths. With ``cfg.scan_layers`` the layers are stacked: every block
+leaf has a leading ``n_layers`` axis under ``blocks/`` (``blocks/attn/wq``,
+``blocks/moe/router``, ``blocks/moe/shared/w_gate``, ...), as the
+reference's ``jax.vmap``-ed init gives them; otherwise each layer has its
+own ``blocks_list/layer_XX/`` leaves. The model object holds only the
+config, so workers share one; ``init`` draws values, and ``loss``,
+``prefill`` and ``decode`` run on a given parameter dict.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import torch
-from torch import nn
-from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import leaf_order
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import (MLP, Embed, LayerNorm, cross_entropy,
-                                      dtype_of)
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import (Params, Shapes, apply_mlp, apply_norm,
+                                      cross_entropy, dtype_of, embed_shapes,
+                                      embed_tokens, lm_logits, mlp_shapes,
+                                      norm_shapes)
 
-Params = Dict[str, torch.Tensor]
-Cache = Dict[str, torch.Tensor]          # one layer's {"k", "v"}
-Caches = Dict[str, Cache]                # by layer, "layer_XX"
+Cache = Dict[str, torch.Tensor]          # {"k", "v"}: (B, T, KV, D), or
+Caches = Dict[str, object]               # stacked (L, B, T, KV, D); or by
+                                         # layer, {"layer_XX": Cache}
+ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
+BIAS_LEAVES = ("bias", "bq", "bk", "bv", "b_gate", "b_up", "b_in", "b_down")
 
 
-class AttnBlock(nn.Module):
+def _prefixed(prefix: str, shapes: Shapes) -> Shapes:
+    return {f"{prefix}/{k}": v for k, v in shapes.items()}
+
+
+def attn_block_shapes(cfg: ModelConfig) -> Shapes:
+    """``init_attn_block``'s leaves: norm1, attn, norm2 (not with a
+    parallel block), and the MLP or the MoE."""
+    out = {**_prefixed("norm1", norm_shapes(cfg, cfg.d_model)),
+           **_prefixed("attn", attn_lib.attention_shapes(cfg))}
+    if not cfg.parallel_block:
+        out.update(_prefixed("norm2", norm_shapes(cfg, cfg.d_model)))
+    if cfg.block_kind == "moe":
+        out.update(_prefixed("moe", moe_lib.moe_shapes(cfg)))
+    else:
+        out.update(_prefixed("mlp", mlp_shapes(cfg, cfg.d_model, cfg.d_ff)))
+    return out
+
+
+def _split(p: Mapping[str, torch.Tensor]) -> Dict[str, Params]:
+    """One layer's leaves by their first path part: ``{"attn": {"wq": ..},
+    "moe": {"router": .., "shared/w_gate": ..}, ...}``."""
+    out: Dict[str, Params] = {}
+    for k, v in p.items():
+        head, rest = k.split("/", 1)
+        out.setdefault(head, {})[rest] = v
+    return out
+
+
+def _ffn(p: Dict[str, Params], h: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    if cfg.block_kind == "moe":
+        return moe_lib.apply_moe(p["moe"], h, cfg)
+    return apply_mlp(p["mlp"], h, cfg), None
+
+
+def _mix(p: Dict[str, Params], x: torch.Tensor, h: torch.Tensor,
+         a: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's residual stream after attention ``a`` of ``h =
+    norm1(x)``: x + a + ffn(h) for a parallel block, else x + a then the
+    FFN of norm2 of that."""
+    if cfg.parallel_block:
+        mo, aux = _ffn(p, h, cfg)
+        return x + a + mo, aux
+    x = x + a
+    mo, aux = _ffn(p, apply_norm(p["norm2"], x, cfg), cfg)
+    return x + mo, aux
+
+
+def apply_attn_block(p: Dict[str, Params], x: torch.Tensor, cfg: ModelConfig,
+                     positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Training forward without cache. Returns (x', aux: the MoE's
+    load-balance loss, None without one)."""
+    h = apply_norm(p["norm1"], x, cfg)
+    q, k, v = attn_lib.qkv_project(p["attn"], h, cfg, positions)
+    ctx = attn_lib.attend(q, k, v, causal=cfg.causal)
+    return _mix(p, x, h, attn_lib.attn_output(p["attn"], ctx), cfg)
+
+
+def prefill_attn_block(p: Dict[str, Params], x: torch.Tensor,
+                       cfg: ModelConfig, positions: torch.Tensor,
+                       cache: Cache) -> torch.Tensor:
+    """``prefill_attn_block``: attention through the flash kernel, the
+    prompt's k and v written into ``cache`` at 0."""
+    h = apply_norm(p["norm1"], x, cfg)
+    q, k, v = attn_lib.qkv_project(p["attn"], h, cfg, positions)
+    ctx = attn_lib.prefill_attend(q, k, v, causal=cfg.causal)
+    attn_lib.cache_write(cache, k, v, 0)
+    return _mix(p, x, h, attn_lib.attn_output(p["attn"], ctx), cfg)[0]
+
+
+def decode_attn_block(p: Dict[str, Params], x: torch.Tensor, cfg: ModelConfig,
+                      cache: Cache, pos: int) -> torch.Tensor:
+    """``decode_attn_block``: one token against the cache (written in
+    place)."""
+    h = apply_norm(p["norm1"], x, cfg)
+    a, _ = attn_lib.decode_attend(p["attn"], h, cache, pos, cfg)
+    return _mix(p, x, h, a, cfg)[0]
+
+
+class Model:
     def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        self.cfg = cfg
-        self.norm1 = LayerNorm(cfg, cfg.d_model)
-        self.attn = attn_lib.Attention(cfg)
-        self.norm2 = LayerNorm(cfg, cfg.d_model)
-        self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff)
-
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        h = self.norm1(x)
-        q, k, v = attn_lib.qkv_project(self.attn, h, self.cfg, positions)
-        ctx = attn_lib.attend(q, k, v, causal=self.cfg.causal)
-        x = x + attn_lib.attn_output(self.attn, ctx)
-        return x + self.mlp(self.norm2(x))
-
-    def prefill(self, x: torch.Tensor, positions: torch.Tensor,
-                cache_len: int) -> Tuple[torch.Tensor, Cache]:
-        """The forward of ``prefill_attn_block``: attention through the
-        flash kernel, and the KV cache (length ``cache_len``, x's dtype)
-        with the prompt's k and v written at 0."""
-        h = self.norm1(x)
-        q, k, v = attn_lib.qkv_project(self.attn, h, self.cfg, positions)
-        ctx = attn_lib.prefill_attend(q, k, v, causal=self.cfg.causal)
-        cache = attn_lib.init_kv_cache(self.cfg, x.shape[0], cache_len,
-                                       x.dtype, x.device)
-        attn_lib.cache_write(cache, k, v, 0)
-        x = x + attn_lib.attn_output(self.attn, ctx)
-        return x + self.mlp(self.norm2(x)), cache
-
-    def decode(self, x: torch.Tensor, cache: Cache, pos: int
-               ) -> Tuple[torch.Tensor, Cache]:
-        """``decode_attn_block``: one token against the cache."""
-        h = self.norm1(x)
-        a, cache = attn_lib.decode_attend(self.attn, h, cache, pos, self.cfg)
-        x = x + a
-        return x + self.mlp(self.norm2(x)), cache
-
-
-class _Call(nn.Module):
-    """Runs one method of ``model`` as its forward, so that
-    ``functional_call`` can bind a parameter dict to it."""
-
-    def __init__(self, model: nn.Module, method: str):
-        super().__init__()
-        self.model = model
-        self.method = method
-
-    def forward(self, *args):
-        return getattr(self.model, self.method)(*args)
-
-
-class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        if (cfg.family, cfg.norm, cfg.mlp_act, cfg.tied_embeddings) != \
-                ("dense", "layernorm", "gelu", True):
+        if cfg.family not in ATTN_FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the port runs the dense layernorm/gelu/tied "
-                "family only")
+                f"{cfg.name}: the port does not run the {cfg.family!r} "
+                "family yet (ROADMAP A17b: zamba2's Mamba2 stack and xLSTM)")
         self.cfg = cfg
-        self.embed = Embed(cfg)
-        self.final_norm = LayerNorm(cfg, cfg.d_model)
-        self.blocks_list = nn.ModuleDict(
-            {f"layer_{i:02d}": AttnBlock(cfg) for i in range(cfg.n_layers)})
-
-    def forward(self, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        x = self.embed(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        for block in self.blocks_list.values():
-            x = block(x, positions)
-        logits = self.embed.logits(self.final_norm(x))
-        return cross_entropy(logits, torch.clamp_min(labels, 0), labels >= 0)
+        shapes = {**_prefixed("embed", embed_shapes(cfg)),
+                  **_prefixed("final_norm", norm_shapes(cfg, cfg.d_model))}
+        block = attn_block_shapes(cfg)
+        if cfg.scan_layers:
+            shapes.update({f"blocks/{k}": ((cfg.n_layers,) + s, dt)
+                           for k, (s, dt) in block.items()})
+        else:
+            for i in range(cfg.n_layers):
+                shapes.update(_prefixed(f"blocks_list/layer_{i:02d}", block))
+        self._shapes = {k: shapes[k] for k in leaf_order(shapes)}
 
     # ---------------- parameters ----------------
 
     def param_specs(self) -> Dict[str, torch.Tensor]:
         """The model's leaves in leaf order, as ``meta`` tensors (shape and
         dtype, no storage)."""
-        named = {n.replace(".", "/"): p for n, p in self.named_parameters()}
-        return {k: named[k] for k in leaf_order(named)}
+        return {k: torch.empty(s, dtype=getattr(torch, dt), device="meta")
+                for k, (s, dt) in self._shapes.items()}
 
     def _init_scale(self, path: str) -> float:
+        """The reference's init scale of a drawn leaf, keyed on its whole
+        path: ``w_down`` is d_ff ** -0.5 in the MLP, expert_d_ff ** -0.5 in
+        the MoE's experts and its shared expert."""
         cfg = self.cfg
-        return {"tok": 0.02,
-                "wq": cfg.d_model ** -0.5, "wk": cfg.d_model ** -0.5,
-                "wv": cfg.d_model ** -0.5,
-                "wo": (cfg.n_heads * cfg.head_dim) ** -0.5,
-                "w_in": cfg.d_model ** -0.5,
-                "w_down": cfg.d_ff ** -0.5}[path.rsplit("/", 1)[-1]]
+        parts = path.split("/")
+        leaf = parts[-1]
+        if parts[0] == "embed":
+            return 0.02 if leaf == "tok" else cfg.d_model ** -0.5
+        if leaf == "router":
+            return 0.02
+        if leaf == "wo":
+            return (cfg.n_heads * cfg.head_dim) ** -0.5
+        if leaf == "w_down":
+            ff = cfg.moe.expert_d_ff if "moe" in parts else cfg.d_ff
+            return ff ** -0.5
+        return cfg.d_model ** -0.5      # wq, wk, wv, w_in, w_gate, w_up
 
     def init(self, generator: torch.Generator, device) -> Params:
-        """Fresh parameters: normal * scale (0.02 for the embedding, fan-in
-        ** -0.5 for projections), ones/zeros for norm scale/bias. Drawn
-        from ``generator`` (a CPU generator, so the draw does not depend
-        on the device) in leaf order."""
-        dtype = getattr(torch, self.cfg.param_dtype)
+        """Fresh parameters: normal * scale (0.02 for the embedding and the
+        router, fan-in ** -0.5 for projections), ones for norm scales,
+        zeros for biases. Drawn leaf by leaf in leaf order on the
+        generator's device (so a CPU generator's draw does not depend on
+        ``device``), then moved to ``device``."""
         out = {}
-        for path, spec in self.param_specs().items():
+        for path, (shape, dt) in self._shapes.items():
             leaf = path.rsplit("/", 1)[-1]
+            dtype = getattr(torch, dt)
             if leaf == "scale":
-                x = torch.ones(spec.shape)
-            elif leaf == "bias":
-                x = torch.zeros(spec.shape)
+                x = torch.ones(shape, dtype=dtype, device=device)
+            elif leaf in BIAS_LEAVES:
+                x = torch.zeros(shape, dtype=dtype, device=device)
             else:
-                x = torch.randn(spec.shape, generator=generator) \
-                    * self._init_scale(path)
-            out[path] = x.to(device=device, dtype=dtype)
+                x = torch.randn(shape, generator=generator,
+                                device=generator.device)
+                x = x.mul_(self._init_scale(path)).to(device=device,
+                                                      dtype=dtype)
+            out[path] = x
         return out
+
+    def _layers(self, params: Mapping[str, torch.Tensor]
+                ) -> Iterator[Dict[str, Params]]:
+        """Each layer's leaves, split by block part, in layer order."""
+        cfg = self.cfg
+        if cfg.scan_layers:
+            stacked = {k[len("blocks/"):]: v for k, v in params.items()
+                       if k.startswith("blocks/")}
+            for i in range(cfg.n_layers):
+                yield _split({k: v[i] for k, v in stacked.items()})
+        else:
+            for i in range(cfg.n_layers):
+                pre = f"blocks_list/layer_{i:02d}/"
+                yield _split({k[len(pre):]: v for k, v in params.items()
+                              if k.startswith(pre)})
+
+    @staticmethod
+    def _part(params: Mapping[str, torch.Tensor], name: str) -> Params:
+        pre = name + "/"
+        return {k[len(pre):]: v for k, v in params.items()
+                if k.startswith(pre)}
+
+    # ---------------- embedding front ----------------
+
+    def _embed(self, params: Mapping[str, torch.Tensor],
+               batch: Mapping[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (x (B, S, d), positions (S,)): frame features (audio),
+        patch embeddings before the tokens' (vision), or the tokens'."""
+        cfg = self.cfg
+        if cfg.frontend.kind == "audio":
+            x = batch["features"].to(dtype_of(cfg))
+        else:
+            x = embed_tokens(self._part(params, "embed"), batch["tokens"],
+                             cfg)
+            if cfg.frontend.kind == "vision":
+                x = torch.cat([batch["patches"].to(dtype_of(cfg)), x], dim=1)
+        return x, torch.arange(x.shape[1], device=x.device)
 
     # ---------------- train forward ----------------
 
     def loss(self, params: Mapping[str, torch.Tensor],
              batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token loss of ``batch`` (``tokens``, ``labels``) under
-        ``params`` (the reference returns it with an empty aux dict)."""
-        values = {k.replace("/", "."): v for k, v in params.items()}
-        return functional_call(self, values,
-                               (batch["tokens"], batch["labels"]),
-                               strict=True)
+        """Mean next-token loss of ``batch`` (``tokens`` or ``features``,
+        ``patches`` for vision, ``labels``, optional ``loss_mask``) under
+        ``params``; an MoE adds 0.01 times its load-balance loss averaged
+        over layers (the reference returns the aux beside the loss)."""
+        cfg = self.cfg
+        x, positions = self._embed(params, batch)
+        aux_sum = None
+        for p in self._layers(params):
+            x, aux = apply_attn_block(p, x, cfg, positions)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        x = apply_norm(self._part(params, "final_norm"), x, cfg)
+        if cfg.frontend.kind == "vision":
+            x = x[:, cfg.frontend.n_prefix_tokens:]
+        logits = lm_logits(self._part(params, "embed"), x, cfg)
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = labels >= 0
+        loss = cross_entropy(logits, torch.clamp_min(labels, 0), mask)
+        if cfg.is_moe:
+            loss = loss + 0.01 * (aux_sum / max(cfg.n_layers, 1))
+        return loss
 
     # ---------------- serving ----------------
 
-    def _serve(self, method: str, params: Mapping[str, torch.Tensor], *args):
-        values = {"model." + k.replace("/", "."): v for k, v in params.items()}
-        return functional_call(_Call(self, method), values, args, strict=True)
-
-    def _prefill(self, tokens: torch.Tensor, cache_len: int):
-        x = self.embed(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        caches = {}
-        for key, block in self.blocks_list.items():
-            x, caches[key] = block.prefill(x, positions, cache_len)
-        x = self.final_norm(x[:, -1:])
-        return self.embed.logits(x)[:, 0], caches
-
-    def _decode(self, token: torch.Tensor, caches: Caches, pos: int):
-        x = self.embed(token[:, None])
-        new = {}
-        for key, block in self.blocks_list.items():
-            x, new[key] = block.decode(x, caches[key], pos)
-        return self.embed.logits(self.final_norm(x))[:, 0], new
-
-    def prefill(self, params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
-                cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Caches]:
-        """tokens: (B, S) int. Returns (the last position's logits (B, V) in
-        the compute dtype, the caches ``{"layer_XX": {"k", "v"}}`` of length
-        ``cache_len`` (default S) in the compute dtype). Each layer's
-        attention is one launch of the flash-attention kernel on the card."""
-        return self._serve("_prefill", params, tokens,
-                           cache_len or tokens.shape[1])
-
     def init_caches(self, batch: int, cache_len: int, device) -> Caches:
-        """Zero caches of every layer, in the compute dtype."""
-        return {key: attn_lib.init_kv_cache(self.cfg, batch, cache_len,
-                                            dtype_of(self.cfg), device)
-                for key in self.blocks_list}
+        """Zero caches of every layer, in the compute dtype: stacked
+        ``{"k", "v"}`` of (L, B, T, KV, D) with ``scan_layers``, else
+        ``{"layer_XX": {"k", "v"}}``."""
+        cfg = self.cfg
+        if cfg.scan_layers:
+            shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            return {kv: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
+                    for kv in ("k", "v")}
+        return {f"layer_{i:02d}": attn_lib.init_kv_cache(
+            cfg, batch, cache_len, dtype_of(cfg), device)
+            for i in range(cfg.n_layers)}
 
+    def _layer_caches(self, caches: Caches) -> Iterator[Cache]:
+        """Each layer's cache, a view into the stacked tensors."""
+        if self.cfg.scan_layers:
+            for i in range(self.cfg.n_layers):
+                yield {"k": caches["k"][i], "v": caches["v"][i]}
+        else:
+            for i in range(self.cfg.n_layers):
+                yield caches[f"layer_{i:02d}"]
+
+    @torch.no_grad()
+    def prefill(self, params: Mapping[str, torch.Tensor],
+                batch: Union[torch.Tensor, Mapping[str, torch.Tensor]],
+                cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Caches]:
+        """``batch``: the prompts' tokens (B, S), or a dict with ``tokens``
+        (and ``patches`` for vision) or ``features`` (audio). Returns (the
+        last position's logits (B, V) in the compute dtype, the caches of
+        length ``cache_len`` (default the sequence, prefix included) in
+        the compute dtype). Each layer's attention is one launch of the
+        flash-attention kernel on the card."""
+        cfg = self.cfg
+        if isinstance(batch, torch.Tensor):
+            batch = {"tokens": batch}
+        x, positions = self._embed(params, batch)
+        caches = self.init_caches(x.shape[0], cache_len or x.shape[1],
+                                  x.device)
+        for p, cache in zip(self._layers(params), self._layer_caches(caches)):
+            x = prefill_attn_block(p, x, cfg, positions, cache)
+        x = apply_norm(self._part(params, "final_norm"), x[:, -1:], cfg)
+        return lm_logits(self._part(params, "embed"), x, cfg)[:, 0], caches
+
+    @torch.no_grad()
     def decode(self, params: Mapping[str, torch.Tensor], token: torch.Tensor,
                caches: Caches, pos: int) -> Tuple[torch.Tensor, Caches]:
         """One decode step. token: (B,) int; pos: the position it is written
         at (the same for every row). The caches are written in place and
         returned; logits (B, V) in the compute dtype. Plain PyTorch: no
-        kernel launches."""
-        return self._serve("_decode", params, token, caches, int(pos))
+        kernel launches. An encoder-only model has no decode step."""
+        cfg = self.cfg
+        if cfg.encoder_only:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+        x = embed_tokens(self._part(params, "embed"), token[:, None], cfg)
+        for p, cache in zip(self._layers(params), self._layer_caches(caches)):
+            x = decode_attn_block(p, x, cfg, cache, int(pos))
+        x = apply_norm(self._part(params, "final_norm"), x, cfg)
+        return lm_logits(self._part(params, "embed"), x, cfg)[:, 0], caches
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -23,7 +23,9 @@ product back). flash_attention_fwd
 (csrc/flash_attention.cu) within the reference's own bands of its plain
 version: 2e-5 in fp32, 2e-2 in bf16 (tests/test_kernels.py:125-160); a
 full-width prefill's logits within 2e-2 of their largest |value| of the
-plain path's (tests/test_torch_serve.py's bf16 bound). Checkpoints: a
+plain path's (tests/test_torch_serve.py's bf16 bound); each attention
+family's smoke-width prefill within 1e-4 (logits) and 1e-5 (caches) of
+their largest |value| of the CPU port's, fp32 on both sides. Checkpoints: a
 state saved from the card restores to the card bit for bit, with the hash
 of the same bits saved from the CPU; a full-width run checkpointed at 6
 and resumed to 12 on the card has the arrivals of the same save and
@@ -682,10 +684,43 @@ def test_flash_attention_same_bits_twice(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [16, 80, 256])
+@pytest.mark.parametrize("shape", [
+    (3, 256, 256), (2, 200, 200), (2, 128, 384), (2, 1000, 200),
+    (2, 1, 300), (64, 128, 128)],
+    ids=["square", "ragged", "sq_lt_skv", "sq_gt_skv", "one_row",
+         "serve_shape"])
+def test_flash_attention_mma_route_matches_plain(cuda, shape, d, dtype,
+                                                 causal):
+    """The second route (``mma.sync`` in bf16, SIMT FMA in fp32) at the
+    head dims of the smoke configs (16), hubert and zamba2 (80) and
+    paligemma (256): ragged Sq and Skv, causal with Sq < Skv and Sq > Skv,
+    one query row, a prefill's BH of 64."""
+    bh, sq, skv = shape
+    gen = torch.Generator(device=cuda).manual_seed(d + sq)
+    q = torch.randn((bh, sq, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((bh, skv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    n0 = fa.flash_attention_fwd.launches
+    got = fa.flash_attention_fwd(q, k, v, causal=causal, q_chunk=sq,
+                                 kv_chunk=skv)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), fa.flash_attention_fwd_ref(
+        q, k, v, causal).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_flash_attention_refuses_what_it_does_not_run(cuda):
-    q = torch.zeros((2, 64, 16), device=cuda)
-    with pytest.raises(ValueError):
-        fa.flash_attention_fwd(q, q, q)
+    for d in (24, 272):     # no route: not a multiple of 16, or past 256
+        q = torch.zeros((2, 64, d), device=cuda)
+        with pytest.raises(ValueError):
+            fa.flash_attention_fwd(q, q, q)
     h = torch.zeros((2, 64, 32), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(h, h, h)
@@ -722,6 +757,44 @@ def test_full_width_prefill_launches_flash_once_per_layer(cuda):
         attn_lib.flash_attention_fwd = kernel
     err = (logits.float() - plain.float()).abs().max().item()
     assert err <= 2e-2 * plain.float().abs().max().item(), err
+
+
+FAMILY_ARCHS = ("qwen2-7b", "granite-3-8b", "command-r-35b", "starcoder2-15b",
+                "granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+                "hubert-xlarge", "paligemma-3b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_prefill_on_the_card(cuda, arch):
+    """Each attention family at smoke width (fp32, D = 16: the mma route):
+    a prefill on the card launches flash_attention_fwd once a layer and
+    nothing else, and its logits and caches are the CPU port's within 1e-4
+    and 1e-5 of their largest |value| (fp32 on both sides; cuBLAS sums in
+    another order than the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    cfg = get_config(arch + "-smoke")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = serve.make_inputs(cfg, 2, 24, 0, "cpu")
+    want, want_caches = model.prefill(params, batch, 30)
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    kernels.reset_launch_counts()
+    got, caches = model.prefill(on_card, {k: v.to(cuda) for k, v in
+                                          batch.items()}, 30)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0),
+                      "flash_attention_fwd": cfg.n_layers}
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    for kv in ("k", "v"):
+        c = caches[kv].cpu()
+        assert (c - want_caches[kv]).abs().max().item() <= \
+            1e-5 * want_caches[kv].abs().max().item()
 
 
 @pytest.mark.cuda
