@@ -27,11 +27,10 @@ phase):
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
      from ``-Xptxas -v``, and its instruction counts from ``cuobjdump
-     -sass``: on the wgmma route (D 32, 64, 128) every bf16 kernel must
-     hold HGMMA (wgmma) and UTMALDG (TMA loads), every fp32 kernel HMMA
-     (3xTF32 ``mma.sync``); on the mma route (every other multiple of 16
-     up to 256) every bf16 kernel HMMA (``mma.sync``), every fp32 kernel
-     FFMA (SIMT); the same for
+     -sass``: at every padded width (32, 64, 128, 192, 256) every bf16
+     kernel must hold HGMMA (wgmma) and UTMALDG (TMA loads), every fp32
+     kernel HMMA (3xTF32 ``mma.sync``) and UTMALDG, and every one zero
+     spills; the same for
      the int8 quantize and dequantize kernels, and the per-leaf
      correct_apply (one block, stacked) and outer_update kernels, each of
      which must hold 128-bit global loads and stores (LDG/STG .128), with
@@ -171,7 +170,7 @@ phase):
      flash_attention_fwd there too, bf16 within 2e-2 and fp32
      within 2e-5 of its plain version at the serve shape (BH 32, S 1024,
      D 32), the prompt-128 shape, at (BH 16, S 4096, D 128) and on a
-     rectangular 128 x 384, on the mma route at D 16 (ragged 200), 80
+     rectangular 128 x 384, at padded widths: D 16 (ragged 200), 80
      (128 x 384) and 256 (384 x 128), and at each family's serve shape
      (D 64, 80, 128, 256), causal and not, timed beside
      ``scaled_dot_product_attention``, with each case's ratio to it and
@@ -383,22 +382,22 @@ TOL_LOGITS = 2e-2
 # tests with q_chunk 32
 FLASH_SHAPES = ((32, 1024, 1024, 32), (32, 128, 128, 32),
                 (16, 4096, 4096, 128), (2, 128, 384, 64))
-# the mma route's head dims (16: every smoke config, 80: hubert, 256:
-# paligemma), ragged, Sq < Skv and Sq > Skv; then each family's prefill at
+# head dims the kernel runs at a padded width (16: every smoke config, 80:
+# hubert, 256: paligemma), ragged, Sq < Skv and Sq > Skv; then each
+# family's prefill at
 # the families phase's serve shape (batch 4 x heads, prompt 128; paligemma
 # 256 patches + 128 tokens), by D: granite-moe 64, hubert 80 (the encoder:
 # its own case is not causal), qwen2-7b 128 (the other 128-wide configs
 # differ in BH only), paligemma 256
-FLASH_MMA_SHAPES = ((16, 200, 200, 16), (2, 128, 384, 80),
-                    (2, 384, 128, 256))
+FLASH_PADDED_SHAPES = ((16, 200, 200, 16), (2, 128, 384, 80),
+                       (2, 384, 128, 256))
 FLASH_FAMILY_SHAPES = {"granite-moe-1b-a400m": (64, 128, 128, 64),
                        "hubert-xlarge": (64, 128, 128, 80),
                        "qwen2-7b": (112, 128, 128, 128),
                        "paligemma-3b": (32, 384, 384, 256)}
-# the flash kernels' mangled names: the wgmma route's (type, D, 64-row q
-# tiles per CTA) and the mma route's (type, D); and a SASS line's opcode
+# the flash kernels' mangled names (type, padded width, 64-row q tiles per
+# CTA); and a SASS line's opcode
 FLASH_KERNEL = re.compile(r"flash_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d)E")
-FLASH_MMA_KERNEL = re.compile(r"flash_mma_kernelI(13__nv_bfloat16|f)Li(\d+)EE")
 # the per-tensor int8 sweeps' kernel names in the compiler's report and SASS
 INT8_SWEEP = re.compile(r"\d(quant_kernel|dequant_kernel)E")
 # the per-leaf elementwise sweeps' kernel names (correct_apply's template
@@ -645,10 +644,10 @@ def kernel_phase(torch, pk, compression, layout, specs, dev, bw, flops,
     multi_rows = multi_phase(torch, pk, layout, dev, p, m, b, bound)
     leaf_rows = leaf_phase(torch, specs, dev, bound)
     int8_rows = int8_kernel_phase(torch, specs, dev, bound)
-    # the fp32 route runs 3xTF32: three TF32 products per operation, or
-    # one fp32 FMA where that would be faster
+    # fp32 runs 3xTF32: three TF32 products per operation, or one fp32 FMA
+    # where that would be faster
     flash_rows = flash_phase(torch, dev, bound, bf16_flops,
-                             max(flops, tf32_flops / 3), flops)
+                             max(flops, tf32_flops / 3))
 
     n = R * 128
     plane, table_bytes = n * f4, R * 4
@@ -2817,25 +2816,24 @@ def flash_flops(sq, skv, d, causal):
     return 4 * d * kept
 
 
-def flash_phase(torch, dev, bound, bf16_peak, fp32_peak, simt_peak):
-    """flash_attention_fwd of ``csrc/flash_attention.cu`` against its plain
-    version, bf16 within 2e-2 and fp32 within 2e-5, at FLASH_SHAPES (the
-    wgmma route: bf16 wgmma, fp32 3xTF32), FLASH_MMA_SHAPES (the mma route:
-    bf16 mma.sync, fp32 SIMT) and FLASH_FAMILY_SHAPES (both routes), causal
-    and not; then timed beside
-    ``scaled_dot_product_attention`` at each shape, with the ratio to it and
-    the share of the bound (operations at ``bf16_peak``, or in fp32 at
-    ``fp32_peak`` on the wgmma route and ``simt_peak`` on the mma route).
+def flash_phase(torch, dev, bound, bf16_peak, fp32_peak):
+    """flash_attention_fwd of ``csrc/flash_attention.cu`` (bf16 wgmma, fp32
+    3xTF32) against its plain version, bf16 within 2e-2 and fp32 within
+    2e-5, at FLASH_SHAPES (D 32, 64, 128), FLASH_PADDED_SHAPES (D 16, 80,
+    256, on padded widths) and FLASH_FAMILY_SHAPES, causal and not; then
+    timed beside ``scaled_dot_product_attention`` at each shape, with the
+    ratio to it and the share of the bound (operations at ``bf16_peak``,
+    or in fp32 at ``fp32_peak``; bytes and operations of the true D).
     Returns the serve shape's bf16 causal row, the main path's, with the
     others under ``cases``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(5)
     cases, errs = [], {}
-    shapes = [(shape, None) for shape in FLASH_SHAPES + FLASH_MMA_SHAPES]
+    shapes = [(shape, None) for shape in FLASH_SHAPES + FLASH_PADDED_SHAPES]
     shapes += [(shape, arch) for arch, shape in FLASH_FAMILY_SHAPES.items()]
     for (bh, sq, skv, d), family in shapes:
-        route = "wgmma" if d in fa.HEAD_DIMS else "mma"
+        width = fa.SERVED_DIMS[d]
         base = [torch.randn((bh, s, d), generator=gen, device=dev)
                 for s in (sq, skv, skv)]
         # the reference's chunks where they divide the sequences, else one
@@ -2869,8 +2867,7 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak, simt_peak):
                 el = q.element_size()
                 nbytes = el * bh * d * (2 * sq + 2 * skv)
                 nflops = bh * flash_flops(sq, skv, d, causal)
-                peak = bf16_peak if dtype == "bfloat16" else (
-                    fp32_peak if route == "wgmma" else simt_peak)
+                peak = bf16_peak if dtype == "bfloat16" else fp32_peak
                 b_ms, by = bound(nbytes, nflops, peak)
                 # timed on q, k, v rotating over copies that exceed L2
                 qs, ks, vs = cold(q), cold(k), cold(v)
@@ -2882,7 +2879,7 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak, simt_peak):
                 cases.append({
                     "name": "flash_attention_fwd", "dtype": dtype,
                     "causal": causal, "BH": bh, "Sq": sq, "Skv": skv, "D": d,
-                    "route": route, "family_serve_shape": family,
+                    "padded_D": width, "family_serve_shape": family,
                     "ms": ms,
                     "plain_ms": time_ms(lambda: fa.flash_attention_fwd_ref(
                         qs(), ks(), vs(), causal), iters=10),
@@ -2892,7 +2889,7 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak, simt_peak):
                                     "scaled_dot_product_attention",
                     "vs_library": ms / lib_ms, "bound_share": b_ms / ms,
                     "bytes": nbytes, "flops": nflops})
-                print(f"flash {route} {dtype} causal={causal} ({bh}, {sq}, "
+                print(f"flash D{width} {dtype} causal={causal} ({bh}, {sq}, "
                       f"{skv}, {d}){f' [{family}]' if family else ''}: "
                       f"{ms:.4f} ms, SDPA {lib_ms:.4f} ms "
                       f"({ms / lib_ms:.2f}x), bound {b_ms:.4f} ms ({by}), "
@@ -2909,7 +2906,7 @@ def flash_phase(torch, dev, bound, bf16_peak, fp32_peak, simt_peak):
     assert (main_row["dtype"], main_row["causal"]) == ("bfloat16", True)
     main_row["max_abs_err"] = max(errs.values())
     main_row["cases"] = [{k: c[k] for k in ("dtype", "causal", "BH", "Sq",
-                                             "Skv", "D", "route",
+                                             "Skv", "D", "padded_D",
                                              "family_serve_shape", "ms",
                                              "plain_ms",
                                              "bound_ms", "library_ms",
@@ -2976,19 +2973,16 @@ def flash_build_report(log, lib):
     """Each flash kernel's registers, shared memory and spills from
     ``-Xptxas -v`` (and any wgmma serialisation it reports), and its static
     instruction counts from ``cuobjdump -sass`` of the built library. Fails
-    unless every kernel of each route holds what the route is: the wgmma
-    route's bf16 kernels HGMMA (wgmma) and UTMALDG (TMA loads), its fp32
-    kernels HMMA (the 3xTF32 ``mma.sync``) and UTMALDG; the mma route's
-    bf16 kernels HMMA (``mma.sync``), its fp32 kernels FFMA (SIMT), at each
-    of its 13 head dims; or if ``cuobjdump`` is missing."""
+    unless the library holds one kernel per type and padded width (and bf16
+    from width 128 with 128-row q tiles too), every bf16 kernel holds HGMMA
+    (wgmma) and UTMALDG (TMA loads), every fp32 kernel HMMA (the 3xTF32
+    ``mma.sync``) and UTMALDG, and, where this run built the library, the
+    report shows every kernel with zero spills and the launch registers
+    its setmaxnreg counts assume; or if ``cuobjdump`` is missing."""
     def route(line):
         m = FLASH_KERNEL.search(line)
-        if m:
-            return (("bf16" if m.group(1) != "f" else "fp32")
-                    + f" D={m.group(2)} q{64 * int(m.group(3))}")
-        m = FLASH_MMA_KERNEL.search(line)
         return m and (("bf16" if m.group(1) != "f" else "fp32")
-                      + f" D={m.group(2)} mma")
+                      + f" D={m.group(2)} q{64 * int(m.group(3))}")
     ptxas_report(log, route, "flash kernels")
     counts = {}
     for name, ops in sass_counts(lib, route).items():
@@ -2996,24 +2990,45 @@ def flash_build_report(log, lib):
         for op, k in ops.items():
             base = op.split(".")[0]
             counts[name][base] = counts[name].get(base, 0) + k
-    # the wgmma route: bf16 and fp32 at D 32, 64, 128 with 64-row q tiles,
-    # bf16 D 128 also with 128-row ones; the mma route: bf16 and fp32 at
-    # every other multiple of 16 up to 256
-    from repro_torch.kernels.flash_attention import MMA_DIMS
-    assert len(counts) == 7 + 2 * len(MMA_DIMS), sorted(counts)
+    # bf16 and fp32 at every padded width, and bf16 from width 128 with
+    # 128-row q tiles too
+    from repro_torch.kernels.flash_attention import PADDED_WIDTHS
+    assert len(counts) == 2 * len(PADDED_WIDTHS) + sum(
+        w >= 128 for w in PADDED_WIDTHS), sorted(counts)
     for name, c in sorted(counts.items()):
         print(f"sass {name}: " + ", ".join(
             f"{op} {c.get(op, 0)}" for op in
             ("HGMMA", "HMMA", "UTMALDG", "LDS", "FFMA", "MUFU")))
-        if name.endswith("mma"):
-            need = ("HMMA",) if name.startswith("bf16") else ("FFMA",)
-        else:
-            need = ("HGMMA", "UTMALDG") if name.startswith("bf16") else (
-                "HMMA", "UTMALDG")
+        need = ("HGMMA", "UTMALDG") if name.startswith("bf16") else (
+            "HMMA", "UTMALDG")
         assert all(c.get(op, 0) > 0 for op in need), (name, c)
-    print(f"flash kernels: wgmma route HGMMA and UTMALDG in every bf16 "
-          f"kernel, HMMA and UTMALDG in every fp32 kernel; mma route HMMA "
-          f"in every bf16 kernel, FFMA in every fp32 kernel "
+    if log == "cached":
+        print("flash kernels: spills not checked (library built before "
+              "this run)")
+    else:
+        # spills, and the registers a thread has at launch: the consumers'
+        # setmaxnreg count (232, or 104 at bf16 width 32 with two CTAs an
+        # SM) takes what the producer gives up of exactly 168 (80)
+        spills, regs, name = {}, {}, None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                name = route(line)
+            elif name and "spill stores" in line:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                spills[name] = int(m.group(1)) + int(m.group(2))
+            elif name and "Used" in line and "registers" in line:
+                regs[name] = int(re.search(r"Used (\d+) registers",
+                                           line).group(1))
+                name = None
+        assert set(spills) == set(regs) == set(counts), (
+            sorted(spills), sorted(regs), sorted(counts))
+        assert not any(spills.values()), spills
+        assert all(r == (80 if n.startswith("bf16 D=32 ") else 168)
+                   for n, r in regs.items()), regs
+    print(f"flash kernels: HGMMA and UTMALDG in every bf16 kernel, HMMA and "
+          f"UTMALDG in every fp32 kernel, {len(counts)} kernels"
+          f"{'' if log == 'cached' else ', no spills, 168 (80) registers'} "
           f"({_cuobjdump()} -sass)")
 
 
@@ -3172,7 +3187,7 @@ def families_only(torch, kernels, specs, dev, bound, log, lib):
         torch.cuda.get_device_name(0))
     flash_build_report(log, lib)
     print(json.dumps({"flash_cases": flash_phase(
-        torch, dev, bound, bf16_flops, max(flops, tf32_flops / 3), flops)}))
+        torch, dev, bound, bf16_flops, max(flops, tf32_flops / 3))}))
     t0 = time.perf_counter()
     print(json.dumps({"families_launches": families_phase(torch, kernels,
                                                           dev)}))

@@ -9,15 +9,15 @@ reference's signature and divisibility check; the CUDA kernel
 edge itself.
 
 The wrapper launches the kernel for CUDA tensors and raises on anything
-else. Two routes, by head dim: D in {32, 64, 128} (``HEAD_DIMS``) takes the
-wgmma + TMA kernels (bf16 through wgmma, fp32 as 3xTF32 on the tensor
-cores); any other multiple of 16 up to 256 (``MMA_DIMS``: 16, 80 for
-hubert and zamba2, 256 for paligemma, ...) a simpler kernel, bf16 on the
-tensor cores through ``mma.sync`` and fp32 as SIMT FMAs. It runs the plain
-PyTorch version (``flash_attention_fwd_ref``, a masked fp32 softmax) only
-for tensors on the CPU. It counts its launches in
+else. One design serves every head dim in ``SERVED_DIMS`` (a multiple of 16
+up to 256: 16 for the smoke configs, 80 for hubert and zamba2, 256 for
+paligemma, ...): a TMA ring of K and V tiles, bf16 through wgmma and fp32 as
+3xTF32 on the tensor cores, built at the padded widths ``PADDED_WIDTHS``;
+``SERVED_DIMS[d]`` is the width D runs at (TMA zero-fills the columns past
+D). It runs the plain PyTorch version (``flash_attention_fwd_ref``, a
+masked fp32 softmax) only for tensors on the CPU. It counts its launches in
 ``flash_attention_fwd.launches``. ``flash_attention_fwd_tiled`` repeats the
-kernels' walk over tiles in plain PyTorch, for the tests.
+kernel's walk over tiles in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -30,9 +30,11 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)                      # the wgmma + TMA route
-MMA_DIMS = tuple(d for d in range(16, 257, 16) if d not in HEAD_DIMS)
-TILE = 64   # q rows per CTA and kv rows per tile of the CUDA kernel
+PADDED_WIDTHS = (32, 64, 128, 192, 256)   # the widths the kernel is built at
+# served head dim -> the least padded width that holds it
+SERVED_DIMS = {d: min(w for w in PADDED_WIDTHS if w >= d)
+               for d in range(16, 257, 16)}
+TILE = 64   # q rows per warpgroup, kv rows per tile (but see kv_tile)
 LOG2E = 1.4426950408889634
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -60,38 +62,52 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
+def kv_tile(d: int, dtype: torch.dtype) -> int:
+    """Rows of a kv tile in the CUDA kernel's walk at head dim ``d``: 32 in
+    fp32 at a padded width past 128 (where two stages of 64-row K and V
+    tiles would not fit in shared memory beside Q), else TILE."""
+    return 32 if dtype == torch.float32 and SERVED_DIMS[d] > 128 else TILE
+
+
 def flash_attention_fwd_tiled(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True,
-                              split: bool = True) -> torch.Tensor:
-    """The CUDA kernels' walk in fp32: q tiles of TILE rows, each with its
-    kv tiles of TILE rows (those wholly above a causal tile's last row
-    skipped) and a running (m, l, acc) from (-1e30, 0, 0) rescaled at every
-    tile in the log2 domain; then acc / max(l, 1e-30) in q's dtype. With
-    ``split`` (the wgmma route's two warpgroups on one q tile) the kv tiles
+                              split: bool = True,
+                              kv_rows: int = TILE) -> torch.Tensor:
+    """The CUDA kernel's walk in fp32: q tiles of TILE rows, each with its
+    kv tiles of ``kv_rows`` rows (those wholly above a causal tile's last
+    row skipped) and a running (m, l, acc) from (-1e30, 0, 0) rescaled at
+    every tile in the log2 domain; then acc / max(l, 1e-30) in q's dtype.
+    With ``split`` (the two warpgroups of a CTA on one q tile) the kv tiles
     go alternately to two states and the second is merged into the first;
-    without, one state walks them all (a wgmma warpgroup that owns its q
-    tile, or a CTA of the mma route). Only the tests call it."""
+    without, one state walks them all (a warpgroup that owns its q tile, as
+    bf16 at padded widths from 128 takes past one wave). ``kv_rows`` is
+    ``kv_tile(d, dtype)`` for the kernel's own walk. Only the tests call
+    it."""
     bh, sq, d = q.shape
     skv = k.shape[1]
     scale2 = float(np.float32(np.float32(d ** -0.5) * np.float32(LOG2E)))
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.empty_like(q)
-    n_kv = -(-skv // TILE)
+    n_kv = -(-skv // kv_rows)
     for q0 in range(0, sq, TILE):
         rows = torch.arange(q0, min(q0 + TILE, sq), device=q.device)
-        n_tiles = min(n_kv, q0 // TILE + 1) if causal else n_kv
+        n_tiles = min(n_kv, (q0 + TILE - 1) // kv_rows + 1) if causal \
+            else n_kv
         states = []
         for first in ((0, 1) if split else (0,)):
             m = torch.full((bh, len(rows)), NEG_INF, device=q.device)
             l = torch.zeros_like(m)
             acc = torch.zeros((bh, len(rows), d), device=q.device)
             for t in range(first, n_tiles, 2 if split else 1):
-                kv = slice(t * TILE, min((t + 1) * TILE, skv))
+                kv = slice(t * kv_rows, min((t + 1) * kv_rows, skv))
                 s = torch.einsum("bqd,bkd->bqk", qf[:, q0:q0 + len(rows)],
                                  kf[:, kv]) * scale2
                 if causal:
+                    # masked at -inf: p is 0 even in a row the tile masks
+                    # whole, where the max stays at its finite start
                     cols = torch.arange(kv.start, kv.stop, device=q.device)
-                    s = s.masked_fill(cols[None, :] > rows[:, None], NEG_INF)
+                    s = s.masked_fill(cols[None, :] > rows[:, None],
+                                      -float("inf"))
                 m_new = torch.maximum(m, s.amax(-1))
                 alpha = torch.exp2(m - m_new)
                 p = torch.exp2(s - m_new[..., None])
@@ -141,7 +157,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_fwd_ref(q, k, v, causal)
     if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention_fwd: bf16 or fp32, got {q.dtype}")
-    if d not in HEAD_DIMS + MMA_DIMS or bh > 65535:
+    if d not in SERVED_DIMS or bh > 65535:
         raise ValueError(f"flash_attention_fwd: D a multiple of 16 up to "
                          f"256 and BH <= 65535, got D {d}, BH {bh}")
     _build.check_cuda(q, k, v)

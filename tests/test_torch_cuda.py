@@ -637,7 +637,7 @@ def test_quantize_2d_near_half_integer_quotients(cuda, scale):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("shape", [
     (3, 256, 256), (2, 200, 200), (2, 128, 384), (2, 320, 320),
     (2, 1000, 1000), (2, 200, 1000), (2, 1000, 200), (16, 2048, 2048),
@@ -667,13 +667,16 @@ def test_flash_attention_matches_plain(cuda, shape, d, dtype, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-def test_flash_attention_same_bits_twice(cuda, dtype):
+def test_flash_attention_same_bits_twice(cuda, dtype, d):
     """The two warpgroups' states merge in a fixed order: two launches on
-    the same inputs give the same bits."""
+    the same inputs give the same bits, at a width the kernel is built for
+    and at two padded ones (80 on width 128, 256 with 32-row kv tiles in
+    fp32)."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    q, k, v = (torch.randn((4, 1000, 64), generator=gen,
+    q, k, v = (torch.randn((4, 1000, d), generator=gen,
                            device=cuda).to(dtype) for _ in range(3))
     for causal in (True, False):
         a = fa.flash_attention_fwd(q, k, v, causal=causal, q_chunk=1000,
@@ -687,18 +690,21 @@ def test_flash_attention_same_bits_twice(cuda, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("d", [16, 80, 256])
+@pytest.mark.parametrize("d", [16, 48, 80, 144, 192, 208, 256])
 @pytest.mark.parametrize("shape", [
     (3, 256, 256), (2, 200, 200), (2, 128, 384), (2, 1000, 200),
-    (2, 1, 300), (64, 128, 128)],
+    (2, 1, 300), (64, 128, 128), (40, 1000, 1000)],
     ids=["square", "ragged", "sq_lt_skv", "sq_gt_skv", "one_row",
-         "serve_shape"])
+         "serve_shape", "multi_wave"])
 def test_flash_attention_mma_route_matches_plain(cuda, shape, d, dtype,
                                                  causal):
-    """The second route (``mma.sync`` in bf16, SIMT FMA in fp32) at the
-    head dims of the smoke configs (16), hubert and zamba2 (80) and
-    paligemma (256): ragged Sq and Skv, causal with Sq < Skv and Sq > Skv,
-    one query row, a prefill's BH of 64."""
+    """The head dims the retired mma route served, now on the TMA + wgmma
+    (bf16) and 3xTF32 (fp32) kernel at a padded width: every padded width
+    (48 on 64, 80 on 128, 144 and 192 on 192, 208 and 256 on 256; 16 on
+    32) with a dim below it, the smoke configs' 16, hubert's and zamba2's
+    80, paligemma's 256; ragged Sq and Skv, causal with Sq < Skv and Sq >
+    Skv, one query row, a prefill's BH of 64, and a grid of more than one
+    wave."""
     bh, sq, skv = shape
     gen = torch.Generator(device=cuda).manual_seed(d + sq)
     q = torch.randn((bh, sq, d), generator=gen, device=cuda).to(dtype)
@@ -717,7 +723,7 @@ def test_flash_attention_mma_route_matches_plain(cuda, shape, d, dtype,
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_does_not_run(cuda):
-    for d in (24, 272):     # no route: not a multiple of 16, or past 256
+    for d in (24, 272):     # not a multiple of 16, or past 256
         q = torch.zeros((2, 64, d), device=cuda)
         with pytest.raises(ValueError):
             fa.flash_attention_fwd(q, q, q)
@@ -767,7 +773,7 @@ FAMILY_ARCHS = ("qwen2-7b", "granite-3-8b", "command-r-35b", "starcoder2-15b",
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_family_smoke_prefill_on_the_card(cuda, arch):
-    """Each attention family at smoke width (fp32, D = 16: the mma route):
+    """Each attention family at smoke width (fp32, D = 16, padded to 32):
     a prefill on the card launches flash_attention_fwd once a layer and
     nothing else, and its logits and caches are the CPU port's within 1e-4
     and 1e-5 of their largest |value| (fp32 on both sides; cuBLAS sums in

@@ -74,7 +74,7 @@ def test_flash_fwd_rectangular_matches_pallas_interpreter(causal):
 @pytest.mark.parametrize("shape", [(2, 320, 320), (2, 200, 200),
                                    (2, 128, 384)],
                          ids=["square", "ragged", "rectangular"])
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("split", [True, False], ids=["split", "whole"])
 def test_flash_tiled_walk_matches_pallas_interpreter(split, causal, d,

@@ -1,12 +1,13 @@
-"""flash_attention_fwd at the head dims of the second CUDA route (a multiple
-of 16 up to 256 outside {32, 64, 128}: 16 for every smoke config, 80 for
-hubert-xlarge, 256 for paligemma-3b) against the reference's Pallas kernel
-in interpret mode on the CPU, on the same numpy inputs: the plain version
-(``flash_attention_fwd``'s CPU path) and ``flash_attention_fwd_tiled``
-without the split, the walk of that route's CTA (one 64-row q tile, its kv
-tiles of 64 rows in order with one online-softmax state, those above a
-causal tile's last row skipped). The route itself is held to the plain
-version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+"""flash_attention_fwd at head dims outside {32, 64, 128} (a multiple of 16
+up to 256: 16 for every smoke config, 80 for hubert-xlarge and zamba2, 256
+for paligemma-3b) against the reference's Pallas kernel in interpret mode
+on the CPU, on the same numpy inputs: the plain version
+(``flash_attention_fwd``'s CPU path) and ``flash_attention_fwd_tiled`` with
+the CUDA kernel's walk at those dims (one 64-row q tile split between two
+warpgroups on alternate kv tiles, merged in a fixed order; 64-row kv tiles,
+32-row ones in fp32 past padded width 128; the tiles above a causal tile's
+last row skipped). The kernel itself is held to the plain version on the
+card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerances: the reference's own (tests/test_kernels.py:125-160), 2e-5 in
 fp32 and 2e-2 in bf16: the same function summed in another order.
@@ -40,11 +41,19 @@ def _want(q, k, v, causal, q_chunk):
                       np.float32)
 
 
-def test_the_routes_split_the_head_dims():
-    assert fa.MMA_DIMS == (16, 48, 80, 96, 112, 144, 160, 176, 192, 208, 224,
-                           240, 256)
-    assert not set(fa.MMA_DIMS) & set(fa.HEAD_DIMS)
-    assert set(DIMS) <= set(fa.MMA_DIMS)
+def test_served_dims_and_their_padded_widths():
+    """Every multiple of 16 up to 256 runs on the least padded width that
+    holds it, and that width leaves no 64-column box of a bf16 tile wholly
+    past D (a box TMA would fill with zeros only)."""
+    assert fa.PADDED_WIDTHS == (32, 64, 128, 192, 256)
+    assert fa.SERVED_DIMS == {16: 32, 32: 32, 48: 64, 64: 64, 80: 128,
+                              96: 128, 112: 128, 128: 128, 144: 192,
+                              160: 192, 176: 192, 192: 192, 208: 256,
+                              224: 256, 240: 256, 256: 256}
+    for d, w in fa.SERVED_DIMS.items():
+        assert w - d < min(w, 64)
+    assert [fa.kv_tile(d, torch.float32) for d in DIMS] == [64, 64, 32]
+    assert [fa.kv_tile(d, torch.bfloat16) for d in DIMS] == [64, 64, 64]
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
@@ -68,13 +77,20 @@ def test_plain_version_matches_pallas_interpreter(shape, d, causal, bf16):
                                    (2, 200, 64)],
                          ids=["ragged", "sq_lt_skv", "sq_gt_skv"])
 def test_mma_route_walk_matches_pallas_interpreter(shape, d, causal):
-    """Ragged edges on both axes (200 = 3 tiles + 8 rows), and Sq != Skv
-    both ways under the absolute causal rule."""
+    """The kernel's walks at the dims the retired mma route served: the fp32
+    kernel's, split between two warpgroups on its kv tiles (32 rows at D
+    256), and the bf16 kernel's, split or whole (a warpgroup that owns its
+    q tile, as past one wave at padded widths from 128); ragged edges on
+    both axes (200 = 3 tiles + 8 rows), and Sq != Skv both ways under the
+    absolute causal rule."""
     bh, sq, skv = shape
     (jq, tq), (jk, tk), (jv, tv) = _inputs(bh, sq, skv, d, False, seed=sq)
-    got = fa.flash_attention_fwd_tiled(tq, tk, tv, causal, split=False)
-    np.testing.assert_allclose(got.numpy(), _want(jq, jk, jv, causal, sq),
-                               **TOL[False])
+    want = _want(jq, jk, jv, causal, sq)
+    for dtype, split in ((torch.float32, True), (torch.bfloat16, True),
+                         (torch.bfloat16, False)):
+        got = fa.flash_attention_fwd_tiled(tq, tk, tv, causal, split=split,
+                                           kv_rows=fa.kv_tile(d, dtype))
+        np.testing.assert_allclose(got.numpy(), want, **TOL[False])
 
 
 def test_the_card_refuses_head_dims_no_route_serves():
