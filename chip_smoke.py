@@ -184,19 +184,23 @@ phase):
      tokens, the plain path (the flash kernel's plain version, on the card)
      gives logits within 2e-2 of their largest |value| at every step, and
      each greedy token is its argmax or tied with it within one bf16 step;
-  8. the attention families (``families_phase``), bf16: serving at full
+  8. the model families (``families_phase``), bf16: serving at full
      width, qwen2-7b, granite-moe-1b-a400m, paligemma-3b (256 patches,
-     then the prompt) and hubert-xlarge (frame features, prefill only) at
-     full depth, granite-3-8b, command-r-35b, starcoder2-15b and
-     llama4-scout-17b-a16e cut to 2 layers, each drawn on the card and
-     freed before the next: 4 prompts of 128 tokens and 24 greedy tokens
-     (3 runs, medians), each prefill one flash_attention_fwd launch a layer
-     and nothing else, decode none, finite logits, both paths held to each
-     other as in 7; prefill ms, decode ms a token, peak memory and init
-     seconds printed. Then ``paper_hetero_severe`` with granite-moe at full
-     width cut to 4 of 24 layers: the golden's arrivals, each applied
-     arrival one packed_row_stats and one packed_correct_outer launch and
-     nothing else, finite evals, every tensor on the card;
+     then the prompt), hubert-xlarge (frame features, prefill only),
+     zamba2-2.7b (54 Mamba2 layers, its shared attention block at 9 sites)
+     and xlstm-125m (12 mLSTM/sLSTM blocks) at full depth, granite-3-8b,
+     command-r-35b, starcoder2-15b and llama4-scout-17b-a16e cut to 2
+     layers, each drawn on the card and freed before the next: 4 prompts
+     of 128 tokens and 24 greedy tokens (3 runs, medians), each prefill one
+     flash_attention_fwd launch an attention layer or shared-block site
+     (xlstm none) and nothing else, decode none, finite logits, both paths
+     held to each other as in 7 (xlstm has no kernel path: it says so);
+     prefill ms, decode ms a token, peak memory and init seconds printed.
+     Then ``paper_hetero_severe`` at full width with granite-moe cut to 4
+     of 24 layers, xlstm-125m whole and zamba2-2.7b cut to 12 of 54: the
+     golden's arrivals, each applied arrival one packed_row_stats and one
+     packed_correct_outer launch and nothing else, finite evals, every
+     tensor on the card;
   9. print the card's name and power limit, the kernel summary line, and
      the ``{"ok": true, ...}`` line last.
 
@@ -393,6 +397,7 @@ FLASH_PADDED_SHAPES = ((16, 200, 200, 16), (2, 128, 384, 80),
                        (2, 384, 128, 256))
 FLASH_FAMILY_SHAPES = {"granite-moe-1b-a400m": (64, 128, 128, 64),
                        "hubert-xlarge": (64, 128, 128, 80),
+                       "zamba2-2.7b": (128, 128, 128, 80),
                        "qwen2-7b": (112, 128, 128, 128),
                        "paligemma-3b": (32, 384, 384, 256)}
 # the flash kernels' mangled names (type, padded width, 64-row q tiles per
@@ -409,21 +414,27 @@ SASS_OP = re.compile(
 # the serve phase: batch x prompt, greedy tokens, then one long prefill;
 # each timed as the median of ``repeats`` runs
 SERVE = dict(batch=4, prompt=128, gen=24, long_prompt=1024, repeats=5)
-# the families phase: each attention family's config at full width, at full
-# depth (None) or cut to the layers given (35 B and 109 B do not fit one
-# card; the others at 2 layers to keep the phase short), served at SERVE's
-# batch, prompt and tokens, timed as the median of FAMILY_REPEATS runs
+# the families phase: each family's config at full width, at full depth
+# (None) or cut to the layers given (35 B and 109 B do not fit one card;
+# the others at 2 layers to keep the phase short), served at SERVE's batch,
+# prompt and tokens, timed as the median of FAMILY_REPEATS runs; the
+# recurrent families last (zamba2-2.7b, 9.3 GB in fp32, whole)
 FAMILIES = (("qwen2-7b", None), ("granite-moe-1b-a400m", None),
             ("paligemma-3b", None), ("hubert-xlarge", None),
             ("granite-3-8b", 2), ("command-r-35b", 2),
-            ("starcoder2-15b", 2), ("llama4-scout-17b-a16e", 2))
+            ("starcoder2-15b", 2), ("llama4-scout-17b-a16e", 2),
+            ("zamba2-2.7b", None), ("xlstm-125m", None))
 FAMILY_REPEATS = 3
 # the families' band: at least TOL_LOGITS, else this many times the
 # reference arithmetic's own distance from the plain path (hold_to_plain)
 FLOOR_FACTOR = 1.5
-# and its training run: (scenario, arch, layers), granite-moe at full width
-# cut to 4 of its 24 layers
-FAMILY_TRAIN = ("paper_hetero_severe", "granite-moe-1b-a400m", 4)
+# and its training runs: (scenario, arch, layers), at full width:
+# granite-moe cut to 4 of its 24 layers, xlstm-125m whole, zamba2-2.7b cut
+# to 12 of its 54 layers (two super blocks: the shared block's gradient
+# sums over two sites)
+FAMILY_TRAIN = (("paper_hetero_severe", "granite-moe-1b-a400m", 4),
+                ("paper_hetero_severe", "xlstm-125m", None),
+                ("paper_hetero_severe", "zamba2-2.7b", 12))
 # tinygpt-15m's 43 leaves: the per-leaf HeLoCo arrival launches the two
 # correction kernels once per leaf
 N_LEAVES = 43
@@ -3182,7 +3193,7 @@ def families_only(torch, kernels, specs, dev, bound, log, lib):
     """``--only families``: the flash kernels' build report and SASS check,
     flash_attention_fwd's checks and times (``flash_phase``, every case),
     and the families phase (serving each family at full width, training
-    granite-moe at 4 layers)."""
+    granite-moe at 4 layers, xlstm-125m whole and zamba2-2.7b at 12)."""
     _, flops, bf16_flops, tf32_flops = peaks_for(
         torch.cuda.get_device_name(0))
     flash_build_report(log, lib)
@@ -3529,18 +3540,30 @@ def serve_phase(torch, kernels, dev):
     return launches, prefills
 
 
+def flash_sites(cfg) -> int:
+    """flash_attention_fwd's launches in one prefill: one an attention
+    layer; a hybrid model's shared block at each of its n_super sites; none
+    in an ssm model."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
 def families_phase(torch, kernels, dev):
-    """The attention families at full width in their own compute dtype
-    (bf16). (a) Serving: each FAMILIES arch (its depth cut where one is
-    given) from a draw on the card, at SERVE's batch, prompt and greedy
-    tokens (paligemma: 256 patch embeddings, then the prompt; hubert: frame
+    """Every model family at full width in its own compute dtype (bf16).
+    (a) Serving: each FAMILIES arch (its depth cut where one is given)
+    from a draw on the card, at SERVE's batch, prompt and greedy tokens
+    (paligemma: 256 patch embeddings, then the prompt; hubert: frame
     features, a prefill only): with the counts set to 0 just before each
-    and read just after, every prefill launches flash_attention_fwd once a
-    layer and nothing else, decode nothing, logits finite, and both paths
-    fed the kernel path's greedy tokens agree (``hold_to_plain``); prefill
-    ms and decode ms a token (medians of FAMILY_REPEATS), peak device
-    memory and init seconds printed; each model freed before the next.
-    (b) Training: FAMILY_TRAIN's scenario on its arch at full width and
+    and read just after, every prefill launches flash_attention_fwd
+    ``flash_sites`` times (once a layer; zamba2 once at each shared-block
+    site; xlstm never) and nothing else, decode nothing, logits finite,
+    and where the prefill has the kernel both paths fed the kernel path's
+    greedy tokens agree (``hold_to_plain``; xlstm has no kernel path and
+    says so); prefill ms and decode ms a token (medians of
+    FAMILY_REPEATS), peak device memory and init seconds printed; each
+    model freed before the next.
+    (b) Training: each FAMILY_TRAIN scenario on its arch at full width and
     the cut depth, through ``run_scenario``: the golden's arrivals, each
     applied arrival launching packed_row_stats and packed_correct_outer
     once and nothing else, finite evals, every tensor on the card.
@@ -3567,7 +3590,8 @@ def families_phase(torch, kernels, dev):
         batch = serve.make_inputs(cfg, SERVE["batch"], SERVE["prompt"], 0,
                                   dev)
         gen = 1 if cfg.encoder_only else SERVE["gen"]
-        one_prefill = {**none, "flash_attention_fwd": cfg.n_layers}
+        sites = flash_sites(cfg)
+        one_prefill = {**none, "flash_attention_fwd": sites}
         serve_run(torch, kernels, model, params, batch, 2)     # warm-up
         serve_run(torch, kernels, model, params, batch, 2, plain=True)
         runs = [serve_run(torch, kernels, model, params, batch, gen)
@@ -3580,14 +3604,22 @@ def families_phase(torch, kernels, dev):
                 f"{arch}: decode launched {r['at_decode']}"
             assert torch.equal(r["tokens"], got["tokens"]), \
                 f"{arch}: greedy tokens not repeatable"
-            launches += cfg.n_layers
-            prefills += 1
+            if sites:
+                launches += sites
+                prefills += 1
         assert got["logits"].dtype == getattr(torch, cfg.compute_dtype) and \
             torch.isfinite(got["logits"]).all(), f"{arch}: logits not finite"
-        err, band, ties, ref_share = hold_to_plain(
-            torch, model, params, batch, got["tokens"], arch, floor=True)
+        err = band = ties = ref_share = None
+        if sites:
+            err, band, ties, ref_share = hold_to_plain(
+                torch, model, params, batch, got["tokens"], arch, floor=True)
+        else:
+            print(f"{arch}: no kernel on its serving path (plain PyTorch "
+                  "recurrences): nothing to hold to the plain path")
         decode = None if cfg.encoder_only else statistics.median(
             r["decode_ms"] for r in runs) / (gen - 1)
+        prefill_ms = statistics.median(r["prefill_ms"] for r in runs)
+        peak = torch.cuda.max_memory_allocated()
         print(json.dumps({
             "family": arch, "family_kind": cfg.family, "layers": cfg.n_layers,
             "depth_cut": f"{layers} of {get_config(arch).n_layers} layers"
@@ -3597,24 +3629,33 @@ def families_phase(torch, kernels, dev):
             "params": sum(t.numel() for t in params.values()),
             "batch": SERVE["batch"], "sequence": serve.seq_len(batch),
             "gen": gen, "repeats": FAMILY_REPEATS, "init_s": init_s,
-            "prefill_ms": statistics.median(r["prefill_ms"] for r in runs),
-            "decode_ms_per_token": decode,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "flash_launches_per_prefill": cfg.n_layers,
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode,
+            "peak_mem_bytes": peak, "flash_launches_per_prefill": sites,
             "logits_max_diff_share": err, "band": band,
             "reference_arithmetic_share": ref_share,
             "greedy_ties_taken_otherwise": ties,
             "tokens": got["tokens"][:2].tolist()}))
+        print(f"{arch}: prefill {prefill_ms:.3f} ms (median of "
+              f"{FAMILY_REPEATS})")
+        if decode is not None:
+            print(f"{arch}: decode {decode:.3f} ms a token")
+        print(f"{arch}: peak {peak / 1e9:.2f} GB on the card")
+        print(f"{arch}: init {init_s:.2f} s")
         del params, batch, runs, got
     gc.collect()
     torch.cuda.empty_cache()
-    name, arch, layers = FAMILY_TRAIN
-    counts, singles, _, means, _ = run_scenario(
-        torch, kernels, name, {"arch": arch}, HELOCO, (), layers=layers)
-    gc.collect()
-    torch.cuda.empty_cache()
+    counts = dict.fromkeys(HELOCO, 0)
+    arrivals = 0
+    for name, arch, layers in FAMILY_TRAIN:
+        run_counts, singles, _, _, _ = run_scenario(
+            torch, kernels, name, {"arch": arch}, HELOCO, (), layers=layers)
+        for k in HELOCO:
+            counts[k] += run_counts[k]
+        arrivals += singles
+        gc.collect()
+        torch.cuda.empty_cache()
     return {"flash_attention_fwd": (launches, prefills),
-            **{k: (counts[k], singles) for k in HELOCO}}
+            **{k: (counts[k], arrivals) for k in HELOCO}}
 
 
 def main(argv=None) -> int:

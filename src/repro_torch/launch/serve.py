@@ -1,10 +1,11 @@
 """Serving launcher of the port: prefill a batch of prompts, then greedy
 decode over the KV cache, on the card unless ``--device cpu`` is given.
 
-The port's counterpart of ``examples/serve_demo.py``, for every
-attention family (``--arch`` of a dense, MoE, audio or vision config).
-Prefill runs each layer's attention through the flash-attention kernel
-(one launch a layer on the card); decode is plain PyTorch. A vision model
+The port's counterpart of ``examples/serve_demo.py``, for every model
+family (``--arch`` of any config). Prefill runs each attention layer
+through the flash-attention kernel (one launch a layer on the card; for
+zamba2, one at each of its shared block's sites); the recurrent blocks
+(Mamba2, mLSTM, sLSTM) and decode are plain PyTorch. A vision model
 prefills its patch embeddings (normal draws from ``--seed``) before the
 prompt and decodes from ``prompt_len + n_prefix_tokens``; an audio encoder
 prefills frame features (normal draws) and has no decode step.
@@ -13,6 +14,8 @@ prefills frame features (normal draws) and has no decode step.
         --batch 4 --prompt-len 128 --gen 24
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \\
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --smoke --device cpu
 
 One untimed warm-up at the timed shapes (CUDA and cuBLAS set-up, kernel

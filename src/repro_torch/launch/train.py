@@ -7,8 +7,9 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
     (``--list-scenarios`` enumerates them); ``--full-width`` runs it at
     tinygpt-15m's own width with batch 4 x 128;
   - ad-hoc flags, compiled into an anonymous ``Scenario`` first, so both
-    paths build the run the same way; ``--arch`` takes any dense or MoE
-    config (the sampler yields tokens, so no audio or vision one).
+    paths build the run the same way; ``--arch`` takes any dense, MoE,
+    hybrid or ssm config (the sampler yields tokens, so no audio or vision
+    one).
 
     PYTHONPATH=src python -m repro_torch.launch.train --scenario dcasgd \\
         --full-width
@@ -21,6 +22,8 @@ Two ways to describe a run, as in ``repro/launch/train.py``:
         --commit-batch 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch granite-moe-1b-a400m --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch xlstm-125m --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --scenario paper_hetero_severe --telemetry t.jsonl \\
         --stats-json s.json --device cpu

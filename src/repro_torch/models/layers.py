@@ -9,7 +9,7 @@ worker. Compute runs in ``cfg.compute_dtype``; parameters are stored in
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +48,43 @@ def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         var = (xf ** 2).mean(-1, keepdim=True)
         out = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
     return out.to(x.dtype)
+
+
+def rmsnorm_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's gated RMSNorm, norm(x * silu(z)) * scale: the gate in x's
+    dtype, the norm in fp32, cast back to x's dtype."""
+    xf = (x * F.silu(z)).float()
+    var = (xf ** 2).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                cache: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over seq, the reference's Mamba2 ``_conv1d``
+    and xLSTM ``_causal_conv``. x: (B,S,C); w: (K,C). Returns (silu(conv
+    + b) (B,S,C), the last K-1 inputs (B,K-1,C) in x's dtype): ``cache``
+    (the previous call's window) before ``x``, zeros without one."""
+    k = w.shape[0]
+    if cache is None:
+        cache = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    ext = torch.cat([cache.to(x.dtype), x], dim=1)           # (B, S+K-1, C)
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + ext[:, i: i + x.shape[1]] * w[i].to(x.dtype)
+    out = F.silu(out + b.to(x.dtype))
+    return out, ext[:, ext.shape[1] - (k - 1):]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
 
 
 # ---------------------------------------------------------------------------

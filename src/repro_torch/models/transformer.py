@@ -1,18 +1,27 @@
-"""Model assembly: the attention families of the reference's ``Model``.
+"""Model assembly: every model family of the reference's ``Model``.
 
-Port of ``repro/models/transformer.py`` for the families that run through
-``apply_attn_block``: ``dense``, ``moe``, ``audio`` (an encoder over frame
-features) and ``vlm`` (patch embeddings prepended to the text). The
-recurrent families ``hybrid`` and ``ssm`` are ROADMAP A17b.
+Port of ``repro/models/transformer.py``:
+
+  dense / moe / audio / vlm : a stack of attention(+MLP|MoE) blocks
+                              (``audio``: an encoder over frame features;
+                              ``vlm``: patch embeddings before the text);
+  hybrid (zamba2)           : super blocks of ``shared_attn_every`` Mamba2
+                              layers, each followed by one shared
+                              attention + MLP block (one weight set used
+                              at every site; its gradient sums the uses);
+  ssm (xlstm)               : a mixed stack of mLSTM and sLSTM blocks.
 
 Parameters are a flat dict of tensors keyed by the reference's ``/``-joined
-key paths. With ``cfg.scan_layers`` the layers are stacked: every block
-leaf has a leading ``n_layers`` axis under ``blocks/`` (``blocks/attn/wq``,
-``blocks/moe/router``, ``blocks/moe/shared/w_gate``, ...), as the
-reference's ``jax.vmap``-ed init gives them; otherwise each layer has its
-own ``blocks_list/layer_XX/`` leaves. The model object holds only the
-config, so workers share one; ``init`` draws values, and ``loss``,
-``prefill`` and ``decode`` run on a given parameter dict.
+key paths. With ``cfg.scan_layers`` the attention layers are stacked: every
+block leaf has a leading ``n_layers`` axis under ``blocks/``
+(``blocks/attn/wq``, ``blocks/moe/router``, ...), as the reference's
+``jax.vmap``-ed init gives them; otherwise each layer has its own
+``blocks_list/layer_XX/`` leaves, as every ssm layer has. A hybrid model's
+``super/norm/*`` and ``super/mamba/*`` leaves carry two leading axes
+(n_super, shared_attn_every), and ``shared/`` holds the shared block. The
+model object holds only the config, so workers share one; ``init`` draws
+values, and ``loss``, ``prefill`` and ``decode`` run on a given parameter
+dict. ``cfg.remat`` changes no value and is not applied.
 """
 from __future__ import annotations
 
@@ -23,15 +32,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import leaf_order
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (Params, Shapes, apply_mlp, apply_norm,
                                       cross_entropy, dtype_of, embed_shapes,
                                       embed_tokens, lm_logits, mlp_shapes,
                                       norm_shapes)
 
 Cache = Dict[str, torch.Tensor]          # {"k", "v"}: (B, T, KV, D), or
-Caches = Dict[str, object]               # stacked (L, B, T, KV, D); or by
-                                         # layer, {"layer_XX": Cache}
+Caches = object                          # stacked (L, B, T, KV, D); or by
+                                         # layer, {"layer_XX": Cache}; see
+                                         # init_caches for the recurrent
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 BIAS_LEAVES = ("bias", "bq", "bk", "bv", "b_gate", "b_up", "b_in", "b_down")
 
@@ -119,21 +131,46 @@ def decode_attn_block(p: Dict[str, Params], x: torch.Tensor, cfg: ModelConfig,
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ATTN_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the port does not run the {cfg.family!r} "
-                "family yet (ROADMAP A17b: zamba2's Mamba2 stack and xLSTM)")
         self.cfg = cfg
         shapes = {**_prefixed("embed", embed_shapes(cfg)),
                   **_prefixed("final_norm", norm_shapes(cfg, cfg.d_model))}
-        block = attn_block_shapes(cfg)
-        if cfg.scan_layers:
+        norm = _prefixed("norm", norm_shapes(cfg, cfg.d_model))
+        if cfg.family == "hybrid":
+            unit = {**norm, **_prefixed("mamba", m2.mamba2_shapes(cfg))}
+            lead = (self.n_super, cfg.shared_attn_every)
+            shapes.update({f"super/{k}": (lead + s, dt)
+                           for k, (s, dt) in unit.items()})
+            shapes.update(_prefixed("shared", attn_block_shapes(cfg)))
+        elif cfg.family == "ssm":
+            for i, kind in enumerate(self.xlstm_kinds):
+                mixer = (xl.slstm_shapes if kind == "slstm"
+                         else xl.mlstm_shapes)(cfg)
+                shapes.update(_prefixed(f"blocks_list/layer_{i:02d}",
+                                        {**norm, **_prefixed(kind, mixer)}))
+        elif cfg.scan_layers:
             shapes.update({f"blocks/{k}": ((cfg.n_layers,) + s, dt)
-                           for k, (s, dt) in block.items()})
+                           for k, (s, dt) in attn_block_shapes(cfg).items()})
         else:
             for i in range(cfg.n_layers):
-                shapes.update(_prefixed(f"blocks_list/layer_{i:02d}", block))
+                shapes.update(_prefixed(f"blocks_list/layer_{i:02d}",
+                                        attn_block_shapes(cfg)))
         self._shapes = {k: shapes[k] for k in leaf_order(shapes)}
+
+    @property
+    def n_super(self) -> int:
+        """A hybrid model's super blocks: n_layers // shared_attn_every."""
+        return self.cfg.n_layers // self.cfg.shared_attn_every
+
+    @property
+    def xlstm_kinds(self) -> Tuple[str, ...]:
+        """An ssm model's block kind by layer: ``slstm`` at
+        ``xlstm.slstm_at``, else ``mlstm``."""
+        return tuple("slstm" if i in self.cfg.xlstm.slstm_at else "mlstm"
+                     for i in range(self.cfg.n_layers))
+
+    @property
+    def _stacked(self) -> bool:
+        return self.cfg.scan_layers and self.cfg.family in ATTN_FAMILIES
 
     # ---------------- parameters ----------------
 
@@ -146,10 +183,17 @@ class Model:
     def _init_scale(self, path: str) -> float:
         """The reference's init scale of a drawn leaf, keyed on its whole
         path: ``w_down`` is d_ff ** -0.5 in the MLP, expert_d_ff ** -0.5 in
-        the MoE's experts and its shared expert."""
+        the MoE's experts and its shared expert; the recurrent blocks'
+        leaves take their module's scales."""
         cfg = self.cfg
         parts = path.split("/")
         leaf = parts[-1]
+        if "mamba" in parts:
+            return m2.init_scale(leaf, cfg)
+        for kind in ("mlstm", "slstm"):
+            if kind in parts:
+                return xl.init_scale(
+                    kind, "/".join(parts[parts.index(kind) + 1:]), cfg)
         if parts[0] == "embed":
             return 0.02 if leaf == "tok" else cfg.d_model ** -0.5
         if leaf == "router":
@@ -161,42 +205,62 @@ class Model:
             return ff ** -0.5
         return cfg.d_model ** -0.5      # wq, wk, wv, w_in, w_gate, w_up
 
+    @staticmethod
+    def _fixed_value(path: str, shape, device) -> Optional[torch.Tensor]:
+        """A leaf the reference's init sets rather than draws, in fp32:
+        norm scales' ones, biases' zeros, and the recurrent blocks' own
+        (Mamba2's A and D, the xLSTM gates' biases); None for a drawn
+        leaf."""
+        parts = path.split("/")
+        leaf = parts[-1]
+        if "mamba" in parts:
+            return m2.fixed_value(leaf, shape, device)
+        if "mlstm" in parts or "slstm" in parts:
+            return xl.fixed_value(leaf, shape, device)
+        if leaf == "scale":
+            return torch.ones(shape, device=device)
+        if leaf in BIAS_LEAVES:
+            return torch.zeros(shape, device=device)
+        return None
+
     def init(self, generator: torch.Generator, device) -> Params:
         """Fresh parameters: normal * scale (0.02 for the embedding and the
-        router, fan-in ** -0.5 for projections), ones for norm scales,
-        zeros for biases. Drawn leaf by leaf in leaf order on the
-        generator's device (so a CPU generator's draw does not depend on
-        ``device``), then moved to ``device``."""
+        router, fan-in ** -0.5 for projections, the recurrent blocks'
+        own), ones for norm scales, zeros for biases, the reference's fixed
+        values elsewhere (``_fixed_value``). Drawn leaf by leaf in leaf
+        order on the generator's device (so a CPU generator's draw does not
+        depend on ``device``), then moved to ``device``."""
         out = {}
         for path, (shape, dt) in self._shapes.items():
-            leaf = path.rsplit("/", 1)[-1]
             dtype = getattr(torch, dt)
-            if leaf == "scale":
-                x = torch.ones(shape, dtype=dtype, device=device)
-            elif leaf in BIAS_LEAVES:
-                x = torch.zeros(shape, dtype=dtype, device=device)
-            else:
+            x = self._fixed_value(path, shape, device)
+            if x is None:
                 x = torch.randn(shape, generator=generator,
                                 device=generator.device)
-                x = x.mul_(self._init_scale(path)).to(device=device,
-                                                      dtype=dtype)
-            out[path] = x
+                x = x.mul_(self._init_scale(path))
+            out[path] = x.to(device=device, dtype=dtype)
         return out
 
     def _layers(self, params: Mapping[str, torch.Tensor]
                 ) -> Iterator[Dict[str, Params]]:
         """Each layer's leaves, split by block part, in layer order."""
         cfg = self.cfg
-        if cfg.scan_layers:
-            stacked = {k[len("blocks/"):]: v for k, v in params.items()
-                       if k.startswith("blocks/")}
+        if self._stacked:
+            stacked = self._part(params, "blocks")
             for i in range(cfg.n_layers):
                 yield _split({k: v[i] for k, v in stacked.items()})
         else:
             for i in range(cfg.n_layers):
-                pre = f"blocks_list/layer_{i:02d}/"
-                yield _split({k[len(pre):]: v for k, v in params.items()
-                              if k.startswith(pre)})
+                yield _split(self._part(params, f"blocks_list/layer_{i:02d}"))
+
+    def _units(self, params: Mapping[str, torch.Tensor]
+               ) -> Iterator[Tuple[int, int, Dict[str, Params]]]:
+        """A hybrid model's Mamba2 units: (super block i, unit j, its
+        ``norm`` and ``mamba`` leaves), in order."""
+        sup = self._part(params, "super")
+        for i in range(self.n_super):
+            for j in range(self.cfg.shared_attn_every):
+                yield i, j, _split({k: v[i, j] for k, v in sup.items()})
 
     @staticmethod
     def _part(params: Mapping[str, torch.Tensor], name: str) -> Params:
@@ -223,6 +287,40 @@ class Model:
 
     # ---------------- train forward ----------------
 
+    def _recurrent(self, p: Dict[str, Params], x: torch.Tensor, kind: str,
+                   state=None, return_state: bool = False):
+        """A pre-norm residual recurrent block (``mamba``, ``mlstm`` or
+        ``slstm``): (x + mixer(norm(x)), the mixer's state or None)."""
+        apply = {"mamba": m2.apply_mamba2, "mlstm": xl.apply_mlstm_block,
+                 "slstm": xl.apply_slstm_block}[kind]
+        y, st = apply(p[kind], apply_norm(p["norm"], x, self.cfg), self.cfg,
+                      state=state, return_state=return_state)
+        return x + y, st
+
+    def _trunk(self, params: Mapping[str, torch.Tensor], x: torch.Tensor,
+               positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The training forward between the embedding and the final norm:
+        (x, the MoE's load-balance loss summed over layers, or None)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            shared = _split(self._part(params, "shared"))
+            for _, j, up in self._units(params):
+                x, _ = self._recurrent(up, x, "mamba")
+                if j == cfg.shared_attn_every - 1:
+                    x, _ = apply_attn_block(shared, x, cfg, positions)
+            return x, None
+        if cfg.family == "ssm":
+            for p, kind in zip(self._layers(params), self.xlstm_kinds):
+                x, _ = self._recurrent(p, x, kind)
+            return x, None
+        aux_sum = None
+        for p in self._layers(params):
+            x, aux = apply_attn_block(p, x, cfg, positions)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        return x, aux_sum
+
     def loss(self, params: Mapping[str, torch.Tensor],
              batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token loss of ``batch`` (``tokens`` or ``features``,
@@ -231,11 +329,7 @@ class Model:
         over layers (the reference returns the aux beside the loss)."""
         cfg = self.cfg
         x, positions = self._embed(params, batch)
-        aux_sum = None
-        for p in self._layers(params):
-            x, aux = apply_attn_block(p, x, cfg, positions)
-            if aux is not None:
-                aux_sum = aux if aux_sum is None else aux_sum + aux
+        x, aux_sum = self._trunk(params, x, positions)
         x = apply_norm(self._part(params, "final_norm"), x, cfg)
         if cfg.frontend.kind == "vision":
             x = x[:, cfg.frontend.n_prefix_tokens:]
@@ -252,11 +346,30 @@ class Model:
     # ---------------- serving ----------------
 
     def init_caches(self, batch: int, cache_len: int, device) -> Caches:
-        """Zero caches of every layer, in the compute dtype: stacked
-        ``{"k", "v"}`` of (L, B, T, KV, D) with ``scan_layers``, else
-        ``{"layer_XX": {"k", "v"}}``."""
+        """Zero caches of every layer, in the reference's tree and dtypes:
+        - attention families: the compute dtype's stacked ``{"k", "v"}``
+          of (L, B, T, KV, D) with ``scan_layers``, else
+          ``{"layer_XX": {"k", "v"}}``;
+        - hybrid: (``{"conv": (n_super, per, B, K-1, C) bf16, "ssm":
+          (n_super, per, B, H, P, N) fp32}``, the shared block's
+          ``{"k", "v"}`` at each site, (n_super, B, T, KV, D));
+        - ssm: ``{"layer_XX": {"mlstm": (C, n, m) | "slstm": (c, n, m,
+          h), "conv": bf16}}``."""
         cfg = self.cfg
-        if cfg.scan_layers:
+        if cfg.family == "hybrid":
+            lead = (self.n_super, cfg.shared_attn_every)
+            st = m2.init_mamba2_state(cfg, batch, device)
+            sts = {k: v.new_zeros(lead + v.shape) for k, v in st.items()}
+            kv = attn_lib.init_kv_cache(cfg, batch, cache_len, dtype_of(cfg),
+                                        device)
+            return sts, {k: v.new_zeros((self.n_super,) + v.shape)
+                         for k, v in kv.items()}
+        if cfg.family == "ssm":
+            return {f"layer_{i:02d}": (
+                xl.init_slstm_state if kind == "slstm"
+                else xl.init_mlstm_state)(cfg, batch, device)
+                for i, kind in enumerate(self.xlstm_kinds)}
+        if self._stacked:
             shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
                      cfg.head_dim)
             return {kv: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
@@ -266,13 +379,37 @@ class Model:
             for i in range(cfg.n_layers)}
 
     def _layer_caches(self, caches: Caches) -> Iterator[Cache]:
-        """Each layer's cache, a view into the stacked tensors."""
-        if self.cfg.scan_layers:
+        """Each attention layer's cache, a view into the stacked tensors."""
+        if self._stacked:
             for i in range(self.cfg.n_layers):
                 yield {"k": caches["k"][i], "v": caches["v"][i]}
         else:
             for i in range(self.cfg.n_layers):
                 yield caches[f"layer_{i:02d}"]
+
+    def _hybrid_serve(self, params: Mapping[str, torch.Tensor],
+                      x: torch.Tensor, caches: Caches, positions, pos):
+        """Prefill (``pos`` None: each unit's end-of-sequence state and the
+        shared block's k and v at every site written into ``caches``) or
+        one decode step at ``pos`` from the states in ``caches``, written
+        back in place: the conv window into its bf16 tensor, as the
+        reference rounds it."""
+        cfg = self.cfg
+        sts, kvs = caches
+        shared = _split(self._part(params, "shared"))
+        for i, j, up in self._units(params):
+            state = None if pos is None else {k: v[i, j]
+                                              for k, v in sts.items()}
+            x, st = self._recurrent(up, x, "mamba", state=state,
+                                    return_state=True)
+            for k, v in st.items():
+                sts[k][i, j].copy_(v)
+            if j == cfg.shared_attn_every - 1:
+                kv = {k: v[i] for k, v in kvs.items()}
+                x = (prefill_attn_block(shared, x, cfg, positions, kv)
+                     if pos is None else
+                     decode_attn_block(shared, x, cfg, kv, pos))
+        return x
 
     @torch.no_grad()
     def prefill(self, params: Mapping[str, torch.Tensor],
@@ -281,18 +418,29 @@ class Model:
                 ) -> Tuple[torch.Tensor, Caches]:
         """``batch``: the prompts' tokens (B, S), or a dict with ``tokens``
         (and ``patches`` for vision) or ``features`` (audio). Returns (the
-        last position's logits (B, V) in the compute dtype, the caches of
-        length ``cache_len`` (default the sequence, prefix included) in
-        the compute dtype). Each layer's attention is one launch of the
-        flash-attention kernel on the card."""
+        last position's logits (B, V) in the compute dtype, the caches:
+        ``init_caches``' of length ``cache_len`` (default the sequence,
+        prefix included), filled). Each attention layer, and a hybrid
+        model's shared block at each site, is one launch of the
+        flash-attention kernel on the card; the recurrent blocks are plain
+        PyTorch."""
         cfg = self.cfg
         if isinstance(batch, torch.Tensor):
             batch = {"tokens": batch}
         x, positions = self._embed(params, batch)
         caches = self.init_caches(x.shape[0], cache_len or x.shape[1],
                                   x.device)
-        for p, cache in zip(self._layers(params), self._layer_caches(caches)):
-            x = prefill_attn_block(p, x, cfg, positions, cache)
+        if cfg.family == "hybrid":
+            x = self._hybrid_serve(params, x, caches, positions, None)
+        elif cfg.family == "ssm":
+            for i, (p, kind) in enumerate(zip(self._layers(params),
+                                              self.xlstm_kinds)):
+                x, caches[f"layer_{i:02d}"] = self._recurrent(
+                    p, x, kind, return_state=True)
+        else:
+            for p, cache in zip(self._layers(params),
+                                self._layer_caches(caches)):
+                x = prefill_attn_block(p, x, cfg, positions, cache)
         x = apply_norm(self._part(params, "final_norm"), x[:, -1:], cfg)
         return lm_logits(self._part(params, "embed"), x, cfg)[:, 0], caches
 
@@ -300,15 +448,29 @@ class Model:
     def decode(self, params: Mapping[str, torch.Tensor], token: torch.Tensor,
                caches: Caches, pos: int) -> Tuple[torch.Tensor, Caches]:
         """One decode step. token: (B,) int; pos: the position it is written
-        at (the same for every row). The caches are written in place and
-        returned; logits (B, V) in the compute dtype. Plain PyTorch: no
-        kernel launches. An encoder-only model has no decode step."""
+        at (the same for every row). Returns (logits (B, V) in the compute
+        dtype, the caches): the attention caches and a hybrid model's
+        states are written in place; an ssm model's come back as new
+        tensors, the conv windows in the compute dtype, as the reference's.
+        Plain PyTorch: no kernel launches. An encoder-only model has no
+        decode step."""
         cfg = self.cfg
         if cfg.encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
         x = embed_tokens(self._part(params, "embed"), token[:, None], cfg)
-        for p, cache in zip(self._layers(params), self._layer_caches(caches)):
-            x = decode_attn_block(p, x, cfg, cache, int(pos))
+        if cfg.family == "hybrid":
+            x = self._hybrid_serve(params, x, caches, None, int(pos))
+        elif cfg.family == "ssm":
+            new = {}
+            for (key, st), p, kind in zip(caches.items(),
+                                          self._layers(params),
+                                          self.xlstm_kinds):
+                x, new[key] = self._recurrent(p, x, kind, state=st)
+            caches = new
+        else:
+            for p, cache in zip(self._layers(params),
+                                self._layer_caches(caches)):
+                x = decode_attn_block(p, x, cfg, cache, int(pos))
         x = apply_norm(self._part(params, "final_norm"), x, cfg)
         return lm_logits(self._part(params, "embed"), x, cfg)[:, 0], caches
 

@@ -803,6 +803,116 @@ def test_family_smoke_prefill_on_the_card(cuda, arch):
             1e-5 * want_caches[kv].abs().max().item()
 
 
+def _flat_state(tree, prefix=""):
+    """A cache tree (dicts, tuples, tensors) by ``/``-joined path."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix[:-1]: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_flat_state(v, f"{prefix}{k}/"))
+    return out
+
+
+def _tree_to(tree, device):
+    """A copy of a cache tree (dicts, tuples, tensors) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tuple(_tree_to(v, device) for v in tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, sites", [("zamba2-2.7b", 2),
+                                         ("xlstm-125m", 0)])
+def test_recurrent_smoke_serving_on_the_card(cuda, arch, sites):
+    """The recurrent families at smoke width (fp32): a prefill of 32 tokens
+    on the card launches flash_attention_fwd once at each of zamba2's 2
+    shared-block sites (xlstm never) and nothing else, and its logits are
+    the plain path's (the flash kernel's plain version on the card) within
+    1e-4 of their largest |value|. Then 4 greedy decode steps, each from
+    the CPU port's caches of the step before, launch nothing. At the
+    prefill and every step: logits within 1e-4 of their largest |value| of
+    the CPU port's; every cache on the card, of the CPU's dtype, within
+    1e-5 of the larger of 1 and its largest |value|; a bf16 conv window
+    also within one bf16 step (2 ** -7 of the value): cuBLAS sums in
+    another order, and a value near a rounding midpoint rounds to a
+    neighbour. (Each step starts from the CPU's caches: a window value
+    one bf16 step apart feeds the next step's keys and moves the mLSTM's
+    matrix memory by ~3e-4 of its scale, so a free-running chain would
+    hold the rounding of a tie, not the card's step.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_lib
+    cfg = get_config(arch + "-smoke")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    want, want_caches = model.prefill(params, tokens, 36)
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+    kernels.reset_launch_counts()
+    got, caches = model.prefill(on_card, tokens.to(cuda), 36)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**none, "flash_attention_fwd": sites}
+    kernel = attn_lib.flash_attention_fwd
+    attn_lib.flash_attention_fwd = (
+        lambda q, k, v, causal=True, **_: fa.flash_attention_fwd_ref(
+            q, k, v, causal))
+    try:
+        plain, _ = model.prefill(on_card, tokens.to(cuda), 36)
+    finally:
+        attn_lib.flash_attention_fwd = kernel
+    assert (got - plain).abs().max().item() <= \
+        1e-4 * plain.abs().max().item()
+    for i in range(5):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (i, err)
+        flat, want_flat = _flat_state(caches), _flat_state(want_caches)
+        assert set(flat) == set(want_flat)
+        for k, c in flat.items():
+            w = want_flat[k]
+            assert c.device.type == "cuda" and c.dtype == w.dtype, (i, k)
+            diff = (c.cpu().float() - w.float()).abs()
+            if k.endswith("conv"):
+                diff[diff <= w.float().abs() * 2.0 ** -7] = 0
+            assert diff.max().item() <= \
+                1e-5 * max(1.0, w.float().abs().max().item()), (i, k)
+        if i == 4:
+            break
+        tok = want.argmax(-1)
+        start = _tree_to(want_caches, cuda)
+        kernels.reset_launch_counts()
+        got, caches = model.decode(on_card, tok.to(cuda), start, 32 + i)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == none
+        want, want_caches = model.decode(params, tok, want_caches, 32 + i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_recurrent_smoke_training_on_the_card_matches_golden(cuda, arch):
+    """``paper_hetero_severe`` with the arch at smoke width on the card:
+    the golden's arrivals (they depend only on paces and schedules), one
+    packed_row_stats and one packed_correct_outer an applied arrival,
+    finite evals."""
+    from repro_torch.scenarios import registry, run
+    scn = registry.get_scenario("paper_hetero_severe").overridden(arch=arch)
+    kernels.reset_launch_counts()
+    eng, hist = run.run(scn, "cuda")
+    assert run.compare(scn, hist) == []
+    applied = sum(not a["dropped"] for a in hist.arrivals)
+    assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.launch_counts(), 0),
+        "packed_row_stats": applied, "packed_correct_outer": applied}
+    assert all(t.device.type == "cuda"
+               for t in eng.server.state.params.values())
+    assert all(np.isfinite(e["mean"]) for e in hist.evals)
+
+
 @pytest.mark.cuda
 def test_checkpoint_from_the_card_restores_bit_for_bit(cuda, tmp_path):
     from repro_torch.checkpoint import ckpt

@@ -131,12 +131,6 @@ def test_every_config_equals_the_reference():
         configs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "xlstm-125m"])
-def test_recurrent_families_raise_naming_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="A17b"):
-        Model(configs.get_config(name + "-smoke"))
-
-
 # ------------------------------------------------------- params and loss
 
 @pytest.mark.parametrize("name", ATTN_ARCHS)
