@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only socket
     python3 chip_smoke.py --only obs
     python3 chip_smoke.py --only families
+    python3 chip_smoke.py --only dist
 
 Phases, in order; any failure exits non-zero (``--only int8`` runs the
 int8 kernels' checks and times of phase 2, the card's read, write and copy
@@ -22,7 +23,7 @@ wallclock`` builds the packed sweeps and runs the wall-clock phase,
 ``--only socket`` the socket phase, and ``--only obs`` the obs phase with
 its untraced twins run in it; ``--only families`` the flash kernels'
 build report, flash_attention_fwd's checks and times and the families
-phase):
+phase; ``--only dist`` the dist phase):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
@@ -201,7 +202,25 @@ phase):
      golden's arrivals, each applied arrival one packed_row_stats and one
      packed_correct_outer launch and nothing else, finite evals, every
      tensor on the card;
-  9. print the card's name and power limit, the kernel summary line, and
+  9. the dist path (``dist_phase``, ``--only dist``): the sharding rules
+     over full-width granite-moe-1b-a400m and qwen2-7b on meta tensors;
+     ``dist.steps``' train step on granite-moe at full width and 4 of 24
+     layers, batch 4 x 128, inside a one-card mesh: the dry-run plan's
+     grad_accum=4 in bf16; with one microbatch's tokens a dispatch group,
+     grad_accum=4 held to grad_accum=1 on the same batch in fp32 (loss
+     within rtol 1e-5, the step under ``step_rule``) and in bf16 (within
+     BF16_FACTOR times bf16's own distance from fp32); the
+     multi-pod step with two pods on the card (identical pods bit for bit
+     equal, different batches part, pod 0 the single step's bits); the
+     prefill and decode steps bit-equal to ``Model``'s on full-width
+     tinygpt-15m with 4 flash launches a prefill; the HeLoCo outer
+     exchange on granite-moe at full width and depth (1.33 B parameters),
+     without and with int8: block_stats, correct_apply and outer_update_2d
+     (and absmax, quantize_2d, dequantize_2d) once a leaf and nothing
+     else, held leaf by leaf to the plain path on the card (TOL_DIST of
+     each leaf's largest |value|, no branch flip, the int8 round trip bit
+     for bit); the phase's seconds and peak device memory;
+ 10. print the card's name and power limit, the kernel summary line, and
      the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device, or without the rest of the repository, it exits
@@ -2013,7 +2032,8 @@ def wire_timing(torch, task, res, dev):
     pickle, the concatenation with the header, the frame's CRC32, one frame
     through a socket pair (``_send_frame`` on one end, ``_recv_frame`` on a
     reader thread: all of the above, the transfer, the receiver's CRC and
-    unpickle), the unpickle alone, the copy back to the card
+    unpickle), the unpickle alone, the pickle into its pieces as
+    ``_send_frame`` makes it (no array copied), the copy back to the card
     (``device_task``/``device_result``) and, for the result, the server's
     ``payload_crc`` of its host form."""
     import pickle
@@ -2067,6 +2087,7 @@ def wire_timing(torch, task, res, dev):
             "frame_crc_ms": med(lambda: zlib.crc32(data)),
             "socket_frame_ms": med(lambda: through_socket(frame)),
             "unpickle_ms": med(lambda: pickle.loads(data)),
+            "pickle_pieces_ms": med(lambda: proc._pickle_pieces(frame)),
         }
         wire = pickle.loads(data)
         row["copy_back_ms"] = med(lambda: back(wire[1] if label == "task"
@@ -3658,6 +3679,415 @@ def families_phase(torch, kernels, dev):
             **{k: (counts[k], arrivals) for k in HELOCO}}
 
 
+# the dist phase: granite-moe trained through the dist steps at the cut
+# depth of the families phase, with the dry-run plan's grad_accum; the
+# exchange at full depth; prefill and decode on the serve phase's model
+DIST_ARCH = "granite-moe-1b-a400m"
+DIST_TRAIN_LAYERS = 4
+DIST_BATCH = (4, 128)
+DIST_INNER = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+# the microbatches of the grad_accum check route the same token groups as
+# the whole batch only when a dispatch group is one microbatch's tokens or
+# fewer: with the config's 2048-token groups a 512-token batch is one group
+# and four 128-token microbatches are four, with other capacity drops
+DIST_CHECK_GROUP = 128
+TOL_DIST = 1e-5
+# the bf16 pair's band: this many times bf16's own distance from fp32 on
+# the grad_accum=1 step (loss, first moments), at least the fp32 pair's:
+# two bf16 steps each that far from exact arithmetic are at most twice it
+# apart (each leaf's first moments held to their own leaf's distance)
+BF16_FACTOR = 2.0
+
+
+def step_rule(torch, got, want, mu_want, lr, wd, what, band=None):
+    """One AdamW step against another, given the first moments (0.1 g)
+    held within ``band[leaf]`` of each leaf's largest |value| (None: 1e-4,
+    the families' gradient band): the parameters within 5e-4 of each leaf's
+    largest |value| except where the gradient is inside that band of zero
+    (the first step is +-lr times a sign that the band does not fix: at
+    most 2 lr (1 + wd |p|) there). Returns (largest parameter error share,
+    elements excepted)."""
+    worst, excepted = 0.0, 0
+    for k, w in want.items():
+        w, g, m = w.float(), got[k].float(), mu_want[k]
+        scale = float(w.abs().max()) or 1.0
+        diff = (g - w).abs()
+        out = diff > 5e-4 * scale
+        near_zero = m.abs() <= (1e-4 if band is None else band[k]) * float(
+            m.abs().max())
+        assert bool(near_zero[out].all()), f"{what}: {k} off its band"
+        assert bool((diff[out] <= 2 * lr * (1 + wd * w[out].abs())
+                     + 1e-7).all()), f"{what}: {k} past 2 lr"
+        worst = max(worst, float(diff.max()) / scale)
+        excepted += int(out.sum())
+    return worst, excepted
+
+
+def exchange_inputs(torch, model, dev):
+    """Full-width inputs of the exchange, drawn on the card: the model's
+    parameters, two workers' trees (the arriving pod 1 theta + 1e-3 noise,
+    pod 0 theta - 5e-5 noise) and a momentum per leaf of a cosine near 1,
+    -1 or 0.1 to the pseudo-gradient, so that blocks take every branch of
+    Alg. 2."""
+    params = model.init(torch.Generator(device=dev).manual_seed(2), dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mom, wp = {}, {}
+    for i, (k, p) in enumerate(params.items()):
+        noise = torch.randn(p.shape, generator=gen, device=dev)
+        wp[k] = torch.stack([p - 5e-5 * noise, p + 1e-3 * noise])
+        a, b = ((1.0, 0.1), (-1.0, 0.1), (0.1, 1.0))[i % 3]
+        mom[k] = 0.01 * (-a * noise + b * torch.randn(
+            p.shape, generator=gen, device=dev))
+        del noise
+    return params, mom, wp
+
+
+BRANCHES = ("keep", "anti", "weak", "degenerate")
+
+
+def block_branches(torch, hk, delta, momentum, h, stacked_axes,
+                   use_kernel=False):
+    """Alg. 2's branch of every block, by path (an int8 (L,) tensor, an
+    index into ``BRANCHES``): the cosine as the plain path computes it
+    (``core.heloco``: normalized vectors, then their dot), or with
+    ``use_kernel`` as the kernel path does (``block_stats``' sums, then
+    ``branch_scalars``' cosine). It says whether the two paths took the
+    same branch, which their outputs alone do not show."""
+    out = {}
+    for k, d in delta.items():
+        blocks = math.prod(d.shape[:int(stacked_axes.get(k, 0))])
+        u = d.float().reshape(blocks, -1)
+        v = momentum[k].float().reshape(blocks, -1)
+        if use_kernel:
+            dot, uu, vv = hk.block_stats(u.contiguous(),
+                                         v.contiguous()).unbind(1)
+            nu, nv = torch.sqrt(uu), torch.sqrt(vv)
+            c = dot / torch.clamp_min(nu * nv, h.eps * h.eps)
+        else:
+            nu = torch.linalg.vector_norm(u, dim=1)
+            nv = torch.linalg.vector_norm(v, dim=1)
+            c = ((u / torch.clamp_min(nu, h.eps)[:, None])
+                 * (v / torch.clamp_min(nv, h.eps)[:, None])).sum(1)
+        code = torch.where(c >= h.c_ok, 0, torch.where(c < 0.0, 1, 2))
+        code = torch.where((nu < h.eps) | (nv < h.eps), 3, code)
+        out[k] = code.to(torch.int8)
+    return out
+
+
+
+
+def live_cuda_storages(torch, n=5):
+    """The largest CUDA storages that Python objects still reach, as (GB,
+    shape, dtype) of a tensor on each: what earlier phases hold."""
+    seen = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            seen[st.data_ptr()] = (st.nbytes() / 1e9, list(o.shape),
+                                   str(o.dtype))
+    return sorted(seen.values(), reverse=True)[:n]
+
+
+def dist_phase(torch, kernels, dev):
+    """The dist path (``repro_torch.dist``) on the card, each part freed
+    before the next; prints its seconds and peak device memory.
+    (a) Sharding: ``param_specs`` of full-width granite-moe-1b-a400m and
+    qwen2-7b from meta tensors on both production meshes, every placement
+    dividing its dim, and the per-device parameter bytes.
+    (b) Train step: granite-moe at full width and DIST_TRAIN_LAYERS
+    layers, batch 4 x 128, inside a one-card mesh with the specs placed at
+    the step's edges: the plan's grad_accum=4 in the config's bf16; then,
+    with DIST_CHECK_GROUP-token dispatch groups, grad_accum=4 held to
+    grad_accum=1 on the same batch, in fp32 (loss within rtol 1e-5, first
+    moments within 1e-4 of each leaf's largest |value|, the step under
+    ``step_rule``) and in bf16 (the same with BF16_FACTOR times bf16's own
+    distance from the fp32 grad_accum=1 step as the loss's rtol and each
+    leaf's first-moment band, where larger).
+    (c) Multi-pod step: two pods on the card: identical pods stay bit for
+    bit identical, different batches diverge, pod 0 bit-equal to the
+    single step on its slice.
+    (d) Prefill and decode steps on full-width tinygpt-15m (bf16): bit-equal
+    to ``Model.prefill`` and ``decode``, 4 flash_attention_fwd launches a
+    prefill and nothing else, none in decode.
+    (e) Outer exchange (HeLoCo, arriving pod 1 of 2, then with int8) on
+    granite-moe at full width and depth, 1.33 B parameters: with the
+    counts set to 0 just before each and read just after, block_stats,
+    correct_apply and outer_update_2d once a leaf (and absmax, quantize_2d
+    and dequantize_2d once a leaf with int8) and nothing else; then held
+    leaf by leaf to the plain path on the card: p', m' and the look-ahead
+    within TOL_DIST of each leaf's largest |value|, the same branch in
+    every block, the int8 round trip bit for bit.
+    Returns per kernel (launches, arrivals or prefills or leaves they
+    served), as the kernels line counts each row."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import HeLoCoConfig, InnerOptConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import steps
+    from repro_torch.kernels import heloco_correct as hk
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import plan_for
+    from repro_torch.launch.mesh import (local_mesh, make_production_mesh,
+                                         mesh_context)
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()   # earlier phases' tensors
+    held_by = live_cuda_storages(torch) if held_before > 1e9 else []
+    none = dict.fromkeys(kernels.launch_counts(), 0)
+
+    # (a) sharding of two full-width trees, no allocation
+    for arch in (DIST_ARCH, "qwen2-7b"):
+        params = Model(get_config(arch)).param_specs()
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            specs = shd.param_specs(params, axis_sizes=mesh.axis_sizes)
+            per_dev = sum(math.prod(shd.shard_shape(
+                x.shape, specs[k], mesh.axis_sizes, k)) * x.element_size()
+                for k, x in params.items())
+            kinds = {}
+            for s in specs.values():
+                key = "+".join(sorted({e if isinstance(e, str) else
+                                       "/".join(e) for e in s if e})) \
+                    or "replicated"
+                kinds[key] = kinds.get(key, 0) + 1
+            print(json.dumps({"dist_sharding": arch, "mesh": mesh.axis_sizes,
+                              "leaves": len(specs), "placements": kinds,
+                              "param_bytes_per_device": per_dev}))
+
+    # (b) train steps at the cut depth
+    cfg = dataclasses.replace(get_config(DIST_ARCH),
+                              n_layers=DIST_TRAIN_LAYERS)
+    ga = plan_for(DIST_ARCH, SHAPES["train_4k"])["grad_accum"]
+    inner = InnerOptConfig(**DIST_INNER)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok = torch.randint(0, cfg.vocab_size, (2,) + DIST_BATCH, generator=gen,
+                        device=dev, dtype=torch.int32)
+    batches = [{"tokens": t, "labels": torch.roll(t, -1, 1)} for t in tok]
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(1), dev)
+    with local_mesh(dev) as mesh, mesh_context(mesh):
+        pspecs = shd.param_specs(params, axis_sizes=mesh.axis_sizes)
+        state = steps.init_train_state(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf16_state, bf16_loss = steps.make_train_step(
+            cfg, inner, grad_accum=ga, param_pspecs=pspecs)(state, batches[0])
+        torch.cuda.synchronize()
+        bf16_s = time.perf_counter() - t0
+        bf16_one = steps.make_train_step(cfg, inner, param_pspecs=pspecs)(
+            state, batches[0])[1]
+        assert torch.isfinite(bf16_loss) and all(
+            bool(torch.isfinite(v).all()) for v in bf16_state.params.values())
+        del bf16_state
+        grouped = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, group_size=DIST_CHECK_GROUP))
+        f32 = dataclasses.replace(grouped, compute_dtype="float32")
+        run = {(name, n): steps.make_train_step(
+                   c, inner, grad_accum=n, param_pspecs=pspecs)(
+                   state, batches[0])
+               for name, c in (("fp32", f32), ("bf16", grouped))
+               for n in (ga, 1)}
+
+        def loss_share(a, b):
+            return abs(float(a[1]) - float(b[1])) / abs(float(b[1]))
+
+        def mu_share(a, b):
+            """Per leaf: the first moments' largest difference as a share
+            of the leaf's largest |value|."""
+            return {k: float((a[0].opt.mu[k] - v).abs().max())
+                    / (float(v.abs().max()) or 1.0)
+                    for k, v in b[0].opt.mu.items()}
+
+        own_loss = loss_share(run["bf16", 1], run["fp32", 1])
+        own_mu = mu_share(run["bf16", 1], run["fp32", 1])
+        held = {}
+        for name, rtol, band in (
+                ("fp32", 1e-5, dict.fromkeys(own_mu, 1e-4)),
+                ("bf16", max(1e-5, BF16_FACTOR * own_loss),
+                 {k: max(1e-4, BF16_FACTOR * v) for k, v in own_mu.items()})):
+            acc, one = run[name, ga], run[name, 1]
+            rel, mu_err = loss_share(acc, one), mu_share(acc, one)
+            assert rel <= rtol, \
+                f"{name} grad_accum={ga} loss off by {rel:.3e} ({rtol:.3e})"
+            for k, e in mu_err.items():
+                assert e <= band[k], f"{name} grad_accum={ga} first " \
+                    f"moments of {k} {e:.3e} ({band[k]:.3e})"
+            worst, excepted = step_rule(
+                torch, acc[0].params, one[0].params, one[0].opt.mu, inner.lr,
+                inner.weight_decay, f"{name} grad_accum", band)
+            held[name] = {"loss": float(acc[1]),
+                          "loss_grad_accum_1": float(one[1]),
+                          "loss_rel_err": rel, "loss_rtol": rtol,
+                          "mu_err_share": mu_err, "mu_band": band,
+                          "param_err_share": worst,
+                          "near_zero_gradient_elements_excepted": excepted}
+        del run
+        print(json.dumps({
+            "dist_train": DIST_ARCH, "layers": f"{DIST_TRAIN_LAYERS} of "
+            f"{get_config(DIST_ARCH).n_layers}", "batch": list(DIST_BATCH),
+            "grad_accum": ga, "bf16_loss": float(bf16_loss),
+            "bf16_loss_grad_accum_1": float(bf16_one),
+            "bf16_step_s": bf16_s, "dispatch_group": DIST_CHECK_GROUP,
+            "bf16_own_distance_from_fp32": {"loss": own_loss,
+                                            "mu": own_mu}, **held}))
+
+        # (c) two pods on the card
+        multi = steps.make_multipod_train_step(cfg, inner, mesh,
+                                               param_pspecs=pspecs)
+        same = {k: torch.stack([v, v]) for k, v in batches[0].items()}
+        diff = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+        ns, _ = multi(steps.stack_pods([state, state]), same)
+        for k, v in ns.params.items():
+            assert torch.equal(v[0], v[1]), f"pods parted on {k}"
+        del ns
+        nd, losses = multi(steps.stack_pods([state, state]), diff)
+        single, loss0 = steps.make_train_step(cfg, inner,
+                                              param_pspecs=pspecs)(
+            state, batches[0])
+        parted = sum(not torch.equal(v[0], v[1])
+                     for v in nd.params.values())
+        assert parted, "pods with different batches stayed equal"
+        assert torch.equal(losses[0], loss0)
+        for k, v in single.params.items():
+            assert torch.equal(nd.params[k][0], v), f"pod 0 != single: {k}"
+        print(json.dumps({"dist_multipod": 2, "losses": losses.tolist(),
+                          "leaves_parted": parted,
+                          "leaves": len(single.params),
+                          "pod0_bit_equal_single": True}))
+        del nd, single, state, params, multi
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) prefill and decode steps on the serve phase's model
+    scfg = get_config("tinygpt-15m")
+    model = Model(scfg)
+    sparams = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = serve.make_inputs(scfg, SERVE["batch"], SERVE["prompt"], 0, dev)
+    n = SERVE["prompt"] + 1
+    pre = steps.make_prefill_step(scfg, cache_len=n)
+    dec = steps.make_decode_step(scfg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    logits, caches = pre(sparams, batch)
+    torch.cuda.synchronize()
+    at_prefill = kernels.launch_counts()
+    want_logits, want_caches = model.prefill(sparams, batch["tokens"], n)
+    assert at_prefill == {**none, "flash_attention_fwd": scfg.n_layers}, \
+        at_prefill
+    assert torch.equal(logits, want_logits)
+    token = logits.argmax(-1)
+    kernels.reset_launch_counts()
+    logits2, _ = dec(sparams, token, caches, SERVE["prompt"])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == none
+    want2, _ = model.decode(sparams, token, want_caches, SERVE["prompt"])
+    assert torch.equal(logits2, want2) and torch.isfinite(logits2).all()
+    print(json.dumps({"dist_serve": "tinygpt-15m", "prefill_launches":
+                      at_prefill["flash_attention_fwd"],
+                      "prefill_bit_equal": True, "decode_bit_equal": True}))
+    del sparams, caches, want_caches, logits, logits2, want_logits, want2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the exchange at full width and depth
+    h = HeLoCoConfig()
+    xcfg = get_config(DIST_ARCH)
+    mesh = make_production_mesh(multi_pod=True)
+    counts = {}
+    for int8 in (False, True):
+        params, mom, wp = exchange_inputs(torch, Model(xcfg), dev)
+        stacked = shd.stacked_axes_tree(params)
+        fn = steps.make_outer_exchange(xcfg, mesh, h=h, outer_lr=0.7, mu=0.9,
+                                       arriving_pod=1, stacked_axes=stacked,
+                                       compress_int8=int8)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        p2, m2, bar = fn(params, mom, wp)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        want = {**none, **dict.fromkeys(
+            ("block_stats", "correct_apply", "outer_update_2d")
+            + (("absmax", "quantize_2d", "dequantize_2d") if int8 else ()),
+            len(params))}
+        assert got == want, f"exchange (int8={int8}) launched {got}"
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        # the kernel path's outputs wait on the host (the look-ahead as
+        # pod 0 of its broadcast) while the plain path runs leaf by leaf,
+        # and the plain path reads only the arriving pod: keep that one
+        assert all(x.shape[0] == 2 and x.stride(0) == 0
+                   for x in bar.values()), "look-ahead not broadcast"
+        outs = ({k: v.cpu() for k, v in p2.items()},
+                {k: v.cpu() for k, v in m2.items()},
+                {k: v[0].cpu() for k, v in bar.items()})
+        del p2, m2, bar
+        for k in wp:
+            wp[k] = wp[k][1:].clone()
+        plain = steps.make_outer_exchange(
+            xcfg, mesh, h=h, outer_lr=0.7, mu=0.9, arriving_pod=0,
+            stacked_axes=stacked, compress_int8=int8, use_kernel=False)
+        worst = 0.0
+        branches = {}
+        for k in list(params):
+            wants = plain({k: params[k]}, {k: mom[k]}, {k: wp[k]})
+            for i, (got_t, want_t) in enumerate(zip(outs, wants)):
+                g = got_t.pop(k).to(dev).float()
+                w = (want_t[k][0] if i == 2 else want_t[k]).float()
+                scale = float(w.abs().max()) or 1.0
+                err = float((g - w).abs().max()) / scale
+                assert err <= TOL_DIST, f"{k}: {err:.3e} of its scale"
+                worst = max(worst, err)
+            del wants, g, w
+            delta = {k: params[k].float() - wp[k][0].float()}
+            if int8:
+                kq = steps.int8_roundtrip_leaf(delta[k], use_kernel=True)
+                pq = steps.int8_roundtrip_leaf(delta[k])
+                assert torch.equal(kq, pq), f"{k}: int8 round trip differs"
+                delta = {k: pq}
+                del kq
+            kb = block_branches(torch, hk, delta, {k: mom[k]}, h, stacked,
+                                use_kernel=True)[k]
+            pb = block_branches(torch, hk, delta, {k: mom[k]}, h,
+                                stacked)[k]
+            assert torch.equal(kb, pb), f"{k}: a HeLoCo branch flipped"
+            for c in kb.tolist():
+                branches[BRANCHES[c]] = branches.get(BRANCHES[c], 0) + 1
+            del delta
+        n_leaves = len(params)
+        print(json.dumps({"dist_exchange": DIST_ARCH, "int8": int8,
+                          "params": sum(p.numel() for p in params.values()),
+                          "leaves": n_leaves,
+                          "launches": {k: v for k, v in got.items() if v},
+                          "exchange_s": secs, "max_err_share": worst,
+                          "branches": branches}))
+        del params, mom, wp, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    secs = time.perf_counter() - t_phase
+    print(f"dist phase: peak {peak / 1e9:.2f} GB, {secs:.1f} s")
+    print(json.dumps({"dist_phase_s": secs, "peak_GB": peak / 1e9,
+                      "held_by_earlier_phases_GB": held_before / 1e9,
+                      "largest_held": held_by}))
+    return {"block_stats": (counts["block_stats"], 2),
+            "correct_apply": (counts["correct_apply"], 2),
+            "outer_update_2d": (counts["outer_update_2d"], 2 * n_leaves),
+            **{k: (counts[k], n_leaves)
+               for k in ("absmax", "quantize_2d", "dequantize_2d")},
+            "flash_attention_fwd": (at_prefill["flash_attention_fwd"], 1)}
+
+
+def dist_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only dist``: the dist phase alone (leaf.cu, quantize.cu and
+    flash_attention.cu built)."""
+    print(json.dumps({"dist_launches": dist_phase(torch, kernels, dev)}))
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
@@ -3675,7 +4105,9 @@ def main(argv=None) -> int:
                          "packed.cu and runs the obs phase with its untraced "
                          "twins (obs_only); families builds flash_attention.cu "
                          "and packed.cu, checks and times the flash kernels "
-                         "and runs the families phase (families_only)")
+                         "and runs the families phase (families_only); dist "
+                         "builds leaf.cu, quantize.cu and flash_attention.cu "
+                         "and runs the dist phase (dist_only)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3782,6 +4214,11 @@ def main(argv=None) -> int:
         totals[k][0] += launches
         totals[k][1] += served
     print(f"families phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, (launches, served) in dist_phase(torch, all_kernels, dev).items():
+        totals[k][0] += launches
+        totals[k][1] += served
+    print(f"dist phase: {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for r in rows:
@@ -3827,7 +4264,8 @@ ONLY = {"int8": (("quantize",), int8_only), "leaf": (("leaf",), leaf_only),
         "telemetry": (("packed",), telemetry_only),
         "wallclock": (("packed",), wallclock_only),
         "socket": (("packed",), socket_only), "obs": (("packed",), obs_only),
-        "families": (("flash_attention", "packed"), families_only)}
+        "families": (("flash_attention", "packed"), families_only),
+        "dist": (("leaf", "quantize", "flash_attention"), dist_only)}
 
 
 if __name__ == "__main__":

@@ -97,6 +97,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -116,6 +117,8 @@ from repro_torch.async_engine.transport import (
 
 _HDR = struct.Struct("!II")          # (payload length, CRC32 of payload)
 _MAX_FRAME = 1 << 30
+# a received array's bytes are copied in slices of this many
+_COPY_SLICE = 4 << 20
 # AF_UNIX paths are limited to 108 bytes on Linux: a longer one goes TCP
 _MAX_UNIX_PATH = 100
 
@@ -150,31 +153,47 @@ class WorkerFatal:
 # Frame I/O
 # ---------------------------------------------------------------------------
 
+def _pickle_pieces(obj: Any) -> list:
+    """``obj`` pickled as ``pickle.dumps`` pickles it, as the list of its
+    pieces in order: the pickler hands a payload of 64 KiB or more (an
+    array's bytes, as protocol 5's ``PickleBuffer``) to its file as it lies
+    in memory, so no array is copied and no whole-frame copy holds the
+    GIL."""
+    pieces: list = []
+    pickle.Pickler(types.SimpleNamespace(write=pieces.append),
+                   protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    return pieces
+
+
 def _send_frame(sock: socket.socket, lock: threading.Lock, obj: Any,
                 stats: Optional[Dict[str, Any]] = None) -> None:
-    if stats is None:
-        data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
-    else:
-        t0 = time.perf_counter()
-        data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    t0 = time.perf_counter()
+    pieces = _pickle_pieces(obj)
+    if stats is not None:
         stats["ser_s"] += time.perf_counter() - t0
-    hdr = _HDR.pack(len(data), zlib.crc32(data) & 0xFFFFFFFF)
+    length, crc = 0, 0
+    for piece in pieces:
+        length += memoryview(piece).nbytes
+        crc = zlib.crc32(piece, crc)
+    hdr = _HDR.pack(length, crc & 0xFFFFFFFF)
     with lock:
-        # the reference's bytes, without a copy of the payload behind the
-        # header
+        # the reference's bytes, each piece sent from where it lies (the
+        # GIL released for the transfer)
         sock.sendall(hdr)
-        sock.sendall(data)
+        for piece in pieces:
+            sock.sendall(piece)
         if stats is not None:
             stats["frames_sent"] += 1
-            stats["bytes_sent"] += len(hdr) + len(data)
+            stats["bytes_sent"] += len(hdr) + length
 
 
-def _read_exact(sock: socket.socket, n: int) -> bytearray:
+def _read_exact(sock: socket.socket, n: int) -> np.ndarray:
     """``n`` bytes into one buffer, waiting for all of them in the kernel:
     one call, the GIL released throughout, where reading whatever each
     ``recv`` returns would take the GIL again per socket buffer (hundreds
-    of times a frame, each a wait behind the process' busy threads)."""
-    buf = bytearray(n)
+    of times a frame, each a wait behind the process' busy threads). The
+    buffer is not zeroed first: that too would hold the GIL."""
+    buf = np.empty(n, np.uint8)
     view = memoryview(buf)
     got = 0
     while got < n:
@@ -183,6 +202,39 @@ def _read_exact(sock: socket.socket, n: int) -> bytearray:
             raise EOFError("connection closed mid-frame")
         got += k
     return buf
+
+
+class _SliceReader:
+    """A received payload as ``pickle.Unpickler``'s file. An array's bytes
+    go into the object that takes them _COPY_SLICE bytes at a time, and
+    between two slices the GIL can pass to the process' other threads (a
+    child's beacon sender, the parent's heartbeat reader), where
+    ``pickle.loads`` holds it for a whole frame's copies."""
+
+    def __init__(self, buf):
+        self._view = memoryview(buf).cast("B")
+        self._pos = 0
+
+    def read(self, n: int = -1) -> bytes:
+        end = len(self._view) if n < 0 else min(len(self._view),
+                                                 self._pos + n)
+        out = bytes(self._view[self._pos:end])
+        self._pos = end
+        return out
+
+    def readinto(self, b) -> int:
+        dst = memoryview(b).cast("B")
+        n = min(len(dst), len(self._view) - self._pos)
+        for i in range(0, n, _COPY_SLICE):
+            j = min(n, i + _COPY_SLICE)
+            dst[i:j] = self._view[self._pos + i:self._pos + j]
+        self._pos += n
+        return n
+
+    def readline(self) -> bytes:
+        # the unpickler asks for it to exist; protocol 5, both sides'
+        # writers', has no text opcode that calls it
+        raise pickle.UnpicklingError("no text line in a protocol 5 frame")
 
 
 def _recv_frame(sock: socket.socket,
@@ -195,13 +247,12 @@ def _recv_frame(sock: socket.socket,
         if stats is not None:
             stats["crc_rejects"] += 1
         raise WireError("frame CRC mismatch on the wire")
-    if stats is None:
-        return pickle.loads(data)
     t0 = time.perf_counter()
-    obj = pickle.loads(data)
-    stats["deser_s"] += time.perf_counter() - t0
-    stats["frames_recv"] += 1
-    stats["bytes_recv"] += _HDR.size + length
+    obj = pickle.Unpickler(_SliceReader(data)).load()
+    if stats is not None:
+        stats["deser_s"] += time.perf_counter() - t0
+        stats["frames_recv"] += 1
+        stats["bytes_recv"] += _HDR.size + length
     return obj
 
 
@@ -390,6 +441,9 @@ class SocketTransport(Transport):
                 sock, _ = self._listener.accept()
             except OSError:
                 return                           # listener closed
+            if self._closed:                     # close()'s wake-up call
+                sock.close()
+                return
             conn = _Conn(sock)
             threading.Thread(target=self._conn_loop, args=(conn,),
                              name="heloco-sock-conn", daemon=True).start()
@@ -507,6 +561,18 @@ class SocketTransport(Transport):
                 return
             self._closed = True
             self._not_empty.notify_all()
+        # a thread blocked in accept() holds the transport, its pool and
+        # the pool's runtime alive, and closing the listener does not wake
+        # it on every kernel: one connection does
+        if threading.current_thread() is not self._acceptor:
+            try:
+                with socket.socket(socket.AF_UNIX if self.family == "unix"
+                                   else socket.AF_INET) as wake:
+                    wake.settimeout(5.0)
+                    wake.connect(self.address[1])
+            except OSError:
+                pass
+            self._acceptor.join(timeout=5.0)
         try:
             self._listener.close()
         except OSError:

@@ -183,6 +183,11 @@ def method_table() -> Dict[str, Dict[str, Any]]:
     return {m.name: m.defaults() for m in _REGISTRY.values()}
 
 
+def alias_table() -> Dict[str, str]:
+    """Benchmark-dialect alias -> canonical name, in registration order."""
+    return dict(_ALIASES)
+
+
 # ---------------------------------------------------------------------------
 # Schedule scalars
 # ---------------------------------------------------------------------------

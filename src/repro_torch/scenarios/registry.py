@@ -4,10 +4,9 @@ A copy, as data, of the reference's ``repro/scenarios/registry.py``: the
 same 25 scenarios, field for field (a test holds the two equal, and each
 equal to its committed golden's ``scenario`` dict). Each has a committed
 golden trace under ``results/golden/<name>.json``; ``python -m
-repro_torch.scenarios.run verify NAME`` holds a port run to it. The port
-builds every sim-engine scenario, on the hub or a ring or gossip topology;
-the wall-clock ones raise ``NotImplementedError`` naming the ROADMAP item
-they wait for (``Scenario.build``).
+repro_torch.scenarios verify NAME`` holds a port run to it. The port
+builds every one of them: the simulator's, on the hub or a ring or gossip
+topology, and the wall-clock runtime's, threaded or over worker processes.
 """
 from __future__ import annotations
 

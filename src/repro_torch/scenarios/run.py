@@ -1,7 +1,13 @@
-"""Scenario runner of the port: list the registry and hold port runs to the
-committed golden traces.
+"""Scenario runner of the port: list the registry, record golden traces
+from port runs, and hold port runs to the committed ones.
 
-    PYTHONPATH=src python -m repro_torch.scenarios.run list
+    PYTHONPATH=src python -m repro_torch.scenarios list
+    PYTHONPATH=src python -m repro_torch.scenarios.run list \\
+        --engine-filter sim
+    PYTHONPATH=src python -m repro_torch.scenarios.run record --all \\
+        --engine-filter sim --device cpu
+    PYTHONPATH=src python -m repro_torch.scenarios.run verify --all \\
+        --engine-filter sim --device cpu
     PYTHONPATH=src python -m repro_torch.scenarios.run verify dcasgd fedbuff
     PYTHONPATH=src python -m repro_torch.scenarios.run verify drop_stale \\
         --device cpu
@@ -18,6 +24,13 @@ committed golden traces.
     PYTHONPATH=src python -m repro_torch.scenarios.run verify \\
         paper_hetero_severe socket_hetero --obs --device cpu
 
+The selection is the reference's: the names given, or every registered
+scenario with ``--all`` or with no name, narrowed by ``--engine-filter``
+and ``--transport-filter``; ``list`` groups by engine and transport.
+``record`` runs each selected scenario on the device and writes its trace
+in the reference's golden format to ``--dir``, ``results/torch_golden`` by
+default; a directory under ``results/golden``, which holds the
+reference's committed goldens, is refused before anything runs.
 ``verify`` runs each scenario on the device (the card unless ``--device
 cpu``) and holds it to ``results/golden/<name>.json`` through
 ``trace.verify``: exactly (arrivals, ``tokens``, ``comm_bytes`` and
@@ -27,13 +40,13 @@ also replays sim scenarios on the deterministic runtime and holds the
 replay's parameter fingerprint to the simulator's run. ``--transport
 socket`` reruns the wall-clock scenarios (and, with ``--cross``, the sim
 scenarios' replays) over worker processes against the same goldens: the
-backend must not change the trace. ``--transport-filter`` keeps only the
-scenarios registered on one transport. ``--obs`` reruns each check with
+backend must not change the trace; ``--cross-only`` runs only the
+replays. ``--obs`` reruns each check with
 the whole observability stack on (a live telemetry sink, runtime records,
 a span tracer and, over processes, the children's obs frames): the run
 must still verify and its Chrome trace validate. The goldens' evals
 and parameter digest are the reference's own initial draw and are not a
-target here. It exits non-zero on a mismatch and records no golden.
+target here. It exits non-zero on a mismatch.
 ``compare`` holds a finished run to a golden's arrivals the same way, and
 its tokens and communication too when the run has the golden's
 configuration.
@@ -51,6 +64,7 @@ from repro_torch.scenarios import registry, trace
 from repro_torch.scenarios.spec import Scenario
 
 GOLDEN_DIR: Path = trace.GOLDEN_DIR
+RECORD_DIR: Path = trace.RECORD_DIR
 arrival_rows = trace.arrival_rows
 load_golden = trace.load_golden
 run = trace.run_scenario
@@ -73,56 +87,112 @@ def compare(scn: Scenario, hist, golden: Optional[Dict] = None) -> List[str]:
     return bad
 
 
+def select(names=(), all_: bool = False, engine_filter=None,
+           transport_filter=None) -> List[Scenario]:
+    """The reference's selection, grouped as it runs them: the named
+    scenarios, or all of them with ``all_`` or no name, kept where their
+    engine and transport match the filters; sorted by engine, transport,
+    mode and name."""
+    scns = (registry.all_scenarios() if all_ or not names
+            else [registry.get_scenario(n) for n in names])
+    if engine_filter:
+        scns = [s for s in scns if s.engine == engine_filter]
+    if transport_filter:
+        scns = [s for s in scns if s.transport == transport_filter]
+    return sorted(scns, key=lambda s: (s.engine, s.transport, s.mode,
+                                       s.name))
+
+
+def print_list(scns: List[Scenario]):
+    """The reference's listing: a header per (engine, transport) group,
+    then each scenario's name, mode, exactness, topology and description."""
+    group = None
+    for s in scns:
+        if (s.engine, s.transport) != group:
+            group = (s.engine, s.transport)
+            print(f"-- engine={s.engine} transport={s.transport} --")
+        exact = "exact" if s.exact else "banded"
+        topo = "" if s.topology == "hub" else f" topo={s.topology}"
+        print(f"  {s.name:24s} {s.mode:13s} [{exact}]{topo}  "
+              f"{s.description}")
+    print(f"\n{len(scns)} scenarios")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.scenarios.run")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p_list = sub.add_parser("list", help="registered scenarios")
+    p_list.add_argument("--engine-filter", choices=["sim", "wallclock"])
     p_list.add_argument("--transport-filter", choices=["inproc", "socket"])
-    p = sub.add_parser("verify", help="run and compare with the goldens")
-    p.add_argument("names", nargs="+", help="scenario names")
-    p.add_argument("--transport-filter", choices=["inproc", "socket"],
-                   help="keep only the named scenarios registered on this "
-                        "transport")
-    p.add_argument("--transport", choices=["socket"],
-                   help="rerun over this wall-clock backend against the "
-                        "committed goldens")
-    p.add_argument("--cross", action="store_true",
-                   help="also replay sim scenarios on the deterministic "
-                        "wall-clock runtime")
-    p.add_argument("--obs", action="store_true",
-                   help="rerun with the whole observability stack on "
-                        "(live telemetry, span tracing; the children's obs "
-                        "frames over processes): observation must not "
-                        "change the golden trace")
-    p.add_argument("--diff-dir", default="",
-                   help="write a JSON report of each failure here")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    for name, hlp, where in (
+            ("record", "run and write golden traces", RECORD_DIR),
+            ("verify", "run and compare with the goldens", GOLDEN_DIR)):
+        p = sub.add_parser(name, help=hlp)
+        p.add_argument("names", nargs="*", help="scenario names "
+                       "(default: all)")
+        p.add_argument("--all", action="store_true")
+        p.add_argument("--dir", default=str(where),
+                       help="golden trace directory")
+        p.add_argument("--engine-filter", choices=["sim", "wallclock"])
+        p.add_argument("--transport-filter", choices=["inproc", "socket"],
+                       help="select only scenarios registered on this "
+                            "transport")
+        p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+        if name == "verify":
+            p.add_argument("--cross", action="store_true",
+                           help="also replay sim scenarios on the "
+                                "deterministic wall-clock runtime")
+            p.add_argument("--cross-only", action="store_true",
+                           help="run only the cross-engine replays")
+            p.add_argument("--transport", choices=["socket"],
+                           help="rerun over this wall-clock backend against "
+                                "the committed goldens")
+            p.add_argument("--obs", action="store_true",
+                           help="rerun with the whole observability stack "
+                                "on (live telemetry, span tracing; the "
+                                "children's obs frames over processes): "
+                                "observation must not change the golden "
+                                "trace")
+            p.add_argument("--diff-dir", default="",
+                           help="write a JSON report of each failure here")
     args = ap.parse_args(argv)
 
     if args.cmd == "list":
-        for s in registry.all_scenarios():
-            if args.transport_filter and s.transport != args.transport_filter:
-                continue
-            missing = s.unported_axes()
-            where = "port" if not missing else f"not yet: {'; '.join(missing)}"
-            print(f"  {s.name:28s} {s.engine:9s} {s.method:16s} [{where}]  "
-                  f"{s.description}")
+        print_list(select(engine_filter=args.engine_filter,
+                          transport_filter=args.transport_filter))
         return 0
 
+    if args.cmd == "record" and trace.refused_dir(args.dir):
+        print(f"refusing --dir {args.dir}: {GOLDEN_DIR} holds the "
+              f"reference's goldens; the port records to {RECORD_DIR}",
+              file=sys.stderr)
+        return 2
+    scns = select(args.names, args.all, args.engine_filter,
+                  args.transport_filter)
+    if not scns:
+        print("no scenarios selected", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
+
+    if args.cmd == "record":
+        for s in scns:
+            print(f"recorded {s.name} -> "
+                  f"{trace.record(s, args.dir, device=device)}")
+        return 0
+
     failed = total = skipped = 0
-    for name in args.names:
-        scn = registry.get_scenario(name)
-        if args.transport_filter and scn.transport != args.transport_filter:
-            continue
-        for cross in [False] + [True] * (args.cross and scn.engine == "sim"):
+    for scn in scns:
+        cross = [True] if ((args.cross or args.cross_only)
+                           and scn.engine == "sim") else []
+        for replay in ([] if args.cross_only else [False]) + cross:
             # a transport override reruns wall-clock scenarios on the other
             # backend; a sim scenario only through its cross replay
-            if args.transport and not cross and scn.engine != "wallclock":
+            if args.transport and not replay and scn.engine != "wallclock":
                 skipped += 1
                 continue
-            res = trace.verify(scn, cross_engine=cross, device=device,
-                               transport=args.transport, obs=args.obs)
+            res = trace.verify(scn, args.dir, cross_engine=replay,
+                               device=device, transport=args.transport,
+                               obs=args.obs)
             total += 1
             failed += not res.ok
             print(f"{'PASS' if res.ok else 'FAIL'} {res.name} on {device}"
@@ -133,8 +203,8 @@ def main(argv=None) -> int:
         print(f"({skipped} sim checks skipped under --transport "
               f"{args.transport}; --cross replays them)")
     if not total:
-        print("no golden-trace check applies to this selection",
-              file=sys.stderr)
+        print("no golden-trace check applies to this selection "
+              "(--cross-only applies to sim scenarios)", file=sys.stderr)
         return 2
     print(f"\n{total - failed}/{total} golden-trace checks passed")
     return 1 if failed else 0

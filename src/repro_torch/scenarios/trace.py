@@ -41,6 +41,9 @@ from repro_torch.scenarios.spec import Scenario
 
 SCHEMA_VERSION = 1
 GOLDEN_DIR = Path(__file__).resolve().parents[3] / "results" / "golden"
+# where the port records traces: the reference's committed goldens under
+# GOLDEN_DIR are never written
+RECORD_DIR = GOLDEN_DIR.parent / "torch_golden"
 
 # tolerance bands of a free-running (not exact) scenario
 FREE_BANDS = {
@@ -162,6 +165,36 @@ def golden_path(name: str, golden_dir=GOLDEN_DIR) -> Path:
 
 def load_golden(name: str, golden_dir=GOLDEN_DIR) -> Dict[str, Any]:
     return json.loads(golden_path(name, golden_dir).read_text())
+
+
+def refused_dir(golden_dir) -> bool:
+    """True when ``golden_dir`` lies under the reference's committed goldens
+    (``results/golden``, from the repository's root or from the working
+    directory)."""
+    path = Path(golden_dir).resolve()
+    return any(path == ref or ref in path.parents
+               for ref in {GOLDEN_DIR.resolve(),
+                           Path("results", "golden").resolve()})
+
+
+def record(scn: Scenario, golden_dir=RECORD_DIR, device="cuda") -> Path:
+    """Run ``scn`` on ``device`` and write its trace as
+    ``<golden_dir>/<name>.json`` in the reference's golden format (keys
+    sorted, indent 1; a wall-clock run's stats are not part of it).
+    Raises ValueError, writing nothing, for a directory under the
+    reference's goldens."""
+    if refused_dir(golden_dir):
+        raise ValueError(f"{golden_dir} holds the reference's goldens; "
+                         f"record to {RECORD_DIR}")
+    doc = run_trace(scn, device)
+    doc.pop("stats", None)
+    os.makedirs(golden_dir, exist_ok=True)
+    path = golden_path(scn.name, golden_dir)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+    return path
 
 
 # ---------------------------------------------------------------------------

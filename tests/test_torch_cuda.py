@@ -53,6 +53,35 @@ from repro_torch.kernels import quantize as qk
 H = HeLoCoConfig()
 
 
+def block_branches(delta, momentum, h, stacked_axes=None, use_kernel=False):
+    """Alg. 2's branch of every block, by path (an int8 (L,) tensor: 0
+    keep, 1 anti, 2 weak, 3 degenerate): the cosine as the plain path computes it
+    (``core.heloco``: normalized vectors, then their dot), or with
+    ``use_kernel`` as the kernel path does (``block_stats``' sums, then
+    ``branch_scalars``' cosine). It says whether the two paths took the
+    same branch, which their outputs alone do not show."""
+    stacked_axes = stacked_axes or {}
+    out = {}
+    for k, d in delta.items():
+        blocks = int(np.prod(d.shape[:int(stacked_axes.get(k, 0))]))
+        u = d.float().reshape(blocks, -1)
+        v = momentum[k].float().reshape(blocks, -1)
+        if use_kernel:
+            dot, uu, vv = hk.block_stats(u.contiguous(),
+                                         v.contiguous()).unbind(1)
+            nu, nv = torch.sqrt(uu), torch.sqrt(vv)
+            c = dot / torch.clamp_min(nu * nv, h.eps * h.eps)
+        else:
+            nu = torch.linalg.vector_norm(u, dim=1)
+            nv = torch.linalg.vector_norm(v, dim=1)
+            c = ((u / torch.clamp_min(nu, h.eps)[:, None])
+                 * (v / torch.clamp_min(nv, h.eps)[:, None])).sum(1)
+        code = torch.where(c >= h.c_ok, 0, torch.where(c < 0.0, 1, 2))
+        code = torch.where((nu < h.eps) | (nv < h.eps), 3, code)
+        out[k] = code.to(torch.int8)
+    return out
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -1196,3 +1225,150 @@ def test_the_untraced_path_makes_no_event_and_no_synchronise(cuda,
     assert device_spans > 0
     assert calls == Counter({"Event": device_spans,
                              "Event.synchronize": device_spans})
+
+
+# ------------------------------------------------ the dist path on the card
+
+def _dist_inputs(cfg, dev, seed=0):
+    """Parameters of ``cfg`` drawn on ``dev``, a momentum per leaf of a
+    cosine near 1, -1 or 0.1 to the pseudo-gradient (every branch of Alg.
+    2), and two workers' trees, the arriving one theta + noise."""
+    from repro_torch.models import Model
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                             dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    mom, wp = {}, {}
+    for i, (k, p) in enumerate(params.items()):
+        noise = torch.randn(p.shape, generator=gen, device=dev)
+        wp[k] = torch.stack([p - 0.05 * noise, p + 1e-3 * noise])
+        a, b = ((1.0, 0.1), (-1.0, 0.1), (0.1, 1.0))[i % 3]
+        mom[k] = 0.01 * (-a * noise + b * torch.randn(
+            p.shape, generator=gen, device=dev))
+    return params, mom, wp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinygpt-15m", "granite-moe-1b-a400m-smoke"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_outer_exchange_kernels_against_the_plain_path(cuda, arch, int8):
+    """The exchange's kernel path (the default on the card) against its
+    plain path on the same card: p', m' and the look-ahead within 1e-5 of
+    each leaf's largest |value|, the same branch in every block, the int8
+    round trip bit for bit; block_stats, correct_apply and outer_update_2d
+    launched once a leaf (with int8 also absmax, quantize_2d and
+    dequantize_2d) and nothing else."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = get_config(arch)
+    params, mom, wp = _dist_inputs(cfg, cuda)
+    stacked = shd.stacked_axes_tree(params)
+    kw = dict(h=H, outer_lr=0.7, mu=0.9, arriving_pod=1,
+              stacked_axes=stacked, compress_int8=int8)
+    mesh = make_test_mesh(multi_pod=True)
+    kernels.reset_launch_counts()
+    got = steps.make_outer_exchange(cfg, mesh, **kw)(params, mom, wp)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    names = ("block_stats", "correct_apply", "outer_update_2d") + (
+        ("absmax", "quantize_2d", "dequantize_2d") if int8 else ())
+    assert counts == {k: len(params) if k in names else 0 for k in counts}
+    want = steps.make_outer_exchange(cfg, mesh, use_kernel=False, **kw)(
+        params, mom, wp)
+    for g, w in zip(got, want):
+        for k in params:
+            scale = float(w[k].abs().max()) or 1.0
+            assert float((g[k].float() - w[k].float()).abs().max()) \
+                <= 1e-5 * scale, k
+    assert got[2][next(iter(params))].shape[0] == 2
+    delta = {k: params[k].float() - wp[k][1].float() for k in params}
+    if int8:
+        for k, d in delta.items():
+            assert torch.equal(steps.int8_roundtrip_leaf(d, use_kernel=True),
+                               steps.int8_roundtrip_leaf(d)), k
+        delta = {k: steps.int8_roundtrip_leaf(d) for k, d in delta.items()}
+    kb = block_branches(delta, mom, H, stacked, use_kernel=True)
+    pb = block_branches(delta, mom, H, stacked)
+    codes = set()
+    for k in kb:
+        assert torch.equal(kb[k], pb[k]), k
+        codes |= set(kb[k].tolist())
+    assert {0, 1, 2} <= codes
+
+
+@pytest.mark.cuda
+def test_grad_accum_4_against_1_on_the_card(cuda):
+    """granite-moe at smoke width in fp32, batch 4 x 128, dispatch groups of
+    one microbatch's tokens: grad_accum=4 (the dry-run plan's) against 1 on
+    the same batch, the loss within rtol 1e-5, the first moments within
+    1e-4 of each leaf's largest |value|, the parameters within 5e-4 except
+    where the gradient is inside that band of zero (by at most 2 lr
+    there)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InnerOptConfig
+    from repro_torch.dist import steps
+    from repro_torch.models import Model
+    cfg = get_config("granite-moe-1b-a400m-smoke")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                          group_size=128))
+    inner = InnerOptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    tok = torch.randint(0, cfg.vocab_size, (4, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    state = steps.init_train_state(params)
+    acc, la = steps.make_train_step(cfg, inner, grad_accum=4)(state, batch)
+    one, l1 = steps.make_train_step(cfg, inner)(state, batch)
+    assert abs(la.item() - l1.item()) <= 1e-5 * abs(l1.item())
+    for k, w in one.params.items():
+        m = one.opt.mu[k]
+        assert float((acc.opt.mu[k] - m).abs().max()) <= \
+            1e-4 * float(m.abs().max()) + 1e-12, k
+        diff = (acc.params[k] - w).abs()
+        out = diff > 5e-4 * float(w.abs().max())
+        assert bool((m.abs()[out] <= 1e-4 * float(m.abs().max())).all()), k
+        assert bool((diff[out] <= 2 * inner.lr * (1 + inner.weight_decay
+                                                  * w[out].abs()) + 1e-7)
+                    .all()), k
+
+
+@pytest.mark.cuda
+def test_multipod_pods_stay_apart_bit_for_bit_on_the_card(cuda):
+    """Two pods inside a one-card mesh with the specs placed: identical pods
+    end bit for bit identical, different batches part, pod 0 is the single
+    step's bits; the process group is gone after the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InnerOptConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import steps
+    from repro_torch.launch.mesh import local_mesh, mesh_context
+    from repro_torch.models import Model
+    cfg = get_config("granite-moe-1b-a400m-smoke")
+    inner = InnerOptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 4, 32), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+    with local_mesh(cuda) as mesh, mesh_context(mesh):
+        pspecs = shd.param_specs(params, axis_sizes=mesh.axis_sizes)
+        step = steps.make_multipod_train_step(cfg, inner, mesh,
+                                              param_pspecs=pspecs)
+        st = steps.init_train_state(params)
+        same = {"tokens": torch.stack([tok[0], tok[0]]),
+                "labels": torch.stack([tok[0], tok[0]])}
+        ns, _ = step(steps.stack_pods([st, st]), same)
+        for k, v in ns.params.items():
+            assert torch.equal(v[0], v[1]), k
+        nd, losses = step(steps.stack_pods([st, st]),
+                          {"tokens": tok, "labels": tok})
+        single, loss0 = steps.make_train_step(cfg, inner,
+                                              param_pspecs=pspecs)(
+            st, {"tokens": tok[0], "labels": tok[0]})
+    assert not torch.distributed.is_initialized()
+    assert torch.equal(losses[0], loss0)
+    assert any(not torch.equal(v[0], v[1]) for v in nd.params.values())
+    for k, v in single.params.items():
+        assert torch.equal(nd.params[k][0], v), k

@@ -1,0 +1,216 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) against the
+reference's ``repro/launch/dryrun.py``.
+
+The reference module sets ``XLA_FLAGS`` to 512 host devices when it is
+imported, which would change the device count of every later test in this
+process, so it is never imported here: its plan (``GRAD_ACCUM``,
+``Q_CHUNK``, ``plan_for``) is read from its source with ``ast``. The
+per-device argument bytes are held to bytes computed here from the
+reference's own PartitionSpecs (``repro.dist.sharding``) over its
+``jax.eval_shape`` structs, for two archs on both production meshes.
+"""
+import ast
+import json
+import math
+import os
+import typing
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+from jax.sharding import PartitionSpec as P
+
+from repro import configs as jconfigs
+from repro.dist import sharding as jshd
+from repro.launch import inputs as jinputs
+from repro.models import Model as JaxModel
+from repro_torch import configs
+from repro_torch.launch import dryrun, mesh as tmesh
+
+ROOT = Path(__file__).resolve().parents[1]
+REFERENCE = ROOT / "src" / "repro" / "launch" / "dryrun.py"
+
+
+def _reference_plan():
+    """GRAD_ACCUM, Q_CHUNK and plan_for from the reference's source."""
+    tree = ast.parse(REFERENCE.read_text())
+    ns = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and isinstance(
+                node.targets[0], ast.Name) and node.targets[0].id in (
+                "GRAD_ACCUM", "Q_CHUNK"):
+            ns[node.targets[0].id] = ast.literal_eval(node.value)
+        if isinstance(node, ast.FunctionDef) and node.name == "plan_for":
+            fn = ast.Module(body=[node], type_ignores=[])
+            exec(compile(fn, str(REFERENCE), "exec"),
+                 {"Dict": typing.Dict, "Any": typing.Any,
+                  "Optional": typing.Optional, "ShapeConfig": object, **ns},
+                 ns)
+    return ns
+
+
+def test_plan_equals_the_references_source():
+    ref = _reference_plan()
+    assert dryrun.GRAD_ACCUM == ref["GRAD_ACCUM"]
+    assert dryrun.Q_CHUNK == ref["Q_CHUNK"]
+    for arch in list(configs.ARCHS) + ["no-such-arch"]:
+        for name, shape in configs.SHAPES.items():
+            for over in (None, {"grad_accum": 1, "remat_group": 4},
+                         {"head_tp": True}):
+                assert dryrun.plan_for(arch, shape, over) == \
+                    ref["plan_for"](arch, jconfigs.SHAPES[name], over), \
+                    (arch, name, over)
+
+
+def _jbytes(tree, specs, sizes, prefix=()):
+    """Per-device bytes of a reference tree under its PartitionSpecs."""
+    leaves = jax.tree_util.tree_leaves(tree)
+    specs = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, P))
+    total = 0
+    for x, s in zip(leaves, specs):
+        entries = tuple(prefix) + tuple(s)
+        shape = tuple(x.shape)
+        parts = [1] * len(shape)
+        for i, e in enumerate(entries):
+            if e is not None:
+                names = (e,) if isinstance(e, str) else e
+                parts[i] = math.prod(sizes[n] for n in names)
+        assert all(d % p == 0 for d, p in zip(shape, parts))
+        total += math.prod(d // p for d, p in zip(shape, parts)) * \
+            np.dtype(x.dtype).itemsize
+    return total
+
+
+def _reference_bytes(arch, shape_name, multi):
+    """The reference cell's arguments as its ``lower_cell`` places them."""
+    cfg = jconfigs.get_config(arch)
+    shape = jconfigs.SHAPES[shape_name]
+    sizes = ({"pod": 2, "data": 16, "model": 16} if multi
+             else {"data": 16, "model": 16})
+    data_axes = ("pod", "data") if multi else ("data",)
+    params = jax.eval_shape(JaxModel(cfg).init, jax.random.PRNGKey(0))
+    pspecs = jshd.param_specs(params, axis_sizes=sizes)
+    ins = jinputs.input_specs(cfg, shape)
+    if shape.kind == "train":
+        pod = ("pod",) if multi else ()
+        f32 = jax.tree.map(lambda x: jax.ShapeDtypeStruct(
+            ((2,) if multi else ()) + x.shape, np.float32), params)
+        if multi:
+            params = jax.tree.map(lambda x: jax.ShapeDtypeStruct(
+                (2,) + x.shape, x.dtype), params)
+            batch = jax.tree.map(lambda x: jax.ShapeDtypeStruct(
+                (2,) + x.shape, x.dtype), ins["batch"])
+            bspecs = jshd.batch_specs(ins["batch"], batch_axes=("data",))
+        else:
+            batch = ins["batch"]
+            bspecs = jshd.batch_specs(batch, batch_axes=data_axes)
+        scalar = 4   # the int32 count and step, on every device
+        return (_jbytes(params, pspecs, sizes, pod)
+                + 2 * _jbytes(f32, pspecs, sizes, pod) + 2 * scalar
+                + _jbytes(batch, bspecs, sizes, pod))
+    if shape.kind == "prefill":
+        return (_jbytes(params, pspecs, sizes)
+                + _jbytes(ins["batch"], jshd.batch_specs(
+                    ins["batch"], batch_axes=data_axes), sizes))
+    batch_sharded = shape.global_batch >= sizes["data"]
+    cspecs = jshd.cache_specs(ins["caches"], batch_sharded=batch_sharded,
+                              axis_sizes=sizes,
+                              data_axis=data_axes if multi else "data")
+    tok = (P(data_axes),) if batch_sharded else (P(),)
+    return (_jbytes(params, pspecs, sizes)
+            + _jbytes((ins["token"],), tok, sizes)
+            + _jbytes(ins["caches"], cspecs, sizes) + 4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "granite-moe-1b-a400m"])
+def test_argument_bytes_equal_the_references_placements(arch):
+    for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
+        for multi in (False, True):
+            got = dryrun.argument_bytes(
+                configs.get_config(arch), configs.SHAPES[shape_name],
+                tmesh.make_production_mesh(multi_pod=multi), multi_pod=multi)
+            assert sum(got.values()) == _reference_bytes(
+                arch, shape_name, multi), (arch, shape_name, multi, got)
+
+
+def test_a_cell_record_on_meta_tensors():
+    """One cell at smoke width (the reference's ``lower_cell`` takes a cfg
+    the same way): its keys, the even split, the fields left unmodelled,
+    and the multi-pod twin reusing the count for two pods."""
+    cfg = configs.reduced(configs.get_config("qwen2-7b"))
+    memo = {}
+    single = dryrun.lower_cell("qwen2-7b", "train_4k",
+                               tmesh.make_production_mesh(), multi_pod=False,
+                               cfg=cfg, memo=memo)
+    multi = dryrun.lower_cell("qwen2-7b", "train_4k",
+                              tmesh.make_production_mesh(multi_pod=True),
+                              multi_pod=True, cfg=cfg, memo=memo)
+    assert len(memo) == 1
+    for rec in (single, multi):
+        assert {"arch", "shape", "kind", "mesh", "plan", "n_devices",
+                "flops_total", "flops_per_device", "flops_split", "memory",
+                "not_modelled", "flops_counted", "count_seconds"} <= set(rec)
+        assert {"collectives", "collective_group_sizes",
+                "wire_bytes_per_device", "temp_bytes", "code_bytes"} <= \
+            set(rec["not_modelled"])
+        assert not {"collectives", "wire_bytes_per_device"} & set(rec)
+        assert "temp_bytes" not in rec["memory"]
+        assert rec["flops_per_device"] == rec["flops_total"] / \
+            rec["n_devices"]
+        assert rec["plan"] == {"grad_accum": 4, "q_chunk": 512}
+        json.dumps(rec)
+    assert (single["n_devices"], multi["n_devices"]) == (256, 512)
+    assert multi["flops_total"] == 2 * single["flops_total"]
+    # a dense model's step, forward and backward: 6 N T for the N weights
+    # of its matmuls (the untied lm_head too, not the token lookup) over T
+    # tokens, and 12 S^2 H D a layer and a sequence for the scores and
+    # their product with v (the causal mask skips no work)
+    n = sum(math.prod(x.shape) for k, x in dryrun.abstract_params(
+        cfg).items() if k.split("/")[-1] in (
+        "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"))
+    seq, batch = 4096, 256
+    assert single["flops_total"] == 6 * n * seq * batch + 12 * seq ** 2 * \
+        cfg.n_heads * cfg.head_dim * cfg.n_layers * batch
+
+
+def test_a_cell_that_cannot_be_counted_records_why():
+    flops, why = dryrun.count_flops(
+        lambda: (_ for _ in ()).throw(RuntimeError("data-dependent")))
+    assert flops is None and "data-dependent" in why
+
+
+def test_the_references_directory_is_refused(tmp_path):
+    assert dryrun.main(["--out", str(ROOT / "results" / "dryrun"),
+                        "--arch", "qwen2-7b"]) == 2
+    assert dryrun.main(["--out", str(ROOT / "results" / "dryrun" / "x"),
+                        "--arch", "qwen2-7b"]) == 2
+    assert not (ROOT / "results" / "dryrun").exists()
+    assert not dryrun.refused_out(str(tmp_path))
+    assert not dryrun.refused_out(dryrun.DEFAULT_OUT)
+
+
+def test_cli_writes_skip_and_outer_exchange_records(tmp_path, capsys):
+    """hubert-xlarge's decode cells are skipped (encoder-only) with the
+    reference's record; the outer exchange's pod-axis bytes."""
+    out = tmp_path / "dr"
+    assert dryrun.main(["--arch", "hubert-xlarge", "--shape", "decode_32k",
+                        "--out", str(out), "--outer-exchange",
+                        "--compress-int8"]) == 0
+    for mesh in ("single", "multi"):
+        rec = json.loads((out / f"hubert-xlarge__decode_32k__{mesh}.json")
+                         .read_text())
+        assert rec == {"arch": "hubert-xlarge", "shape": "decode_32k",
+                       "skipped": "encoder-only arch has no decode step",
+                       "mesh": mesh}
+    ex = json.loads((out / "hubert-xlarge__outer_exchange__multi.json")
+                    .read_text())
+    params = dryrun.abstract_params(configs.get_config("hubert-xlarge"))
+    pod = ex["pod_axis_bytes_per_device"]
+    n = sum(math.prod(x.shape) for x in params.values())
+    assert n / 256 <= pod["delta_in"] < 4 * n / 256
+    assert pod["lookahead_out"] == ex["memory"]["argument_bytes_by_input"][
+        "params"]
+    assert "0 cells without a count" in capsys.readouterr().out
+    assert os.listdir(out)

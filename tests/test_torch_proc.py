@@ -4,14 +4,16 @@
   * frames written by the port's ``_send_frame`` and by the reference's
     hold the same bytes for the same objects, each side's ``_recv_frame``
     reads the other's, and a flipped payload byte or an over-cap length
-    raises ``WireError``;
+    raises ``WireError``; large arrays are sent from their own memory
+    and read in slices, to and from the reference's reader and writer;
   * a standalone ``SocketTransport`` keeps ``InProcTransport``'s contract
     over its loopback (FIFO, a credit window that blocks with an exact
     timeout, ``close`` waking a blocked ``recv``) and ``FaultyTransport``
     wraps it;
   * the rendezvous assigns a hand-seeded nonce once (with the device and
     the parent's torch settings) and rejects it reused, and an unknown one;
-    a worker that beats joins a heartbeat connection of its own;
+    a worker that beats joins a heartbeat connection of its own; close
+    ends the accept thread;
   * ``host_task``/``device_task`` and ``host_result``/``device_result``
     round-trip a full round bit for bit through pickle, fp32 and int8, and
     the result's ``payload_crc`` equals the reference's for bridged bits;
@@ -29,6 +31,7 @@ without one fails the run (no fallback to the CPU), and the launcher's and
 ``scenarios.run``'s socket flags.
 """
 import dataclasses
+import gc
 import os
 import pickle
 import signal
@@ -36,6 +39,7 @@ import socket
 import struct
 import threading
 import time
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -137,6 +141,49 @@ def test_a_flipped_byte_or_an_oversized_length_raises_wire_error():
         _decode(proc._recv_frame, over)
 
 
+LARGE = {"w": np.random.default_rng(0).standard_normal(
+    (3, 70001)).astype(np.float32), "t": np.arange(5000, dtype=np.int16),
+    "s": "x" * 70000, "n": 3}
+
+
+def test_a_frame_sends_its_arrays_without_a_copy():
+    """The pickle's pieces are ``pickle.dumps``' bytes (the reference's
+    frame payload), and an array of 64 KiB or more is a piece that is the
+    array's own memory."""
+    frame = ("task", LARGE, (None, 0.0))
+    pieces = proc._pickle_pieces(frame)
+    assert b"".join(bytes(memoryview(p)) for p in pieces) == pickle.dumps(
+        frame, protocol=pickle.HIGHEST_PROTOCOL)
+    assert any(np.shares_memory(np.asarray(memoryview(p)), LARGE["w"])
+               for p in pieces)
+
+
+@pytest.mark.parametrize("direction", ["port_to_reference",
+                                       "reference_to_port"])
+def test_large_frames_cross_to_and_from_the_reference(direction,
+                                                      monkeypatch):
+    """A frame of large arrays through a socket pair, read on a thread:
+    the port's frame by the reference's reader and the reference's by the
+    port's, which copies each array in slices (here of 1000 bytes, so
+    that slices end inside and at the ends of an array)."""
+    monkeypatch.setattr(proc, "_COPY_SLICE", 1000)
+    send, recv = ((proc._send_frame, jproc._recv_frame)
+                  if direction == "port_to_reference"
+                  else (jproc._send_frame, proc._recv_frame))
+    frame = ("ctrl", "stats", LARGE)
+    a, b = socket.socketpair()
+    got = {}
+    reader = threading.Thread(target=lambda: got.setdefault("f", recv(b)))
+    reader.start()
+    try:
+        send(a, threading.Lock(), frame)
+        reader.join(DEADLINE)
+    finally:
+        a.close()
+        b.close()
+    _same_tree(got["f"], frame)
+
+
 # ---------------------------------------------------------------------------
 # SocketTransport: InProcTransport's contract over sockets
 # ---------------------------------------------------------------------------
@@ -189,6 +236,18 @@ def test_close_wakes_a_blocked_recv(sock_tr):
     assert not t.is_alive() and "e" in out
     with pytest.raises(TransportClosed):
         sock_tr.send("x")
+
+
+@pytest.mark.parametrize("family", ["unix", "tcp"])
+def test_close_ends_the_accept_thread(family):
+    """A thread blocked in accept() is woken by close: left blocked, it
+    would hold the transport, its pool and the pool's runtime alive."""
+    tr = SocketTransport(capacity=2, family=family)
+    tr.send("x")
+    assert tr.recv(timeout=5.0) == "x"
+    assert tr._acceptor.is_alive()
+    tr.close()
+    assert not tr._acceptor.is_alive()
 
 
 def test_faulty_transport_wraps_the_socket_transport(sock_tr):
@@ -430,6 +489,11 @@ def test_socket_hetero_over_processes_is_golden_and_sim_bit_equal(
     assert s["rounds"] >= s["arrivals"] == 10
     assert (s["proc_exits"], s["proc_restarts"]) == (0, 0)
     assert not any(p.is_alive() for p in eng._pool._procs.values())
+    # nothing of the run holds the engine and its last tasks once dropped
+    gone = weakref.ref(eng)
+    del eng
+    gc.collect()
+    assert gone() is None
 
 
 # ---------------------------------------------------------------------------
@@ -580,5 +644,6 @@ def test_launcher_and_verify_cli_run_over_processes(short_deadlines,
     assert "PASS wallclock_hetero [transport=socket]" in out
     assert "1 sim checks skipped" in out
     assert run.main(["list", "--transport-filter", "socket"]) == 0
-    listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
+    listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("  ")]
     assert listed == ["socket_hetero"]
