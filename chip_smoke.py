@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only obs
     python3 chip_smoke.py --only families
     python3 chip_smoke.py --only dist
+    python3 chip_smoke.py --only plan
 
 Phases, in order; any failure exits non-zero (``--only int8`` runs the
 int8 kernels' checks and times of phase 2, the card's read, write and copy
@@ -23,7 +24,7 @@ wallclock`` builds the packed sweeps and runs the wall-clock phase,
 ``--only socket`` the socket phase, and ``--only obs`` the obs phase with
 its untraced twins run in it; ``--only families`` the flash kernels'
 build report, flash_attention_fwd's checks and times and the families
-phase; ``--only dist`` the dist phase):
+phase; ``--only dist`` the dist phase; ``--only plan`` the plan phase):
   1. build every CUDA source of ``src/repro_torch/csrc`` (one nvcc each, in
      parallel) and print the build seconds and the compiler's report; for
      the flash kernels, each one's registers, shared memory and spills
@@ -220,7 +221,19 @@ phase; ``--only dist`` the dist phase):
      else, held leaf by leaf to the plain path on the card (TOL_DIST of
      each leaf's largest |value|, no branch flip, the int8 round trip bit
      for bit); the phase's seconds and peak device memory;
- 10. print the card's name and power limit, the kernel summary line, and
+ 10. the training memory plan (``plan_phase``, ``--only plan``) at
+     train_4k's 4096 tokens, the card's name and power limit beside every
+     line: granite-moe-1b-a400m's attention alone, the chunked Function
+     against the plain attend in fp32 and bf16 (saved bytes, peaks,
+     parity); a full-depth (24-layer) granite-moe bf16 train step at 4 x
+     4096 through ``dist.steps.make_train_step`` with the plan's
+     grad_accum and q_chunk and remat on (finite, seconds, peak);
+     ``paper_hetero_severe`` through the engine with granite-moe at 4
+     layers and 4096 tokens (the golden's arrivals, one packed_row_stats
+     and one packed_correct_outer an applied arrival); zamba2-2.7b at 12
+     layers, 8 x 4096, remat on against off (loss and gradients
+     bit-equal, else within TOL_PLAN_GRAD);
+ 11. print the card's name and power limit, the kernel summary line, and
      the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device, or without the rest of the repository, it exits
@@ -1211,10 +1224,11 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
     before the run. ``recorder``: a TelemetryRecorder the run streams into.
     ``layers``: the model cut to this depth (the engine built from the
     scenario's materialized config with the cut). Arrivals are held to the
-    golden's unless ``overrides`` set more than the arch, which does not
-    change them; then to the port's CPU run of the override at smoke width.
-    Returns the launch counts of this run, the applied arrivals committed
-    on their own, the fused arrivals, the eval means and the median server
+    golden's unless ``overrides`` set more than the arch and the sequence
+    length (``seq_len``), which do not change them; then to the port's CPU
+    run of the override at smoke width. Returns the launch counts of this
+    run, the applied arrivals committed on their own, the fused arrivals,
+    the eval means and the median server
     ms of an arrival committed on its own; ``result`` (a dict) also
     receives the final state's tensors, the history and the printed line."""
     import dataclasses
@@ -1223,7 +1237,8 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
     from repro_torch.launch.train import FULL_WIDTH
     from repro_torch.scenarios import registry, run
 
-    scn = registry.get_scenario(name).overridden(**FULL_WIDTH, **overrides)
+    scn = registry.get_scenario(name).overridden(**{**FULL_WIDTH,
+                                                    **overrides})
     if layers:
         m = scn.materialize()
         run_cfg = dataclasses.replace(m.run_cfg, model=dataclasses.replace(
@@ -1285,7 +1300,8 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
     if hasattr(eng.server, "_step_update_multi"):
         eng.server._step_update_multi = fused_step
     eval_fn = timed(make_eval_fn(eng, batch=scn.eval_batch), "eval")
-    target = cpu_arrivals(scn) if set(overrides) - {"arch"} else None
+    target = cpu_arrivals(scn) if set(overrides) - {"arch", "seq_len"} \
+        else None
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1342,7 +1358,8 @@ def run_scenario(torch, kernels, name, overrides, single, fused,
         "config": f"{eng.cfg.model.name} full width"
                   f"{f', {layers} layers' if layers else ''}, "
                   f"{scn.n_workers} workers "
-                  f"{scn.paces}, H={scn.inner_steps}, batch 4 x 128, "
+                  f"{scn.paces}, H={scn.inner_steps}, batch "
+                  f"{scn.batch_size} x {scn.seq_len}, "
                   f"commit_batch {scn.commit_batch}",
         "params": sum(t.numel() for t in state.params.values()),
         "arrivals": len(hist.arrivals), "applied": applied,
@@ -1929,7 +1946,8 @@ def wallclock_phase(torch, kernels, untraced, dev="cuda"):
         print(json.dumps({
             "wallclock": name, "overrides": overrides,
             "config": f"tinygpt-15m full width, {scn.n_workers} workers "
-                      f"{scn.paces}, H={scn.inner_steps}, batch 4 x 128, "
+                      f"{scn.paces}, H={scn.inner_steps}, batch "
+                  f"{scn.batch_size} x {scn.seq_len}, "
                       "deterministic commit order",
             "arrivals_equal": "golden and sim twin",
             "digest_equal_sim": digest == sim_digest,
@@ -4088,6 +4106,292 @@ def dist_only(torch, kernels, specs, dev, bound, log, lib):
     print(json.dumps({"dist_launches": dist_phase(torch, kernels, dev)}))
 
 
+# the plan phase: the reference's training memory plan (attention in query
+# chunks of the train_4k plan's q_chunk, remat checkpoints) at train_4k's
+# sequence length, with granite-moe-1b-a400m's attention shapes (16 heads, 8
+# kv heads, D 64) for the attention alone
+PLAN_ARCH = "granite-moe-1b-a400m"
+PLAN_SEQ = 4096
+PLAN_BATCH = 4
+# the cut depth of the engine's run at PLAN_SEQ (the families phase's), and
+# the hybrid's: two super blocks, its batch and its plan's grad_accum
+PLAN_ENGINE_LAYERS = 4
+PLAN_HYBRID = ("zamba2-2.7b", 12, 8)
+# the Function against the plain attend: the forward in fp32 within rtol
+# TOL_PLAN_FWD (atol TOL_PLAN_ATOL for values near zero), in bf16 within one
+# bf16 step of its largest |value|; dq, dk, dv in fp32 within TOL_PLAN_GRAD
+# of each one's largest |value|, in bf16 within TOL_PLAN_BF16_GRAD (the
+# CPU test's band: the two paths round to bf16 at other points); remat on
+# against off, where not bit-equal, within TOL_PLAN_GRAD of each leaf's
+# largest |value|
+TOL_PLAN_FWD, TOL_PLAN_ATOL = 1e-5, 1e-6
+TOL_PLAN_GRAD = 1e-4
+TOL_PLAN_BF16_GRAD = 2e-2
+
+
+def saved_bytes(torch, fn):
+    """(fn(), the bytes of the distinct storages autograd saved for its
+    backward, counted through ``saved_tensors_hooks``)."""
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(seen.values())
+
+
+def bf16_step(torch, x):
+    """One bf16 step (unit in the last place) at ``x``'s largest |value|."""
+    top = float(x.abs().max())
+    return torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(
+        math.log2(top)) if top else 0.0
+
+
+def plan_phase(torch, kernels, dev, smi):
+    """The reference's training memory plan on the card at train_4k's
+    PLAN_SEQ tokens (``models.attention.flash_attention``: queries in
+    chunks of the plan's q_chunk, only q, k, v, out and lse saved; remat
+    checkpoints under ``cfg.remat``), each part freed before the next; the
+    card's name and power limit (``smi``) beside every line.
+    (a) Attention alone at PLAN_ARCH's shapes, batch 1: the Function
+    against the plain ``attend(use_flash=False)`` in fp32 and bf16, causal,
+    forward and dq, dk, dv (the TOL_PLAN bands); each path's saved bytes
+    (``saved_tensors_hooks``), its peak device memory over what was
+    allocated before it and its forward + backward ms (host clock to a
+    synchronised end, the second of two calls).
+    (b) ``dist.steps.make_train_step`` on PLAN_ARCH at full width and depth
+    (24 layers), bf16, batch PLAN_BATCH x PLAN_SEQ, the train_4k plan's
+    grad_accum and q_chunk, remat on, two steps inside a one-card mesh with
+    the specs placed: loss and parameters finite; each step's seconds and
+    the peak; beside it the attention's saved bytes of (a) at bf16 times
+    the layers, with and without the plan.
+    (c) ``paper_hetero_severe`` through the engine (``run_scenario``) with
+    PLAN_ARCH at full width cut to PLAN_ENGINE_LAYERS layers and sequences
+    of PLAN_SEQ tokens: the golden's arrivals, one packed_row_stats and one
+    packed_correct_outer launch an applied arrival and nothing else, finite
+    evals, ms an arrival and the peak.
+    (d) PLAN_HYBRID: zamba2-2.7b cut to 12 of 54 layers (two super
+    blocks), bf16, batch 8 x PLAN_SEQ with its plan's grad_accum, one
+    ``make_train_step`` step with remat on, then one with it off: the loss
+    and the gradients (as AdamW's first moments, (1 - b1) g from zero)
+    bit-equal, else the largest difference printed and held within
+    TOL_PLAN_GRAD of each leaf's largest |value|; both peaks and times.
+    Returns packed_row_stats' and packed_correct_outer's (launches, applied
+    arrivals) of (c)."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import InnerOptConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import steps
+    from repro_torch.launch.dryrun import plan_for
+    from repro_torch.launch.mesh import local_mesh, mesh_context
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_lib
+    t_phase = time.perf_counter()
+    card = {"card": smi}
+    cfg = get_config(PLAN_ARCH)
+    plan = plan_for(PLAN_ARCH, SHAPES["train_4k"])
+    q_chunk = plan["q_chunk"]
+    assert SHAPES["train_4k"].seq_len == PLAN_SEQ
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    # (a) the attention alone
+    shapes = ((1, PLAN_SEQ, cfg.n_heads, cfg.head_dim),
+              (1, PLAN_SEQ, cfg.n_kv_heads, cfg.head_dim))
+    attn = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dt)
+                   for sh in (shapes[0], shapes[1], shapes[1]))
+        do = torch.randn(shapes[0], generator=gen, device=dev).to(dt)
+        res = {}
+        # each path twice, the second kept: the first call warms the card
+        for path, use_flash in (("flash", True), ("plain", False)) * 2:
+            base = fresh()
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            t0 = time.perf_counter()
+            out, nbytes = saved_bytes(torch, lambda: attn_lib.attend(
+                *leaves, causal=cfg.causal, q_chunk=q_chunk,
+                use_flash=use_flash))
+            grads = torch.autograd.grad(out, leaves, do)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            res[path] = {"out": out.detach(), "grads": grads,
+                         "saved_bytes": nbytes, "ms": ms,
+                         "peak_bytes": torch.cuda.max_memory_allocated()
+                         - base}
+            del out, leaves
+        got, want = res["flash"], res["plain"]
+        if dtype == "float32":
+            fwd_ok = torch.allclose(got["out"], want["out"],
+                                    rtol=TOL_PLAN_FWD, atol=TOL_PLAN_ATOL)
+            band = TOL_PLAN_GRAD
+        else:
+            fwd_ok = float((got["out"].float() - want["out"].float()).abs()
+                           .max()) <= bf16_step(torch, want["out"].float())
+            band = TOL_PLAN_BF16_GRAD
+        fwd_err = float((got["out"].float() - want["out"].float()).abs()
+                        .max())
+        grad_share = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got["grads"],
+                              want["grads"]):
+            g, w = g.float(), w.float()
+            grad_share[name] = float((g - w).abs().max()) / (
+                float(w.abs().max()) or 1.0)
+        line = {"plan_attention": PLAN_ARCH, "dtype": dtype,
+                "shape": {"B": 1, "S": PLAN_SEQ, "H": cfg.n_heads,
+                          "KV": cfg.n_kv_heads, "D": cfg.head_dim},
+                "causal": cfg.causal, "q_chunk": q_chunk,
+                "out_max_abs_err": fwd_err, "grad_err_share": grad_share,
+                "grad_band": band,
+                **{f"{p}_{k}": res[p][k] for p in res
+                   for k in ("saved_bytes", "peak_bytes", "ms")}, **card}
+        print(json.dumps(line))
+        assert fwd_ok, f"plan attention {dtype}: forward off by {fwd_err}"
+        for name, share in grad_share.items():
+            assert share <= band, f"plan attention {dtype}: {name} " \
+                f"{share:.3e} of its largest |value| ({band})"
+        attn[dtype] = {p: res[p]["saved_bytes"] for p in res}
+        del res, got, want, q, k, v, do
+
+    # (b) a full-depth train step at train_4k's length
+    base = fresh()
+    ga = plan["grad_accum"]
+    inner = InnerOptConfig(**DIST_INNER)
+    assert cfg.remat and cfg.compute_dtype == "bfloat16"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tok = torch.randint(0, cfg.vocab_size, (PLAN_BATCH, PLAN_SEQ),
+                        generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(6), dev)
+    n_params = sum(p.numel() for p in params.values())
+    step_s, losses = [], []
+    with local_mesh(dev) as mesh, mesh_context(mesh):
+        pspecs = shd.param_specs(params, axis_sizes=mesh.axis_sizes)
+        step = steps.make_train_step(cfg, inner, grad_accum=ga,
+                                     q_chunk=q_chunk, param_pspecs=pspecs)
+        state = steps.init_train_state(params)
+        del params
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in state.params.values())
+        del state, step
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.n_layers
+    print(json.dumps({
+        "plan_train": PLAN_ARCH, "layers": layers, "params": n_params,
+        "batch": [PLAN_BATCH, PLAN_SEQ], "grad_accum": ga,
+        "q_chunk": q_chunk, "remat": cfg.remat, "dtype": cfg.compute_dtype,
+        "losses": losses, "step_s": step_s, "peak_bytes": peak,
+        "held_before_bytes": base,
+        "attention_saved_bytes_all_layers": {
+            "with_plan": attn["bfloat16"]["flash"] * layers,
+            "without_plan": attn["bfloat16"]["plain"] * layers}, **card}))
+    print(f"plan train: {PLAN_ARCH} {layers} layers, {PLAN_BATCH} x "
+          f"{PLAN_SEQ}, steps {step_s[0]:.2f} s, {step_s[1]:.2f} s, peak "
+          f"{peak / 1e9:.2f} GB; attention saved without the plan "
+          f"{attn['bfloat16']['plain'] * layers / 1e9:.2f} GB over "
+          f"{layers} layers, with it "
+          f"{attn['bfloat16']['flash'] * layers / 1e9:.3f} GB ({smi})")
+    assert finite and all(math.isfinite(x) for x in losses), losses
+    del batch, tok
+
+    # (c) the main path at train_4k's length
+    fresh()
+    counts, singles, _, means, server_ms = run_scenario(
+        torch, kernels, "paper_hetero_severe",
+        {"arch": PLAN_ARCH, "seq_len": PLAN_SEQ}, HELOCO, (),
+        layers=PLAN_ENGINE_LAYERS)
+    print(json.dumps({"plan_engine": PLAN_ARCH,
+                      "layers": PLAN_ENGINE_LAYERS, "seq_len": PLAN_SEQ,
+                      "applied": singles, "launches": {
+                          k: v for k, v in counts.items() if v},
+                      "eval_means": means, "server_ms": server_ms,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      **card}))
+    fresh()
+
+    # (d) the hybrid, remat on against off
+    arch, n_layers, hb = PLAN_HYBRID
+    hcfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    hga = plan_for(arch, SHAPES["train_4k"])["grad_accum"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tok = torch.randint(0, hcfg.vocab_size, (hb, PLAN_SEQ), generator=gen,
+                        device=dev, dtype=torch.int32)
+    hbatch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    hparams = Model(hcfg).init(torch.Generator(device=dev).manual_seed(8),
+                               dev)
+    runs = {}
+    for remat in (True, False):
+        base = fresh()
+        c = dataclasses.replace(hcfg, remat=remat)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, loss = steps.make_train_step(c, inner, grad_accum=hga,
+                                         q_chunk=q_chunk)(
+            steps.init_train_state(hparams), hbatch)
+        torch.cuda.synchronize()
+        runs[remat] = {"s": time.perf_counter() - t0, "loss": loss,
+                       "mu": st.opt.mu,
+                       "peak_bytes": torch.cuda.max_memory_allocated()
+                       - base}
+        del st
+    on, off = runs[True], runs[False]
+    loss_equal = torch.equal(on["loss"], off["loss"])
+    unequal, worst = [], 0.0
+    for k, m in off["mu"].items():
+        if not torch.equal(on["mu"][k], m):
+            unequal.append(k)
+            share = float((on["mu"][k] - m).abs().max()) / (
+                float(m.abs().max()) or 1.0)
+            worst = max(worst, share)
+    loss_share = abs(float(on["loss"]) - float(off["loss"])) / abs(
+        float(off["loss"]))
+    print(json.dumps({
+        "plan_hybrid": arch, "layers": f"{n_layers} of "
+        f"{get_config(arch).n_layers}", "batch": [hb, PLAN_SEQ],
+        "grad_accum": hga, "q_chunk": q_chunk, "dtype": hcfg.compute_dtype,
+        "loss": float(on["loss"]), "loss_bit_equal": loss_equal,
+        "loss_rel_err": loss_share,
+        "grads_bit_equal": not unequal, "grad_leaves_unequal": len(unequal),
+        "grad_leaves": len(off["mu"]), "grad_max_err_share": worst,
+        "remat_on": {"step_s": on["s"], "peak_bytes": on["peak_bytes"]},
+        "remat_off": {"step_s": off["s"], "peak_bytes": off["peak_bytes"]},
+        **card}))
+    assert loss_equal or loss_share <= TOL_PLAN_GRAD, loss_share
+    assert worst <= TOL_PLAN_GRAD, f"{arch}: remat on against off " \
+        f"{worst:.3e} of a leaf's largest |value|"
+    del runs, on, off, hparams, hbatch, tok
+    fresh()
+    print(f"plan phase: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {k: (counts[k], singles) for k in HELOCO}
+
+
+def plan_only(torch, kernels, specs, dev, bound, log, lib):
+    """``--only plan``: the plan phase alone (packed.cu built)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"plan_launches": plan_phase(torch, kernels, dev,
+                                                  smi)}))
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
@@ -4107,7 +4411,8 @@ def main(argv=None) -> int:
                          "and packed.cu, checks and times the flash kernels "
                          "and runs the families phase (families_only); dist "
                          "builds leaf.cu, quantize.cu and flash_attention.cu "
-                         "and runs the dist phase (dist_only)")
+                         "and runs the dist phase (dist_only); plan builds "
+                         "packed.cu and runs the plan phase (plan_only)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4219,6 +4524,12 @@ def main(argv=None) -> int:
         totals[k][0] += launches
         totals[k][1] += served
     print(f"dist phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for k, (launches, served) in plan_phase(torch, all_kernels, dev,
+                                            smi).items():
+        totals[k][0] += launches
+        totals[k][1] += served
+    print(f"plan phase: {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for r in rows:
@@ -4265,7 +4576,8 @@ ONLY = {"int8": (("quantize",), int8_only), "leaf": (("leaf",), leaf_only),
         "wallclock": (("packed",), wallclock_only),
         "socket": (("packed",), socket_only), "obs": (("packed",), obs_only),
         "families": (("flash_attention", "packed"), families_only),
-        "dist": (("leaf", "quantize", "flash_attention"), dist_only)}
+        "dist": (("leaf", "quantize", "flash_attention"), dist_only),
+        "plan": (("packed",), plan_only)}
 
 
 if __name__ == "__main__":

@@ -111,12 +111,13 @@ def _microbatches(batch: Mapping[str, torch.Tensor], n: int
 
 
 def make_train_step(cfg: ModelConfig, inner: InnerOptConfig, *,
-                    grad_accum: int = 1,
+                    grad_accum: int = 1, q_chunk: int = 128,
                     param_pspecs: Optional[Mapping[str, Spec]] = None):
     """One AdamW step, ``step(state, batch) -> (state, loss)``.
     ``grad_accum`` splits the batch into microbatches run one after the
     other: the mean of their losses and of their fp32 gradients, the
-    reference's math at 1/n the activation memory."""
+    reference's math at 1/n the activation memory. ``q_chunk``: the
+    attention's query chunk in ``Model.loss``."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     model = build_model(cfg)
@@ -124,7 +125,7 @@ def make_train_step(cfg: ModelConfig, inner: InnerOptConfig, *,
     def value_and_grad(params: Params, batch):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        loss = model.loss(leaves, batch)
+        loss = model.loss(leaves, batch, q_chunk=q_chunk)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True, materialize_grads=True)
         return loss.detach(), dict(zip(leaves, grads))
@@ -158,7 +159,7 @@ def make_train_step(cfg: ModelConfig, inner: InnerOptConfig, *,
 
 
 def make_multipod_train_step(cfg: ModelConfig, inner: InnerOptConfig, mesh,
-                             *, grad_accum: int = 1,
+                             *, grad_accum: int = 1, q_chunk: int = 128,
                              param_pspecs: Optional[Mapping[str, Spec]] = None
                              ):
     """Per-pod replica step: every tensor of the state and the batch carries
@@ -167,7 +168,8 @@ def make_multipod_train_step(cfg: ModelConfig, inner: InnerOptConfig, mesh,
     communication-free across the worker boundary. ``step(state, batch) ->
     (state, losses (n_pods,))``. The pod placement (``pod`` ahead of each
     spec) is applied to the stacked leaves."""
-    base = make_train_step(cfg, inner, grad_accum=grad_accum)
+    base = make_train_step(cfg, inner, grad_accum=grad_accum,
+                           q_chunk=q_chunk)
     pod_pspecs = None
     if param_pspecs is not None:
         pod_pspecs = {k: Spec(("pod",) + tuple(s))

@@ -17,10 +17,16 @@ compiled program. The port compiles nothing; ``lower_cell`` instead:
     on CPU fake tensors: its attention goes through the flash kernel's
     wrapper, which runs the plain version only for CPU tensors). The
     counter counts matmul-class operations (mm, bmm, addmm, baddbmm,
-    convolution, attention), not elementwise ones. Microbatches and pods
-    have the same shapes, so one microbatch of one pod is counted and the
-    total is that times ``grad_accum`` times the pods; ``flops_per_device``
-    is ``flops_total / n_devices``, an even split that the record states.
+    convolution, attention), not elementwise ones. A train step runs the
+    plan's memory plan: attention in query chunks of ``q_chunk`` and,
+    under the config's ``remat``, checkpoints of ``remat_group`` layers,
+    whose forward runs again in the backward and is counted again, as
+    XLA counts a rematerialised program (up to each checkpoint's last
+    product: no backward needs its output, so it is not recomputed).
+    Microbatches and pods have the same shapes, so one microbatch of one
+    pod is counted and the total is that times ``grad_accum`` times the
+    pods; ``flops_per_device`` is ``flops_total / n_devices``, an even
+    split that the record states.
     Where a step cannot run on meta tensors the record holds
     ``flops_total: null`` and the reason;
   * ``lower_outer_exchange`` records the pod-axis bytes per device of the
@@ -107,8 +113,6 @@ FLOPS_COUNTED = (
     "and the pods")
 FLOPS_SPLIT = "even: flops_total / n_devices"
 PLAN_NOT_APPLIED = {
-    "q_chunk": "the port's attention does not chunk queries by the plan",
-    "remat_group": "the port applies no rematerialization",
     "head_tp": "activation placement: one device per mesh in the port",
     "seq_parallel": "activation placement: one device per mesh in the port",
 }
@@ -220,8 +224,10 @@ def _abstract(tree: Any, device) -> Any:
 
 def step_flops(cfg: ModelConfig, shape: ShapeConfig, plan: Dict[str, Any]):
     """(flops of one step of one pod, None) or (None, reason): a train
-    step's forward and backward of one microbatch times ``grad_accum``; a
-    prefill; one decode step at the cache's last position."""
+    step's forward and backward of one microbatch (attention in chunks of
+    the plan's ``q_chunk``, the forward of every checkpoint counted again
+    under ``cfg.remat``) times ``grad_accum``; a prefill; one decode step
+    at the cache's last position."""
     model = build_model(cfg)
     ins = input_specs(cfg, shape)
     if shape.kind == "train":
@@ -236,7 +242,8 @@ def step_flops(cfg: ModelConfig, shape: ShapeConfig, plan: Dict[str, Any]):
         def one():
             params = {k: v.requires_grad_(True) for k, v in _abstract(
                 model.param_specs(), "meta").items()}
-            loss = model.loss(params, _abstract(micro, "meta"))
+            loss = model.loss(params, _abstract(micro, "meta"),
+                              q_chunk=int(plan["q_chunk"]))
             torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
         flops, why = count_flops(one)
@@ -263,8 +270,9 @@ def step_flops(cfg: ModelConfig, shape: ShapeConfig, plan: Dict[str, Any]):
 # --------------------------------------------------------------------------
 
 def _planned(cfg: ModelConfig, plan: Dict[str, Any]) -> ModelConfig:
-    """The reference's per-plan config: activation hints and, for an MoE,
-    its dispatch group and mode."""
+    """The reference's per-plan config: activation hints, the layers a
+    remat checkpoint groups and, for an MoE, its dispatch group and
+    mode."""
     cfg = dataclasses.replace(
         cfg, act_batch_axes=("data",),
         act_model_axis=("model" if plan.get("head_tp") else ""),

@@ -2,10 +2,14 @@
 
 Port of ``repro/models/attention.py``. Training: q/k/v projections (with
 their biases under ``qkv_bias``) and RoPE on q and k, attention (causal, or
-not for an encoder) with fp32 scores and a masked fp32
-softmax, and the output projection, as plain PyTorch ops under autograd.
-The reference computes the same function through a chunked custom-vjp; the
-chunking only bounds memory.
+not for an encoder) and the output projection. Attention goes through
+``flash_attention``, the reference's custom-vjp (``_make_flash``) as a
+``torch.autograd.Function``: queries in chunks of ``q_chunk``, each chunk's
+fp32 scores against the whole key sequence, and only (q, k, v, out, lse)
+saved for the backward, which recomputes each chunk's scores. So a layer
+keeps no (S, S) block per head for autograd, and the scores live one chunk
+at a time. ``attend(use_flash=False)`` is the plain version the tests hold
+it to: the whole fp32 score matrix and a softmax under autograd.
 
 Serving: prefill attends over the fresh prompt through the flash-attention
 forward kernel (``kernels/flash_attention.py``; its plain version on the
@@ -14,7 +18,7 @@ KV cache in plain PyTorch, as the reference leaves decode to jnp.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -56,10 +60,114 @@ def qkv_project(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def _chunk_scores(qc: torch.Tensor, k: torch.Tensor, q_idx: torch.Tensor,
+                  kv_valid: int, causal: bool, scale: float) -> torch.Tensor:
+    """One query chunk's masked fp32 scores: qc (B,C,KV,G,D), k (B,S,KV,D)
+    -> (B,KV,G,C,S), the products of the compute-dtype inputs accumulated
+    in fp32 (the reference's ``preferred_element_type``), times D^-0.5,
+    -1e30 past ``kv_valid`` and, causal, past each query's position."""
+    s = torch.einsum("bckgd,bskd->bkgcs", qc.float(), k.float()) * scale
+    kv_idx = torch.arange(k.shape[1], device=k.device)
+    mask = kv_idx[None, :] < kv_valid
+    if causal:
+        mask = mask & (kv_idx[None, :] <= q_idx[:, None])
+    return s.masked_fill(~mask, NEG_INF)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_make_flash``: q5 (B,S,KV,G,D) in ``n`` chunks of
+    ``c`` queries against k, v (B,S_kv,KV,D). Forward per chunk
+    (``_flash_chunk_fwd``): m = max s, p = exp(s - m), l = sum p, lse = m +
+    log l, out = (p / l in q's dtype) v. Backward per chunk
+    (``_flash_chunk_bwd``): p = exp(s - lse), dv = p^T do, dp = do v^T and
+    delta = sum do * out in fp32, ds = p (dp - delta) D^-0.5, dq and dk
+    from ds in q's dtype; dk and dv summed over chunks in fp32."""
+
+    @staticmethod
+    def forward(ctx, q5, k, v, causal: bool, q_offset: int, kv_valid: int,
+                n: int):
+        scale = q5.shape[-1] ** -0.5
+        c = q5.shape[1] // n
+        out = torch.empty_like(q5)
+        lses = []
+        for i in range(n):
+            sl = slice(i * c, (i + 1) * c)
+            q_idx = q_offset + torch.arange(sl.start, sl.stop,
+                                            device=q5.device)
+            s = _chunk_scores(q5[:, sl], k, q_idx, kv_valid, causal, scale)
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            del s
+            l = p.sum(-1, keepdim=True)
+            lses.append((m + torch.log(l))[..., 0])
+            out[:, sl] = torch.einsum("bkgcs,bskd->bckgd",
+                                      (p / l).to(q5.dtype), v)
+            del p
+        ctx.save_for_backward(q5, k, v, out, torch.stack(lses, 1))
+        ctx.causal, ctx.q_offset, ctx.kv_valid, ctx.n = (causal, q_offset,
+                                                         kv_valid, n)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q5, k, v, out, lse = ctx.saved_tensors
+        scale = q5.shape[-1] ** -0.5
+        c = q5.shape[1] // ctx.n
+        dq = torch.empty_like(q5)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for i in range(ctx.n):
+            sl = slice(i * c, (i + 1) * c)
+            qc, doc = q5[:, sl], do[:, sl]
+            q_idx = ctx.q_offset + torch.arange(sl.start, sl.stop,
+                                                device=q5.device)
+            s = _chunk_scores(qc, k, q_idx, ctx.kv_valid, ctx.causal, scale)
+            p = torch.exp(s - lse[:, i, ..., None])
+            del s
+            dv += torch.einsum("bkgcs,bckgd->bskd", p.to(doc.dtype),
+                               doc).float()
+            dp = torch.einsum("bckgd,bskd->bkgcs", doc.float(), v.float())
+            delta = torch.einsum("bckgd,bckgd->bkgc", doc.float(),
+                                 out[:, sl].float())
+            ds = (p * (dp - delta[..., None]) * scale).to(q5.dtype)
+            del p, dp
+            dq[:, sl] = torch.einsum("bkgcs,bskd->bckgd", ds, k)
+            dk += torch.einsum("bkgcs,bckgd->bskd", ds, qc).float()
+            del ds
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0,
+                    kv_valid: Optional[int] = None,
+                    q_chunk: int = 128) -> torch.Tensor:
+    """Memory-lean training attention: q (B,Sq,H,D), k, v (B,Skv,KV,D) ->
+    (B,Sq,H,D) through ``_FlashAttention``. Queries go in chunks of
+    ``min(q_chunk, Sq)``; a chunk that does not divide Sq makes the whole
+    sequence one chunk, as the reference's ``flash_attention``. Rows at or
+    past ``kv_valid`` (default Skv) are masked."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    q5 = q.reshape(b, sq, kvh, h // kvh, hd)
+    q_chunk = min(q_chunk, sq)
+    n = sq // q_chunk if sq % q_chunk == 0 else 1
+    out = _FlashAttention.apply(q5, k, v, causal, q_offset,
+                                k.shape[1] if kv_valid is None
+                                else int(kv_valid), n)
+    return out.reshape(b, sq, h, hd)
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool) -> torch.Tensor:
-    """q: (B,S,H,D); k, v: (B,S,KV,D) -> (B,S,H,D). Scores are the fp32
-    products of the compute-dtype inputs, as the reference accumulates them."""
+           causal: bool, q_chunk: int = 128,
+           use_flash: bool = True) -> torch.Tensor:
+    """q: (B,S,H,D); k, v: (B,S,KV,D) -> (B,S,H,D). ``use_flash`` routes
+    through ``flash_attention`` in chunks of ``q_chunk``, as the
+    reference's ``attend``; ``use_flash=False`` is the plain version the
+    tests hold it to: the whole fp32 score matrix (the fp32 products of the
+    compute-dtype inputs, as the reference accumulates them) and a masked
+    fp32 softmax under autograd."""
+    if use_flash:
+        return flash_attention(q, k, v, causal=causal, q_chunk=q_chunk)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, hd)

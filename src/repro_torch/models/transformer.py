@@ -21,13 +21,23 @@ block leaf has a leading ``n_layers`` axis under ``blocks/``
 (n_super, shared_attn_every), and ``shared/`` holds the shared block. The
 model object holds only the config, so workers share one; ``init`` draws
 values, and ``loss``, ``prefill`` and ``decode`` run on a given parameter
-dict. ``cfg.remat`` changes no value and is not applied.
+dict.
+
+Training keeps the reference's memory plan: attention in query chunks of
+``q_chunk`` (``attention.flash_attention``), and under ``cfg.remat`` its
+rematerialisation (``torch.utils.checkpoint``): stacked ``blocks/`` layers
+in groups of ``max(remat_group, 1)``, ``blocks_list`` layers one by one,
+each hybrid super block and each xLSTM block as one checkpoint. A
+checkpoint keeps only its input and recomputes its forward in the
+backward; it changes no value.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Optional, Tuple, Union
+from typing import (Callable, Dict, Iterator, Mapping, Optional, Tuple,
+                    Union)
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import leaf_order
@@ -98,13 +108,14 @@ def _mix(p: Dict[str, Params], x: torch.Tensor, h: torch.Tensor,
 
 
 def apply_attn_block(p: Dict[str, Params], x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor
+                     positions: torch.Tensor, q_chunk: int = 128
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Training forward without cache. Returns (x', aux: the MoE's
-    load-balance loss, None without one)."""
+    """Training forward without cache, attention in query chunks of
+    ``q_chunk``. Returns (x', aux: the MoE's load-balance loss, None
+    without one)."""
     h = apply_norm(p["norm1"], x, cfg)
     q, k, v = attn_lib.qkv_project(p["attn"], h, cfg, positions)
-    ctx = attn_lib.attend(q, k, v, causal=cfg.causal)
+    ctx = attn_lib.attend(q, k, v, causal=cfg.causal, q_chunk=q_chunk)
     return _mix(p, x, h, attn_lib.attn_output(p["attn"], ctx), cfg)
 
 
@@ -298,38 +309,69 @@ class Model:
         return x + y, st
 
     def _trunk(self, params: Mapping[str, torch.Tensor], x: torch.Tensor,
-               positions: torch.Tensor
+               positions: torch.Tensor, q_chunk: int = 128
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The training forward between the embedding and the final norm:
-        (x, the MoE's load-balance loss summed over layers, or None)."""
+        (x, the MoE's load-balance loss summed over layers, or None), each
+        checkpoint of the reference's plan one ``_remat`` call."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             shared = _split(self._part(params, "shared"))
-            for _, j, up in self._units(params):
-                x, _ = self._recurrent(up, x, "mamba")
-                if j == cfg.shared_attn_every - 1:
-                    x, _ = apply_attn_block(shared, x, cfg, positions)
+            units = list(self._units(params))
+            per = cfg.shared_attn_every
+
+            def super_block(xc, i):
+                for _, _, up in units[i * per:(i + 1) * per]:
+                    xc, _ = self._recurrent(up, xc, "mamba")
+                return apply_attn_block(shared, xc, cfg, positions,
+                                        q_chunk)[0]
+            for i in range(self.n_super):
+                x = self._remat(super_block, x, i)
             return x, None
         if cfg.family == "ssm":
             for p, kind in zip(self._layers(params), self.xlstm_kinds):
-                x, _ = self._recurrent(p, x, kind)
+                x = self._remat(lambda xc, p=p, kind=kind:
+                                self._recurrent(p, xc, kind)[0], x)
             return x, None
+        layers = list(self._layers(params))
+        k = max(cfg.remat_group, 1) if self._stacked else 1
+        if len(layers) % k:
+            raise ValueError(f"{cfg.n_layers} layers are not whole remat "
+                             f"groups of {k}")
+
+        def group(xc, aux_sum, i):
+            """k consecutive layers from layer i * k; the aux carried
+            through, summed layer by layer as without groups."""
+            for p in layers[i * k:(i + 1) * k]:
+                xc, aux = apply_attn_block(p, xc, cfg, positions, q_chunk)
+                if aux is not None:
+                    aux_sum = aux if aux_sum is None else aux_sum + aux
+            return xc, aux_sum
         aux_sum = None
-        for p in self._layers(params):
-            x, aux = apply_attn_block(p, x, cfg, positions)
-            if aux is not None:
-                aux_sum = aux if aux_sum is None else aux_sum + aux
+        for i in range(len(layers) // k):
+            x, aux_sum = self._remat(group, x, aux_sum, i)
         return x, aux_sum
 
+    def _remat(self, fn: Callable, *args):
+        """``fn(*args)``, checkpointed under ``cfg.remat``: autograd keeps
+        only the inputs and runs ``fn`` again in the backward. The forward
+        draws no random numbers, so no RNG state is kept."""
+        if not self.cfg.remat:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
     def loss(self, params: Mapping[str, torch.Tensor],
-             batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+             batch: Mapping[str, torch.Tensor], *,
+             q_chunk: int = 128) -> torch.Tensor:
         """Mean next-token loss of ``batch`` (``tokens`` or ``features``,
         ``patches`` for vision, ``labels``, optional ``loss_mask``) under
-        ``params``; an MoE adds 0.01 times its load-balance loss averaged
-        over layers (the reference returns the aux beside the loss)."""
+        ``params``, attention in query chunks of ``q_chunk``; an MoE adds
+        0.01 times its load-balance loss averaged over layers (the
+        reference returns the aux beside the loss)."""
         cfg = self.cfg
         x, positions = self._embed(params, batch)
-        x, aux_sum = self._trunk(params, x, positions)
+        x, aux_sum = self._trunk(params, x, positions, q_chunk)
         x = apply_norm(self._part(params, "final_norm"), x, cfg)
         if cfg.frontend.kind == "vision":
             x = x[:, cfg.frontend.n_prefix_tokens:]

@@ -1372,3 +1372,95 @@ def test_multipod_pods_stay_apart_bit_for_bit_on_the_card(cuda):
     assert any(not torch.equal(v[0], v[1]) for v in nd.params.values())
     for k, v in single.params.items():
         assert torch.equal(nd.params[k][0], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_function_against_the_plain_attend_on_the_card(cuda, dtype):
+    """The training attention (``models.attention.flash_attention``: queries
+    in chunks, only q, k, v, out and lse saved) against the plain
+    ``attend(use_flash=False)`` at (B 2, S 256, H 4, KV 2, D 32), four
+    chunks of 64, causal and not: in fp32 the output within rtol 1e-5
+    (atol 1e-6) and dq, dk, dv within 1e-4 of each one's largest |value|;
+    in bf16 all four within 2e-2 of their largest |value| (the two paths
+    round to bf16 at other points)."""
+    from repro_torch.models import attention as attn_lib
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda).to(dt)
+                   for shape in ((2, 256, 4, 32), (2, 256, 2, 32),
+                                 (2, 256, 2, 32), (2, 256, 4, 32)))
+    for causal in (True, False):
+        runs = []
+        for use_flash in (True, False):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attn_lib.attend(*leaves, causal=causal, q_chunk=64,
+                                  use_flash=use_flash)
+            runs.append([out.detach(),
+                         *torch.autograd.grad(out, leaves, do)])
+        for name, got, want in zip(("out", "dq", "dk", "dv"), *runs):
+            assert got.dtype == dt, name
+            got, want = got.float(), want.float()
+            err = float((got - want).abs().max())
+            top = float(want.abs().max())
+            if dt == torch.bfloat16:
+                assert err <= 2e-2 * top, (causal, name, err)
+            elif name == "out":
+                assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), \
+                    (causal, err)
+            else:
+                assert err <= 1e-4 * top, (causal, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "zamba2-2.7b-smoke"])
+def test_remat_on_against_off_on_the_card(cuda, arch):
+    """``Model.loss`` and its gradients at smoke width on the card with
+    ``cfg.remat`` on (qwen2-7b's stacked layers in checkpoints of 2,
+    zamba2's super blocks one each) and off, q_chunk 8 at S 32: the loss
+    and every gradient within 1e-4 of their largest |value| (bit-equal on
+    the CPU; on the card an indexed backward adds with atomics, in any
+    order)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    base = get_config(arch)
+    tok = torch.randint(0, base.vocab_size, (2, 32), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    params = Model(base).init(torch.Generator(device=cuda).manual_seed(0),
+                              cuda)
+    out = []
+    for remat in (True, False):
+        cfg = dataclasses.replace(base, remat=remat, remat_group=2)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss = Model(cfg).loss(leaves, batch, q_chunk=8)
+        out.append((loss.detach(), torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True,
+            materialize_grads=True)))
+    (l_on, g_on), (l_off, g_off) = out
+    assert abs(l_on.item() - l_off.item()) <= 1e-4 * abs(l_off.item())
+    for k, a, b in zip(params, g_on, g_off):
+        assert float((a - b).abs().max()) <= \
+            1e-4 * float(b.abs().max()) + 1e-12, k
+
+
+@pytest.mark.cuda
+def test_an_engine_arrival_at_512_tokens_launches_two_kernels(cuda):
+    """``paper_hetero_severe`` at smoke width with sequences of 512 tokens
+    (attention in four chunks of 128) on the card: the golden's arrivals
+    and one packed_row_stats and one packed_correct_outer an applied
+    arrival, nothing else; finite evals."""
+    from repro_torch.scenarios import registry, run
+    scn = registry.get_scenario("paper_hetero_severe").overridden(
+        seq_len=512)
+    kernels.reset_launch_counts()
+    eng, hist = run.run(scn, "cuda")
+    assert run.compare(scn, hist) == []
+    applied = sum(not a["dropped"] for a in hist.arrivals)
+    assert applied > 0
+    assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.launch_counts(), 0),
+        "packed_row_stats": applied, "packed_correct_outer": applied}
+    assert all(np.isfinite(e["mean"]) for e in hist.evals)

@@ -165,14 +165,21 @@ def test_a_cell_record_on_meta_tensors():
     assert multi["flops_total"] == 2 * single["flops_total"]
     # a dense model's step, forward and backward: 6 N T for the N weights
     # of its matmuls (the untied lm_head too, not the token lookup) over T
-    # tokens, and 12 S^2 H D a layer and a sequence for the scores and
-    # their product with v (the causal mask skips no work)
+    # tokens, and 14 S^2 H D a layer and a sequence for the attention's
+    # products of 2 S^2 H D each (the causal mask skips no work): the
+    # scores and their product with v forward; the chunked backward
+    # recomputes the scores, then dv, dp, dq and dk (the reference's
+    # custom-vjp), and 2 S H D for delta = sum(do * out), an einsum that
+    # the counter counts as a batched product. The reduced config has no
+    # remat: no forward again
     n = sum(math.prod(x.shape) for k, x in dryrun.abstract_params(
         cfg).items() if k.split("/")[-1] in (
         "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"))
     seq, batch = 4096, 256
-    assert single["flops_total"] == 6 * n * seq * batch + 12 * seq ** 2 * \
-        cfg.n_heads * cfg.head_dim * cfg.n_layers * batch
+    assert not cfg.remat
+    assert single["flops_total"] == 6 * n * seq * batch + (
+        14 * seq ** 2 + 2 * seq) * cfg.n_heads * cfg.head_dim * \
+        cfg.n_layers * batch
 
 
 def test_a_cell_that_cannot_be_counted_records_why():
