@@ -3806,6 +3806,143 @@ def live_cuda_storages(torch, n=5):
     return sorted(seen.values(), reverse=True)[:n]
 
 
+def dist_plan_cfg(cfg):
+    """``cfg`` with the dry-run plan's activation placements: batch over
+    data, heads over model, the sequence over model between blocks."""
+    import dataclasses
+    return dataclasses.replace(cfg, act_batch_axes=("data",),
+                               act_model_axis="model", seq_parallel=True)
+
+
+def dist_placed_train(torch, steps, shd, mesh, pspecs, state, batch, inner,
+                      ga, run, cfgs):
+    """(f) the placed train step on the one-card mesh against (b)'s
+    unplaced runs ``run[(name, n)]``: bit for bit, fp32 and bf16 at
+    grad_accum 1 and bf16 at ``ga``; then the bf16 step's seconds placed
+    and unplaced, each the second call of its kind in turns."""
+    out = {}
+    for name, n in (("fp32", 1), ("bf16", 1), ("bf16", ga)):
+        got, loss = steps.make_train_step(
+            dist_plan_cfg(cfgs[name]), inner, grad_accum=n,
+            param_pspecs=pspecs)(state, batch)
+        want, wloss = run[name, n]
+        assert all(shd.is_placed(v) for v in got.params.values())
+        assert torch.equal(shd.gather(loss), wloss), f"(f) {name} loss"
+        for k, v in want.params.items():
+            assert torch.equal(shd.gather(got.params[k]), v), \
+                f"(f) {name} grad_accum={n} parameter {k}"
+            assert torch.equal(shd.gather(got.opt.mu[k]), want.opt.mu[k]), \
+                f"(f) {name} grad_accum={n} first moment {k}"
+        out[f"{name}_grad_accum_{n}"] = "bit-equal"
+        del got
+    secs = {"placed": [], "unplaced": []}
+    placed = steps.make_train_step(dist_plan_cfg(cfgs["bf16"]), inner,
+                                   param_pspecs=pspecs)
+    plain = steps.make_train_step(cfgs["bf16"], inner)
+    for _ in range(2):
+        for kind, step in (("unplaced", plain), ("placed", placed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            secs[kind].append(time.perf_counter() - t0)
+    print(json.dumps({"dist_placed_train": DIST_ARCH, "mesh":
+                      mesh.axis_sizes, **out, "bf16_step_s": secs}))
+    return out
+
+
+def dist_placed_serve(torch, kernels, steps, shd, scfg, sparams, batch, n,
+                      logits, logits2, caches, token, none, dev):
+    """(f) tinygpt-15m's prefill and decode through the placed steps on the
+    one-card mesh: bit-equal to (d)'s ``logits``, ``logits2`` and its
+    caches after the decode, the same flash launches a prefill and none in
+    decode. Returns the prefill's launches."""
+    from repro_torch.launch.mesh import local_mesh, mesh_context
+    cfg = dist_plan_cfg(scfg)
+    with local_mesh(dev) as mesh, mesh_context(mesh):
+        # the caller places the serving steps' inputs
+        pp = shd.place_tree(sparams, shd.param_specs(
+            sparams, axis_sizes=mesh.axis_sizes), mesh)
+        pbatch, ptoken = (shd.place_tree(t, shd.batch_specs(t), mesh)
+                          for t in (batch, token))
+        pre = steps.make_prefill_step(cfg, cache_len=n)
+        dec = steps.make_decode_step(cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        plogits, pcaches = pre(pp, pbatch)
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        assert got == {**none, "flash_attention_fwd": scfg.n_layers}, got
+        assert torch.equal(shd.gather(plogits), logits), "(f) prefill"
+        pcaches = shd.place_caches(pcaches, mesh, batch_sharded=True)
+        kernels.reset_launch_counts()
+        plogits2, pcaches = dec(pp, ptoken, pcaches, SERVE["prompt"])
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == none, "(f) decode launched"
+        assert torch.equal(shd.gather(plogits2), logits2), "(f) decode"
+        for k, v in shd.tree_leaves(caches).items():
+            assert torch.equal(shd.gather(shd.tree_leaves(pcaches)[k]), v), \
+                f"(f) cache {k}"
+    print(json.dumps({"dist_placed_serve": "tinygpt-15m",
+                      "prefill_launches": got["flash_attention_fwd"],
+                      "prefill_bit_equal": True, "decode_bit_equal": True,
+                      "caches_bit_equal": True}))
+    return got["flash_attention_fwd"]
+
+
+def dist_placed_exchange(torch, kernels, steps, shd, xcfg, h, none, dev):
+    """(f) the exchange through the placed path on the one-card mesh
+    (granite-moe at full width and depth, HeLoCo, arriving pod 1 of 2,
+    then int8): block_stats, correct_apply and outer_update_2d (and the
+    int8 kernels) once a leaf and nothing else, with the counts set to 0
+    just before and read just after; its p', m' and look-ahead bit-equal
+    leaf by leaf to (e)'s kernel path, run a leaf at a time. Returns the
+    launches."""
+    from repro_torch.launch.mesh import (local_mesh, make_production_mesh,
+                                         mesh_context)
+    from repro_torch.models import Model
+    counts = {}
+    for int8 in (False, True):
+        params, mom, wp = exchange_inputs(torch, Model(xcfg), dev)
+        stacked = shd.stacked_axes_tree(params)
+        kw = dict(h=h, outer_lr=0.7, mu=0.9, arriving_pod=1,
+                  stacked_axes=stacked, compress_int8=int8)
+        with local_mesh(dev) as mesh, mesh_context(mesh):
+            fn = steps.make_outer_exchange(
+                xcfg, mesh, param_pspecs=shd.param_specs(
+                    params, axis_sizes=mesh.axis_sizes), **kw)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = fn(params, mom, wp)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = kernels.launch_counts()
+        want = {**none, **dict.fromkeys(
+            ("block_stats", "correct_apply", "outer_update_2d")
+            + (("absmax", "quantize_2d", "dequantize_2d") if int8 else ()),
+            len(params))}
+        assert got == want, f"(f) exchange (int8={int8}) launched {got}"
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        kern = steps.make_outer_exchange(
+            xcfg, make_production_mesh(multi_pod=True), **kw)
+        for k in list(params):
+            wants = kern({k: params[k]}, {k: mom[k]}, {k: wp[k]})
+            for got_t, want_t in zip(outs, wants):
+                assert torch.equal(shd.gather(got_t.pop(k)), want_t[k]), \
+                    f"(f) exchange (int8={int8}) {k}"
+            del wants
+        print(json.dumps({"dist_placed_exchange": DIST_ARCH, "int8": int8,
+                          "leaves": len(params),
+                          "launches": {k: v for k, v in got.items() if v},
+                          "exchange_s": secs, "bit_equal_to_e": True}))
+        del params, mom, wp, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
 def dist_phase(torch, kernels, dev):
     """The dist path (``repro_torch.dist``) on the card, each part freed
     before the next; prints its seconds and peak device memory.
@@ -3813,17 +3950,19 @@ def dist_phase(torch, kernels, dev):
     qwen2-7b from meta tensors on both production meshes, every placement
     dividing its dim, and the per-device parameter bytes.
     (b) Train step: granite-moe at full width and DIST_TRAIN_LAYERS
-    layers, batch 4 x 128, inside a one-card mesh with the specs placed at
-    the step's edges: the plan's grad_accum=4 in the config's bf16; then,
+    layers, batch 4 x 128, inside a one-card mesh, unplaced: the plan's
+    grad_accum=4 in the config's bf16; then,
     with DIST_CHECK_GROUP-token dispatch groups, grad_accum=4 held to
     grad_accum=1 on the same batch, in fp32 (loss within rtol 1e-5, first
     moments within 1e-4 of each leaf's largest |value|, the step under
     ``step_rule``) and in bf16 (the same with BF16_FACTOR times bf16's own
     distance from the fp32 grad_accum=1 step as the loss's rtol and each
     leaf's first-moment band, where larger).
-    (c) Multi-pod step: two pods on the card: identical pods stay bit for
-    bit identical, different batches diverge, pod 0 bit-equal to the
-    single step on its slice.
+    (c) Multi-pod step, placed (``param_pspecs``; each pod's step on the
+    one-card mesh's (data, model) submesh, the state restacked as
+    DTensors with ``pod`` ahead): two pods on the card: identical pods stay
+    bit for bit identical, different batches diverge, pod 0 bit-equal to
+    the unplaced single step on its slice.
     (d) Prefill and decode steps on full-width tinygpt-15m (bf16): bit-equal
     to ``Model.prefill`` and ``decode``, 4 flash_attention_fwd launches a
     prefill and nothing else, none in decode.
@@ -3835,6 +3974,16 @@ def dist_phase(torch, kernels, dev):
     leaf by leaf to the plain path on the card: p', m' and the look-ahead
     within TOL_DIST of each leaf's largest |value|, the same branch in
     every block, the int8 round trip bit for bit.
+    (f) The placed steps (DTensor placements, ``local_map`` sites) on the
+    one-card mesh with the dry-run plan's activation placements
+    (``act_batch_axes``, ``act_model_axis``, ``seq_parallel``): the train
+    step bit-equal to (b)'s unplaced one in fp32 and bf16 (loss, first
+    moments, parameters), its seconds beside the unplaced step's (the
+    host cost of DTensor dispatch); tinygpt-15m's prefill and decode
+    bit-equal to (d)'s with the same flash_attention_fwd launches; the
+    exchange bit-equal leaf by leaf to (e)'s kernel path with the same
+    launches a leaf.
+    (b), (d) and (e) run unplaced (whole tensors).
     Returns per kernel (launches, arrivals or prefills or leaves they
     served), as the kernels line counts each row."""
     import dataclasses
@@ -3892,11 +4041,10 @@ def dist_phase(torch, kernels, dev):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         bf16_state, bf16_loss = steps.make_train_step(
-            cfg, inner, grad_accum=ga, param_pspecs=pspecs)(state, batches[0])
+            cfg, inner, grad_accum=ga)(state, batches[0])
         torch.cuda.synchronize()
         bf16_s = time.perf_counter() - t0
-        bf16_one = steps.make_train_step(cfg, inner, param_pspecs=pspecs)(
-            state, batches[0])[1]
+        bf16_one = steps.make_train_step(cfg, inner)(state, batches[0])[1]
         assert torch.isfinite(bf16_loss) and all(
             bool(torch.isfinite(v).all()) for v in bf16_state.params.values())
         del bf16_state
@@ -3904,8 +4052,7 @@ def dist_phase(torch, kernels, dev):
             cfg.moe, group_size=DIST_CHECK_GROUP))
         f32 = dataclasses.replace(grouped, compute_dtype="float32")
         run = {(name, n): steps.make_train_step(
-                   c, inner, grad_accum=n, param_pspecs=pspecs)(
-                   state, batches[0])
+                   c, inner, grad_accum=n)(state, batches[0])
                for name, c in (("fp32", f32), ("bf16", grouped))
                for n in (ga, 1)}
 
@@ -3942,6 +4089,9 @@ def dist_phase(torch, kernels, dev):
                           "mu_err_share": mu_err, "mu_band": band,
                           "param_err_share": worst,
                           "near_zero_gradient_elements_excepted": excepted}
+        placed = dist_placed_train(torch, steps, shd, mesh, pspecs, state,
+                                   batches[0], inner, ga, run,
+                                   {"fp32": f32, "bf16": grouped})
         del run
         print(json.dumps({
             "dist_train": DIST_ARCH, "layers": f"{DIST_TRAIN_LAYERS} of "
@@ -3952,30 +4102,33 @@ def dist_phase(torch, kernels, dev):
             "bf16_own_distance_from_fp32": {"loss": own_loss,
                                             "mu": own_mu}, **held}))
 
-        # (c) two pods on the card
+        # (c) two pods on the card, placed (pod ahead of each spec; the
+        # state comes back as DTensors, gathered for the checks)
         multi = steps.make_multipod_train_step(cfg, inner, mesh,
                                                param_pspecs=pspecs)
         same = {k: torch.stack([v, v]) for k, v in batches[0].items()}
         diff = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
         ns, _ = multi(steps.stack_pods([state, state]), same)
-        for k, v in ns.params.items():
+        assert all(shd.is_placed(v) for v in ns.params.values())
+        for k, v in shd.gather_tree(ns.params).items():
             assert torch.equal(v[0], v[1]), f"pods parted on {k}"
         del ns
         nd, losses = multi(steps.stack_pods([state, state]), diff)
-        single, loss0 = steps.make_train_step(cfg, inner,
-                                              param_pspecs=pspecs)(
-            state, batches[0])
+        nd_params, losses = shd.gather_tree(nd.params), shd.gather(losses)
+        del nd
+        single, loss0 = steps.make_train_step(cfg, inner)(state, batches[0])
         parted = sum(not torch.equal(v[0], v[1])
-                     for v in nd.params.values())
+                     for v in nd_params.values())
         assert parted, "pods with different batches stayed equal"
         assert torch.equal(losses[0], loss0)
         for k, v in single.params.items():
-            assert torch.equal(nd.params[k][0], v), f"pod 0 != single: {k}"
-        print(json.dumps({"dist_multipod": 2, "losses": losses.tolist(),
+            assert torch.equal(nd_params[k][0], v), f"pod 0 != single: {k}"
+        print(json.dumps({"dist_multipod": 2, "placed": True,
+                          "losses": losses.tolist(),
                           "leaves_parted": parted,
                           "leaves": len(single.params),
-                          "pod0_bit_equal_single": True}))
-        del nd, single, state, params, multi
+                          "pod0_bit_equal_unplaced_single": True}))
+        del nd_params, single, state, params, multi
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4006,6 +4159,9 @@ def dist_phase(torch, kernels, dev):
     print(json.dumps({"dist_serve": "tinygpt-15m", "prefill_launches":
                       at_prefill["flash_attention_fwd"],
                       "prefill_bit_equal": True, "decode_bit_equal": True}))
+    placed_prefill = dist_placed_serve(torch, kernels, steps, shd, scfg,
+                                       sparams, batch, n, logits, logits2,
+                                       caches, token, none, dev)
     del sparams, caches, want_caches, logits, logits2, want_logits, want2
     gc.collect()
     torch.cuda.empty_cache()
@@ -4086,18 +4242,23 @@ def dist_phase(torch, kernels, dev):
         del params, mom, wp, outs
         gc.collect()
         torch.cuda.empty_cache()
+    placed_counts = dist_placed_exchange(torch, kernels, steps, shd, xcfg,
+                                         h, none, dev)
+    for k, v in placed_counts.items():
+        counts[k] = counts.get(k, 0) + v
     peak = torch.cuda.max_memory_allocated()
     secs = time.perf_counter() - t_phase
     print(f"dist phase: peak {peak / 1e9:.2f} GB, {secs:.1f} s")
     print(json.dumps({"dist_phase_s": secs, "peak_GB": peak / 1e9,
                       "held_by_earlier_phases_GB": held_before / 1e9,
                       "largest_held": held_by}))
-    return {"block_stats": (counts["block_stats"], 2),
-            "correct_apply": (counts["correct_apply"], 2),
-            "outer_update_2d": (counts["outer_update_2d"], 2 * n_leaves),
-            **{k: (counts[k], n_leaves)
+    return {"block_stats": (counts["block_stats"], 4),
+            "correct_apply": (counts["correct_apply"], 4),
+            "outer_update_2d": (counts["outer_update_2d"], 4 * n_leaves),
+            **{k: (counts[k], 2 * n_leaves)
                for k in ("absmax", "quantize_2d", "dequantize_2d")},
-            "flash_attention_fwd": (at_prefill["flash_attention_fwd"], 1)}
+            "flash_attention_fwd": (at_prefill["flash_attention_fwd"]
+                                    + placed_prefill, 2)}
 
 
 def dist_only(torch, kernels, specs, dev, bound, log, lib):
@@ -4165,8 +4326,8 @@ def plan_phase(torch, kernels, dev, smi):
     (b) ``dist.steps.make_train_step`` on PLAN_ARCH at full width and depth
     (24 layers), bf16, batch PLAN_BATCH x PLAN_SEQ, the train_4k plan's
     grad_accum and q_chunk, remat on, two steps inside a one-card mesh with
-    the specs placed: loss and parameters finite; each step's seconds and
-    the peak; beside it the attention's saved bytes of (a) at bf16 times
+    the specs placed, then a third unplaced on their state made whole:
+    loss and parameters finite; each step's seconds and the peak; beside it the attention's saved bytes of (a) at bf16 times
     the layers, with and without the plan.
     (c) ``paper_hetero_severe`` through the engine (``run_scenario``) with
     PLAN_ARCH at full width cut to PLAN_ENGINE_LAYERS layers and sequences
@@ -4288,7 +4449,22 @@ def plan_phase(torch, kernels, dev, smi):
             state, loss = step(state, batch)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-            losses.append(float(loss))
+            losses.append(float(shd.gather(loss)))
+        # a third step unplaced, on the placed steps' state made whole:
+        # whether DTensor's host dispatch hides behind the device's work
+        state = state._replace(
+            params=shd.gather_tree(state.params),
+            opt=state.opt._replace(mu=shd.gather_tree(state.opt.mu),
+                                   nu=shd.gather_tree(state.opt.nu)))
+        del step
+        step = steps.make_train_step(cfg, inner, grad_accum=ga,
+                                     q_chunk=q_chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        unplaced_s = time.perf_counter() - t0
+        losses.append(float(loss))
         finite = all(bool(torch.isfinite(v).all())
                      for v in state.params.values())
         del state, step
@@ -4298,13 +4474,15 @@ def plan_phase(torch, kernels, dev, smi):
         "plan_train": PLAN_ARCH, "layers": layers, "params": n_params,
         "batch": [PLAN_BATCH, PLAN_SEQ], "grad_accum": ga,
         "q_chunk": q_chunk, "remat": cfg.remat, "dtype": cfg.compute_dtype,
-        "losses": losses, "step_s": step_s, "peak_bytes": peak,
+        "losses": losses, "step_s": step_s,
+        "unplaced_third_step_s": unplaced_s, "peak_bytes": peak,
         "held_before_bytes": base,
         "attention_saved_bytes_all_layers": {
             "with_plan": attn["bfloat16"]["flash"] * layers,
             "without_plan": attn["bfloat16"]["plain"] * layers}, **card}))
     print(f"plan train: {PLAN_ARCH} {layers} layers, {PLAN_BATCH} x "
-          f"{PLAN_SEQ}, steps {step_s[0]:.2f} s, {step_s[1]:.2f} s, peak "
+          f"{PLAN_SEQ}, placed steps {step_s[0]:.2f} s, {step_s[1]:.2f} s, "
+          f"unplaced {unplaced_s:.2f} s, peak "
           f"{peak / 1e9:.2f} GB; attention saved without the plan "
           f"{attn['bfloat16']['plain'] * layers / 1e9:.2f} GB over "
           f"{layers} layers, with it "

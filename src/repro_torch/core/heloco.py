@@ -23,7 +23,7 @@ axes). Two arrival implementations share the same math:
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,20 +114,31 @@ def correct_block(delta: torch.Tensor, mom: torch.Tensor,
 def block_correct(delta: Mapping[str, torch.Tensor],
                   momentum: Mapping[str, torch.Tensor], h: HeLoCoConfig,
                   stacked_axes: Optional[Mapping[str, int]] = None,
-                  use_kernel: bool = False) -> Params:
+                  use_kernel: bool = False,
+                  reduce_stats: Optional[Mapping[str, Callable]] = None
+                  ) -> Params:
     """Alg. 2 over the whole pseudo-gradient dict.
 
     stacked_axes: path -> number of leading layer axes of that leaf (absent:
     none); each layer of a stacked leaf is its own block. use_kernel: correct
     each leaf through the per-leaf kernels (``kernels/ops.py``), two
     launches a leaf whatever its layer count, with the branch scalars of
-    all blocks in one ``branch_scalars`` call."""
+    all blocks in one ``branch_scalars`` call. reduce_stats: path -> the
+    leaf's per-block sums over the whole leaf from this rank's shard's;
+    the sums are only separable on the kernels' route, so a shard takes it
+    (their plain versions for CPU tensors)."""
     stacked_axes = stacked_axes or {}
-    if use_kernel:
+    if reduce_stats is not None and not use_kernel \
+            and next(iter(delta.values())).device.type != "cpu":
+        raise ValueError("a shard's statistics are reduced on the kernels' "
+                         "route: use_kernel=True on the card")
+    if use_kernel or reduce_stats is not None:
         keys = list(delta)
         return dict(zip(keys, ops.heloco_correct_leaves(
             [delta[k] for k in keys], [momentum[k] for k in keys], h,
-            [int(stacked_axes.get(k, 0)) for k in keys])))
+            [int(stacked_axes.get(k, 0)) for k in keys],
+            reduce_stats=None if reduce_stats is None
+            else [reduce_stats[k] for k in keys])))
     out = {}
     for k, d in delta.items():
         nax = int(stacked_axes.get(k, 0))

@@ -69,6 +69,8 @@ class ArrivalCtx:
     stacked_axes: Optional[Mapping[str, int]] = None   # per-leaf path:
     # leading layer axes of each stacked leaf
     use_kernel: bool = False         # per-leaf path: HeLoCo through kernels
+    reduce_stats: Optional[Mapping[str, Callable]] = None   # per-leaf path,
+    # a rank's shards: leaf path -> its per-block sums over the whole leaf
     layout: Any = None               # packing.BlockLayout (packed path)
 
 
@@ -329,7 +331,8 @@ def _heloco_correct(m, ctx, delta, momentum):
     from repro_torch.core.heloco import block_correct
     return block_correct(delta, momentum, ctx.h,
                          stacked_axes=ctx.stacked_axes,
-                         use_kernel=ctx.use_kernel)
+                         use_kernel=ctx.use_kernel,
+                         reduce_stats=ctx.reduce_stats)
 
 
 def _heloco_packed_coeffs(m, ctx, dbuf, mbuf):

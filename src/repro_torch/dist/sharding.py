@@ -15,7 +15,17 @@ the reference's ``PartitionSpec``.
   shard_shape         a leaf's per-device shape under its spec (checks that
                       every placement divides)
   shardings_of        specs -> DTensor placements on a mesh
-  place               a tensor through its placements on a local mesh
+  place               a tensor (whole, or a DTensor) to its placements on
+                      a mesh of ranks: the reference's
+                      ``with_sharding_constraint``
+  place_tree          a tree of tensors at a tree of specs
+  place_caches        decode caches at ``cache_specs``' placements
+  gather              a DTensor back to the whole tensor (tests, checks)
+  from_shard          this rank's shard of a leaf as a DTensor
+  on_shards           a function of local tensors run under ``local_map``
+                      on each rank's shards (the sites with no DTensor
+                      sharding strategy; see ``models/``)
+  on_batch_shard      the same on the batch shard, weights gathered
   mesh_context        make a mesh the ambient one (``current_mesh``), as
                       the reference's ``jax.set_mesh``
 
@@ -221,6 +231,23 @@ def shard_shape(shape: Sequence[int], spec: Spec,
     return tuple(out)
 
 
+def replicated(x: torch.Tensor, device_mesh) -> Any:
+    """A whole tensor, the same on every rank, as a replicated DTensor on
+    ``device_mesh`` (each rank's local tensor is ``x``: no copy, no
+    collective)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x, device_mesh, placements_by_axis(device_mesh),
+                              run_check=False)
+
+
+def from_shard(local: torch.Tensor, spec: Spec, mesh) -> Any:
+    """This rank's even shard of a leaf under ``spec`` as a DTensor on
+    ``mesh`` (no collective: every rank passes its own shard)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh.device_mesh, placements(spec, mesh),
+                              run_check=False)
+
+
 def placements(spec: Spec, mesh) -> tuple:
     """One spec -> DTensor placements on ``mesh`` (``launch.mesh.Mesh``):
     one for each mesh axis, ``Shard(d)`` on the axes dim d names (a tuple
@@ -243,19 +270,154 @@ def shardings_of(specs: Any, mesh) -> Any:
     return tree_map(lambda _, s: placements(s, mesh), specs)
 
 
-def place(x: torch.Tensor, spec: Spec, mesh, name: str = "") -> torch.Tensor:
-    """``x`` (this device's shard) through its placements on ``mesh``: the
-    port's ``with_sharding_constraint``. The spec must divide ``x``'s dims
-    on the mesh's axis sizes; on a local mesh (a ``DeviceMesh`` behind it)
-    the tensor goes through ``DTensor.from_local`` with its placements and
-    comes back as the local tensor, which on a mesh of size 1 is ``x``
-    itself."""
-    shard_shape(x.shape, spec, mesh.axis_sizes, name)
+def place(x: torch.Tensor, spec: Spec, mesh, name: str = "", *,
+          even: bool = True) -> torch.Tensor:
+    """``x`` at its placements on ``mesh``: the port's
+    ``with_sharding_constraint``. A whole tensor (the same on every rank)
+    goes through ``distribute_tensor``, a DTensor through ``redistribute``;
+    either way the placements are ``placements(spec, mesh)``, and the
+    result is a DTensor. A whole tensor must be the same on every rank:
+    each rank cuts its own shard from it, with no collective (on a mesh of
+    one rank the shard is ``x`` itself, not a copy). On an abstract mesh
+    (no ``DeviceMesh``) ``x`` comes back as it is. ``even`` (parameters,
+    batches, caches) requires every placement to divide its dim
+    (``shard_shape``); without it (the activation pins) a dim that does
+    not divide is sharded unevenly, where the reference pads an
+    intermediate."""
+    if even:
+        shard_shape(x.shape, spec, mesh.axis_sizes, name)
     if mesh.device_mesh is None:
         return x
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    pl = placements(spec, mesh)
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh.device_mesh, pl)
+    if mesh.size == 1:
+        # the one shard is the whole tensor: no copy
+        return from_shard(x, spec, mesh)
+    # every rank holds the whole tensor: each keeps its own shard, with no
+    # collective
+    return distribute_tensor(x, mesh.device_mesh, pl, src_data_rank=None)
+
+
+def place_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every leaf of ``tree`` at its spec in ``specs`` (the same paths)."""
+    flat = tree_leaves(specs)
+    return tree_map(lambda path, x: place(x, flat[path], mesh, path), tree)
+
+
+def place_caches(caches: Any, mesh, *, batch_sharded: bool,
+                 data_axis: AxisName = "data") -> Any:
+    """Decode caches at ``cache_specs``' placements on ``mesh``, as the
+    reference's caller places them before decode: the stacked (L, B, S,
+    KV, D) leaves by the rule itself, a model's unstacked (B, S, KV, D)
+    ones as one layer of it. The recurrent families' states have no layout
+    there and raise, as the rule does."""
+    kw = dict(batch_sharded=batch_sharded, axis_sizes=mesh.axis_sizes,
+              data_axis=data_axis)
+
+    def one(path, x):
+        if x.dim() == 4:
+            layer = torch.empty((1,) + tuple(x.shape), device="meta")
+            spec = Spec(cache_specs({"x": layer}, **kw)["x"][1:])
+        else:
+            spec = cache_specs({"x": x}, **kw)["x"]
+        return place(x, spec, mesh, path)
+    return tree_map(one, caches)
+
+
+def is_placed(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (a placed step's tensor)."""
     from torch.distributed.tensor import DTensor
-    return DTensor.from_local(x, mesh.device_mesh, placements(spec, mesh),
-                              run_check=False).to_local()
+    return isinstance(x, DTensor)
+
+
+def gather(x: Any) -> Any:
+    """A DTensor's whole tensor on every rank (a collective); anything else
+    as it is."""
+    return x.full_tensor() if is_placed(x) else x
+
+
+def gather_tree(tree: Any) -> Any:
+    return tree_map(lambda _, x: gather(x), tree)
+
+
+def mesh_axes(x) -> Dict[str, Any]:
+    """A DTensor's placement on each axis of its mesh, by axis name."""
+    return dict(zip(x.device_mesh.mesh_dim_names, x.placements))
+
+
+def batch_axes_of(x) -> Tuple[str, ...]:
+    """The mesh axes over which a DTensor's leading (batch) dim is
+    sharded."""
+    from torch.distributed.tensor import Shard
+    return tuple(a for a, p in mesh_axes(x).items() if p == Shard(0))
+
+
+def placements_by_axis(device_mesh, shard: Optional[Mapping[str, int]] = None,
+                       partial: Sequence[str] = ()) -> tuple:
+    """Placements on ``device_mesh``: ``Shard(dim)`` on the axes ``shard``
+    maps, ``Partial()`` (a sum) on ``partial``, ``Replicate()`` on the
+    others."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    shard = shard or {}
+    return tuple(Shard(shard[a]) if a in shard else
+                 Partial() if a in partial else Replicate()
+                 for a in device_mesh.mesh_dim_names)
+
+
+def on_shards(fn: Callable, args: Sequence[Any], in_placements: Sequence,
+              out_placements, *, device_mesh,
+              in_grad_placements: Optional[Sequence] = None):
+    """``fn(*local tensors)`` under ``local_map``: each DTensor argument is
+    first redistributed to its entry of ``in_placements`` (None for an
+    argument that is not a tensor), ``fn`` runs on this rank's local
+    tensors, and its outputs come back as DTensors at ``out_placements``
+    (one entry per output, a tuple of one for a single output).
+    ``in_grad_placements`` names where an argument's gradient lies when it
+    is not the argument's own placement (a ``Partial`` sum over an axis on
+    which each rank used a part of a replicated input)."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=(None if in_grad_placements is None
+                                         else tuple(in_grad_placements)),
+                     device_mesh=device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def on_batch_shard(fn: Callable, x, weights: Mapping[str, Any], *,
+                   keep_batch: bool = True, sums: int = 0):
+    """``fn(x_local, weights)`` on this rank's batch shard of a placed
+    ``x`` (its batch axes kept, every other axis gathered) with the
+    ``weights`` gathered whole (``Replicate``: the collectives GSPMD might
+    place elsewhere). Returns ``fn``'s output at ``x``'s batch placement;
+    with ``sums`` > 0, ``fn`` returns ``(out, s_1, .., s_sums)`` and each
+    s_i comes back as a ``Partial`` sum over the batch axes. The weights'
+    gradients are such sums too. ``keep_batch=False`` gathers the batch as
+    well (a function whose rows do not part at the shard boundary)."""
+    dm = x.device_mesh
+    axes = batch_axes_of(x) if keep_batch else ()
+    x_pl = placements_by_axis(dm, {a: 0 for a in axes})
+    summed = placements_by_axis(dm, partial=axes)
+    whole = placements_by_axis(dm)
+    names = list(weights)
+
+    def local(xl, *ws):
+        return fn(xl, dict(zip(names, ws)))
+
+    n = len(names)
+    return on_shards(local, (x, *weights.values()), (x_pl,) + (whole,) * n,
+                     (x_pl,) + (summed,) * sums,
+                     device_mesh=dm,
+                     in_grad_placements=(x_pl,) + (summed,) * n)
+
+
+def batch_shards(x) -> int:
+    """How many shards a placed ``x``'s batch is cut into."""
+    dm = x.device_mesh
+    return math.prod(dm.size(dm.mesh_dim_names.index(a))
+                     for a in batch_axes_of(x))
 
 
 _AMBIENT: contextvars.ContextVar = contextvars.ContextVar("mesh",

@@ -16,7 +16,7 @@ elements flat, without the reference's zero padding.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,7 +29,9 @@ from repro_torch.kernels.packed import branch_scalars
 
 def heloco_correct_leaves(deltas: Sequence[torch.Tensor],
                           moms: Sequence[torch.Tensor], h: HeLoCoConfig,
-                          stacked_axes: Sequence[int]) -> List[torch.Tensor]:
+                          stacked_axes: Sequence[int], *,
+                          reduce_stats: Optional[Sequence[Callable]] = None
+                          ) -> List[torch.Tensor]:
     """Alg. 2 on many leaves through the kernels: one statistics launch per
     leaf, the branch scalars of every block at once on the device
     (``branch_scalars`` over the stacked (sum L, 3) stats, the same math as
@@ -39,13 +41,18 @@ def heloco_correct_leaves(deltas: Sequence[torch.Tensor],
     stacked_axes[i]: leading layer axes of leaf i; each layer is its own
     block, all of them in one launch of each kernel (the reference vmaps
     one launch per layer). Returns the corrected leaves in their dtypes.
+    ``reduce_stats[i](stats)``: leaf i's per-block sums over the whole
+    leaf, when ``deltas[i]`` is one rank's shard of it (a sum over the
+    ranks that hold its other shards).
     """
     us, vs, stats = [], [], []
-    for d, m, nax in zip(deltas, moms, stacked_axes):
+    for i, (d, m, nax) in enumerate(zip(deltas, moms, stacked_axes)):
         blocks = math.prod(d.shape[:nax])
         us.append(d.float().reshape(blocks, -1).contiguous())
         vs.append(m.float().reshape(blocks, -1).contiguous())
         stats.append(hk.block_stats(us[-1], vs[-1]))
+        if reduce_stats is not None:
+            stats[-1] = reduce_stats[i](stats[-1])
     cu, cv = branch_scalars(torch.cat(stats), h)
     out, first = [], 0
     for d, u, v in zip(deltas, us, vs):

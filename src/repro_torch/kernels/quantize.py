@@ -137,9 +137,10 @@ def quantize_2d(x: torch.Tensor, amax: Optional[torch.Tensor] = None
 
     The scale is ``max(amax, 1e-12) / 127``, computed by the kernel from
     ``amax`` on the device: by default ``absmax(x)`` (its own launch), as
-    the reference's ``quantize_2d`` does. A given (1,) fp32 ``amax`` is a
-    test seam and no production caller passes one: a smaller value forces
-    the clip, and the quantize sweep can be timed without the absmax."""
+    the reference's ``quantize_2d`` does. A given (1,) fp32 ``amax``: the
+    placed int8 exchange passes a shard's absmax reduced over the leaf's
+    other shards (``dist.steps.int8_roundtrip_leaf``), and the tests pass a
+    smaller value to force the clip or time the sweep without the absmax."""
     _check(x, torch.float32, "quantize_2d")
     if amax is None:
         amax = absmax(x)

@@ -28,7 +28,11 @@ compiled program. The port compiles nothing; ``lower_cell`` instead:
     pods; ``flops_per_device`` is ``flops_total / n_devices``, an even
     split that the record states.
     Where a step cannot run on meta tensors the record holds
-    ``flops_total: null`` and the reason;
+    ``flops_total: null`` and the reason. The plan's ``head_tp`` and
+    ``seq_parallel`` go into the config as the reference's activation
+    placements (``act_model_axis``, ``seq_parallel``): the steps apply
+    them on a mesh of ranks, and on these abstract meshes they place
+    nothing;
   * ``lower_outer_exchange`` records the pod-axis bytes per device of the
     arriving pseudo-gradient (fp32, or int8 and a scale) and of the
     look-ahead sent back.
@@ -112,10 +116,6 @@ FLOPS_COUNTED = (
     "operations only; one microbatch of one pod counted, times grad_accum "
     "and the pods")
 FLOPS_SPLIT = "even: flops_total / n_devices"
-PLAN_NOT_APPLIED = {
-    "head_tp": "activation placement: one device per mesh in the port",
-    "seq_parallel": "activation placement: one device per mesh in the port",
-}
 
 
 # --------------------------------------------------------------------------
@@ -312,8 +312,6 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, multi_pod: bool,
     rec = {
         "arch": arch, "shape": shape_name, "kind": shape.kind,
         "mesh": "multi" if multi_pod else "single", "plan": plan,
-        "plan_not_applied": {k: PLAN_NOT_APPLIED[k] for k in plan
-                             if k in PLAN_NOT_APPLIED},
         "n_devices": mesh.size, "axis_sizes": mesh.axis_sizes,
         "flops_total": total,
         "flops_per_device": None if total is None else total / mesh.size,

@@ -8,6 +8,12 @@ carries the SSM state (B, H, P, N) in fp32 where the reference runs a
 Pallas kernel here: every op is plain PyTorch, in the reference's dtypes
 and at its rounding points (the conv state is rounded to bf16 after a
 prefill and after every decode step, whatever the compute dtype).
+
+Placed (DTensor) activations: ``apply_mamba2`` is the ``local_map`` site
+(``sharding.on_batch_shard``): the causal conv's window over the sequence
+and the SSD chunk loop's carried state have no DTensor sharding strategy,
+so the mixer runs on each rank's batch shard, the whole sequence and its
+weights gathered.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Params, Shapes, causal_conv,
+                                      mixer_on_batch_shard, placed,
                                       rmsnorm_gated, softplus)
 
 State = Dict[str, torch.Tensor]          # {"ssm": (B,H,P,N) fp32,
@@ -155,7 +162,11 @@ def apply_mamba2(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """The Mamba2 mixer. x: (B,S,d). With ``state`` (decode, S = 1) the
     exact one-step recurrence from it; with ``return_state`` (prefill) the
     end-of-sequence state. Either returns {"ssm": (B,H,P,N) fp32, "conv":
-    (B,K-1,C) bf16} beside the output; None otherwise."""
+    (B,K-1,C) bf16} beside the output; None otherwise. A placed ``x`` runs
+    on each rank's batch shard (training only)."""
+    if placed(x):
+        return mixer_on_batch_shard(apply_mamba2, p, x, cfg, state,
+                                    return_state)
     dm = ssm_dims(cfg)
     dt_ = x.dtype
     bsz, s = x.shape[0], x.shape[1]

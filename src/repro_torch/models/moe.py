@@ -12,6 +12,12 @@ A Switch-style load-balance loss is returned beside the output.
 
 Top-k: ``jax.lax.top_k`` breaks ties toward the lower index; a stable
 descending sort does the same, where ``torch.topk`` promises no order.
+
+Placed (DTensor) activations: ``apply_moe`` is the ``local_map`` site
+(``sharding.on_batch_shard``). ``route``'s stable sort and the dispatch's
+``index_add`` have no DTensor sharding strategy, so the token groups run
+on each rank's batch shard (the whole batch when a group spans shards),
+with the router, the experts and the shared expert gathered.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Params, Shapes
+from repro_torch.models.layers import Params, Shapes, placed
 
 
 def moe_shapes(cfg: ModelConfig) -> Shapes:
@@ -113,15 +119,32 @@ def _group_moe(p: Params, xg: torch.Tensor, cfg: ModelConfig
     return out, aux
 
 
+def _groups(p: Params, x: torch.Tensor, cfg: ModelConfig, gsz: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, s, d = x.shape
+    outs, auxs = zip(*(_group_moe(p, xg, cfg)
+                       for xg in x.reshape(b * s // gsz, gsz, d)))
+    return torch.stack(outs).reshape(b, s, d), torch.stack(auxs).mean()
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux): token groups of ``group_size`` (or all
-    tokens when fewer), aux the mean over groups."""
+    tokens when fewer), aux the mean over groups. A placed ``x`` runs on
+    each rank's batch shard with the MoE's weights gathered (the routing's
+    stable sort and the dispatch's scatter have no DTensor sharding
+    strategy), when the shard holds whole groups; else on the whole batch.
+    The aux is then the mean of the shards' means."""
+    from repro_torch.dist.sharding import batch_shards, on_batch_shard
     b, s, d = x.shape
     t = b * s
     gsz = min(cfg.moe.group_size, t)
     if t % gsz:
         raise ValueError(f"{t} tokens are not whole groups of {gsz}")
-    outs, auxs = zip(*(_group_moe(p, xg, cfg)
-                       for xg in x.reshape(t // gsz, gsz, d)))
-    return torch.stack(outs).reshape(b, s, d), torch.stack(auxs).mean()
+    if not placed(x):
+        return _groups(p, x, cfg, gsz)
+    n = batch_shards(x)
+    keep = b % n == 0 and (b // n * s) % gsz == 0
+    out, aux = on_batch_shard(lambda xl, w: _groups(w, xl, cfg, gsz), x, p,
+                              keep_batch=keep, sums=1)
+    return out, (aux / n if keep and n > 1 else aux)

@@ -30,6 +30,13 @@ in groups of ``max(remat_group, 1)``, ``blocks_list`` layers one by one,
 each hybrid super block and each xLSTM block as one checkpoint. A
 checkpoint keeps only its input and recomputes its forward in the
 backward; it changes no value.
+
+Placed (DTensor) parameters and batches run the same code as DTensor
+programs: ``layers.constrain_acts`` pins the residual stream where the
+reference pins it (after the embedding, after each attention layer inside
+its remat group, after each Mamba2 unit and the shared block inside a
+super block, after each xLSTM block), and the modules' ``local_map``
+sites run what has no DTensor sharding strategy on each rank's shard.
 """
 from __future__ import annotations
 
@@ -46,9 +53,9 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (Params, Shapes, apply_mlp, apply_norm,
-                                      cross_entropy, dtype_of, embed_shapes,
-                                      embed_tokens, lm_logits, mlp_shapes,
-                                      norm_shapes)
+                                      constrain_acts, cross_entropy, dtype_of,
+                                      embed_shapes, embed_tokens, lm_logits,
+                                      mlp_shapes, norm_shapes, placed)
 
 Cache = Dict[str, torch.Tensor]          # {"k", "v"}: (B, T, KV, D), or
 Caches = object                          # stacked (L, B, T, KV, D); or by
@@ -116,7 +123,7 @@ def apply_attn_block(p: Dict[str, Params], x: torch.Tensor, cfg: ModelConfig,
     h = apply_norm(p["norm1"], x, cfg)
     q, k, v = attn_lib.qkv_project(p["attn"], h, cfg, positions)
     ctx = attn_lib.attend(q, k, v, causal=cfg.causal, q_chunk=q_chunk)
-    return _mix(p, x, h, attn_lib.attn_output(p["attn"], ctx), cfg)
+    return _mix(p, x, h, attn_lib.attn_output(p["attn"], ctx, cfg), cfg)
 
 
 def prefill_attn_block(p: Dict[str, Params], x: torch.Tensor,
@@ -128,7 +135,7 @@ def prefill_attn_block(p: Dict[str, Params], x: torch.Tensor,
     q, k, v = attn_lib.qkv_project(p["attn"], h, cfg, positions)
     ctx = attn_lib.prefill_attend(q, k, v, causal=cfg.causal)
     attn_lib.cache_write(cache, k, v, 0)
-    return _mix(p, x, h, attn_lib.attn_output(p["attn"], ctx), cfg)[0]
+    return _mix(p, x, h, attn_lib.attn_output(p["attn"], ctx, cfg), cfg)[0]
 
 
 def decode_attn_block(p: Dict[str, Params], x: torch.Tensor, cfg: ModelConfig,
@@ -294,7 +301,8 @@ class Model:
                              cfg)
             if cfg.frontend.kind == "vision":
                 x = torch.cat([batch["patches"].to(dtype_of(cfg)), x], dim=1)
-        return x, torch.arange(x.shape[1], device=x.device)
+        return (constrain_acts(x, cfg),
+                torch.arange(x.shape[1], device=x.device))
 
     # ---------------- train forward ----------------
 
@@ -322,16 +330,18 @@ class Model:
 
             def super_block(xc, i):
                 for _, _, up in units[i * per:(i + 1) * per]:
-                    xc, _ = self._recurrent(up, xc, "mamba")
-                return apply_attn_block(shared, xc, cfg, positions,
-                                        q_chunk)[0]
+                    xc = constrain_acts(self._recurrent(up, xc, "mamba")[0],
+                                        cfg)
+                return constrain_acts(apply_attn_block(
+                    shared, xc, cfg, positions, q_chunk)[0], cfg)
             for i in range(self.n_super):
                 x = self._remat(super_block, x, i)
             return x, None
         if cfg.family == "ssm":
             for p, kind in zip(self._layers(params), self.xlstm_kinds):
-                x = self._remat(lambda xc, p=p, kind=kind:
-                                self._recurrent(p, xc, kind)[0], x)
+                x = constrain_acts(self._remat(
+                    lambda xc, p=p, kind=kind: self._recurrent(p, xc, kind)[0],
+                    x), cfg)
             return x, None
         layers = list(self._layers(params))
         k = max(cfg.remat_group, 1) if self._stacked else 1
@@ -344,6 +354,7 @@ class Model:
             through, summed layer by layer as without groups."""
             for p in layers[i * k:(i + 1) * k]:
                 xc, aux = apply_attn_block(p, xc, cfg, positions, q_chunk)
+                xc = constrain_acts(xc, cfg)
                 if aux is not None:
                     aux_sum = aux if aux_sum is None else aux_sum + aux
             return xc, aux_sum
@@ -472,6 +483,12 @@ class Model:
         x, positions = self._embed(params, batch)
         caches = self.init_caches(x.shape[0], cache_len or x.shape[1],
                                   x.device)
+        if placed(x):
+            # zeros, the same on every rank: replicated until the step
+            # places them by cache_specs
+            from repro_torch.dist.sharding import replicated, tree_map
+            caches = tree_map(lambda _, t: replicated(t, x.device_mesh),
+                              caches)
         if cfg.family == "hybrid":
             x = self._hybrid_serve(params, x, caches, positions, None)
         elif cfg.family == "ssm":

@@ -11,6 +11,13 @@ The sLSTM runs a Python loop over time. The reference has no Pallas kernel
 here: every op is plain PyTorch, in the reference's dtypes. The conv
 window is rounded to bf16 after a prefill only; a decode step returns it
 in the compute dtype.
+
+Placed (DTensor) activations: ``apply_mlstm_block`` and
+``apply_slstm_block`` are the ``local_map`` sites
+(``sharding.on_batch_shard``): the conv window, the mLSTM chunk loop and
+the sLSTM loop over time have no DTensor sharding strategy, so each mixer
+runs on each rank's batch shard, the whole sequence and its weights
+gathered.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Params, Shapes, causal_conv, gelu,
-                                      log_sigmoid)
+                                      log_sigmoid, mixer_on_batch_shard,
+                                      placed)
 
 NEG = -1e30
 
@@ -199,7 +207,11 @@ def apply_mlstm_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """The mLSTM block's mixer (pre-norm residual around it). x: (B,S,d).
     With ``state`` (decode, S = 1): {"mlstm": (C, n, m), "conv"} in and
     out, the conv in x's dtype; with ``return_state`` (prefill) the
-    end-of-sequence state, the conv in bf16."""
+    end-of-sequence state, the conv in bf16. A placed ``x`` runs on each
+    rank's batch shard (training only)."""
+    if placed(x):
+        return mixer_on_batch_shard(apply_mlstm_block, p, x, cfg, state,
+                                    return_state)
     dm = mlstm_dims(cfg)
     h, hd = dm["n_heads"], dm["head_dim"]
     dt = x.dtype
@@ -264,7 +276,11 @@ def apply_slstm_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """The sLSTM block's mixer with its post-FFN. x: (B,S,d). With
     ``state`` (decode, S = 1): {"slstm": (c, n, m, h), "conv"} in and out,
     the conv in x's dtype; with ``return_state`` (prefill) the
-    end-of-sequence state, the conv in bf16."""
+    end-of-sequence state, the conv in bf16. A placed ``x`` runs on each
+    rank's batch shard (training only)."""
+    if placed(x):
+        return mixer_on_batch_shard(apply_slstm_block, p, x, cfg, state,
+                                    return_state)
     dt = x.dtype
     b, s, d = x.shape
     xc, new_conv = causal_conv(x, p["conv_w"], p["conv_b"],

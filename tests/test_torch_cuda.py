@@ -1337,9 +1337,10 @@ def test_grad_accum_4_against_1_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_multipod_pods_stay_apart_bit_for_bit_on_the_card(cuda):
-    """Two pods inside a one-card mesh with the specs placed: identical pods
-    end bit for bit identical, different batches part, pod 0 is the single
-    step's bits; the process group is gone after the mesh."""
+    """Two pods inside a one-card mesh with the specs placed (DTensors on
+    the card, gathered for the checks): identical pods end bit for bit
+    identical, different batches part, pod 0 is the single step's bits;
+    the process group is gone after the mesh."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InnerOptConfig
     from repro_torch.dist import sharding as shd
@@ -1360,13 +1361,17 @@ def test_multipod_pods_stay_apart_bit_for_bit_on_the_card(cuda):
         same = {"tokens": torch.stack([tok[0], tok[0]]),
                 "labels": torch.stack([tok[0], tok[0]])}
         ns, _ = step(steps.stack_pods([st, st]), same)
-        for k, v in ns.params.items():
+        for k, v in shd.gather_tree(ns.params).items():
             assert torch.equal(v[0], v[1]), k
         nd, losses = step(steps.stack_pods([st, st]),
                           {"tokens": tok, "labels": tok})
         single, loss0 = steps.make_train_step(cfg, inner,
                                               param_pspecs=pspecs)(
             st, {"tokens": tok[0], "labels": tok[0]})
+        ns = ns._replace(params=shd.gather_tree(ns.params))
+        nd = nd._replace(params=shd.gather_tree(nd.params))
+        single = single._replace(params=shd.gather_tree(single.params))
+        losses, loss0 = shd.gather(losses), shd.gather(loss0)
     assert not torch.distributed.is_initialized()
     assert torch.equal(losses[0], loss0)
     assert any(not torch.equal(v[0], v[1]) for v in nd.params.values())

@@ -28,6 +28,7 @@
     round trip bit-equal to the reference's ``_int8_roundtrip_leaf``, the
     refusal of methods with their own schedule.
 """
+import dataclasses
 import functools
 
 import jax
@@ -75,8 +76,8 @@ def _jspecs(tree):
 
 
 def _np(x):
-    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
-                      jnp.asarray(x, jnp.float32), np.float32)
+    return np.asarray(shd.gather(x).float() if isinstance(x, torch.Tensor)
+                      else jnp.asarray(x, jnp.float32), np.float32)
 
 
 @functools.cache
@@ -218,8 +219,13 @@ def test_meshes_and_placements():
         with tmesh.mesh_context(lm):
             assert tmesh.current_mesh() is lm
             x = torch.arange(12.0).reshape(3, 4)
-            assert shd.place(x, shd.Spec(("data", "model")), lm) \
-                .data_ptr() == x.data_ptr()
+            placed = shd.place(x, shd.Spec(("data", "model")), lm)
+            # a DTensor whose one shard is x itself: no copy, no collective
+            assert shd.is_placed(placed)
+            assert placed.to_local().data_ptr() == x.data_ptr()
+            assert placed.placements == shd.placements(
+                shd.Spec(("data", "model")), lm)
+            assert torch.equal(shd.gather(placed), x)
         assert tmesh.current_mesh() is None
     assert not torch.distributed.is_initialized()
 
@@ -297,11 +303,12 @@ def test_train_step_matches_the_reference(arch):
             cfg, inner, grad_accum=2,
             param_pspecs=shd.param_specs(params, axis_sizes=lm.axis_sizes))
         state, loss = step(steps.init_train_state(params), _tt(batch))
-    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(shd.gather(loss).item(), float(jloss),
+                               rtol=1e-5)
     assert state.step == 1 and state.opt.count == 1
     jmu = {k: np.asarray(v) for k, v in _jflat(jstate.opt.mu).items()}
     for k, v in jmu.items():
-        np.testing.assert_allclose(state.opt.mu[k].numpy(), v, rtol=0,
+        np.testing.assert_allclose(_np(state.opt.mu[k]), v, rtol=0,
                                    atol=1e-4 * np.abs(v).max() + 1e-12,
                                    err_msg=k)
     check_step(_np_tree(state.params), {k: np.asarray(v) for k, v in
@@ -352,12 +359,16 @@ def test_multipod_step_keeps_pods_apart_and_matches_the_reference():
                                               param_pspecs=pspecs)
         st0 = steps.init_train_state(params)
         ns, _ = step(steps.stack_pods([st0, st0]), _tt(same))
-        for k, v in ns.params.items():
+        for k, v in shd.gather_tree(ns.params).items():
             assert torch.equal(v[0], v[1]), k
         nd, losses = step(steps.stack_pods([st0, st0]), _tt(diff))
         single, loss0 = steps.make_train_step(
             cfg, inner, param_pspecs=pspecs)(
             st0, {k: torch.from_numpy(v[0]) for k, v in diff.items()})
+        nd = nd._replace(params=shd.gather_tree(nd.params),
+                         opt=nd.opt._replace(mu=shd.gather_tree(nd.opt.mu)))
+        single = single._replace(params=shd.gather_tree(single.params))
+        losses, loss0 = shd.gather(losses), shd.gather(loss0)
     last = list(nd.params)[-1]
     assert not torch.allclose(nd.params[last][0], nd.params[last][1])
     assert losses.shape == (2,) and torch.equal(losses[0], loss0)
@@ -551,3 +562,42 @@ def test_steps_need_an_ambient_mesh_for_their_specs():
     tok = torch.zeros((2, S), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="mesh_context"):
         step(steps.init_train_state(params), {"tokens": tok, "labels": tok})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_pods_stay_bit_equal_at_four_intra_op_threads(dtype):
+    """ROADMAP C7: two pods of the same bits and batch after one multi-pod
+    step at 4 torch threads (granite-moe at smoke width, 4 x 128 tokens),
+    unplaced and placed on the one-card mesh. The indexed gather's
+    backward parted them in ``embed/tok``: on the CPU its index_put_ adds a
+    repeated token's rows in a thread-dependent order (the embedding's
+    backward adds them in a fixed one)."""
+    cfg = dataclasses.replace(
+        configs.reduced(configs.get_config("granite-moe-1b-a400m")),
+        compute_dtype=dtype)
+    params = Model(cfg).init(torch.Generator().manual_seed(1), "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (4, 128), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(0))
+    same = {"tokens": torch.stack([tok, tok]),
+            "labels": torch.stack([torch.roll(tok, -1, 1)] * 2)}
+    inner = InnerOptConfig(**INNER)
+    st0 = steps.init_train_state(params)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        ns, losses = steps.make_multipod_train_step(cfg, inner, None)(
+            steps.stack_pods([st0, st0]), same)
+        with tmesh.local_mesh("cpu") as lm, tmesh.mesh_context(lm):
+            pns, plosses = steps.make_multipod_train_step(
+                cfg, inner, lm, param_pspecs=shd.param_specs(
+                    params, axis_sizes=lm.axis_sizes))(
+                steps.stack_pods([st0, st0]), same)
+            pns = shd.gather_tree(pns.params)
+            plosses = shd.gather(plosses)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(losses[0], losses[1])
+    assert torch.equal(plosses, losses)
+    for k, v in ns.params.items():
+        assert torch.equal(v[0], v[1]), k
+        assert torch.equal(pns[k], v), k

@@ -24,8 +24,9 @@
     parameters' own storage not counted) are fewer bytes than without;
   * ``dist.steps.make_train_step(q_chunk=8)`` against the reference's on
     its one-device mesh, in tests/test_torch_dist.py's bands;
-  * the dry-run applies the plan: a train cell's ``plan_not_applied``
-    names neither ``q_chunk`` nor ``remat_group``, and with remat the
+  * the dry-run applies the plan: a train cell with ``remat_group``,
+    ``head_tp`` and ``seq_parallel`` has no ``plan_not_applied`` field and
+    its config carries them, and with remat the
     count of full-width qwen2-7b ``train_4k`` (meta tensors, nothing
     allocated) exceeds the count without it by exactly the forward the
     checkpoints run again.
@@ -353,10 +354,12 @@ def test_train_step_with_q_chunk_matches_the_reference():
         state, loss = step(steps.init_train_state(params),
                            {k: torch.from_numpy(v) for k, v in
                             batch.items()})
-    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(shd.gather(loss).item(), float(jloss),
+                               rtol=1e-5)
     jmu = {k: np.asarray(v) for k, v in _jflat(jstate.opt.mu).items()}
     for k, v in jmu.items():
-        np.testing.assert_allclose(state.opt.mu[k].numpy(), v, rtol=0,
+        np.testing.assert_allclose(shd.gather(state.opt.mu[k]).numpy(), v,
+                                   rtol=0,
                                    atol=1e-4 * np.abs(v).max() + 1e-12,
                                    err_msg=k)
     check_step(_np_tree(state.params), {k: np.asarray(v) for k, v in
@@ -371,11 +374,20 @@ def test_the_dry_run_applies_q_chunk_and_remat_group():
     rec = dryrun.lower_cell("qwen2-7b", "train_4k",
                             tmesh.make_production_mesh(), multi_pod=False,
                             cfg=cfg, overrides={"remat_group": 2,
-                                                "head_tp": True})
+                                                "head_tp": True,
+                                                "seq_parallel": True})
     assert rec["plan"] == {"grad_accum": 4, "q_chunk": 512,
-                           "remat_group": 2, "head_tp": True}
-    assert set(rec["plan_not_applied"]) == {"head_tp"}
-    assert set(dryrun.PLAN_NOT_APPLIED) == {"head_tp", "seq_parallel"}
+                           "remat_group": 2, "head_tp": True,
+                           "seq_parallel": True}
+    # the steps apply head_tp and seq_parallel (the activation placements):
+    # no knob of the plan is left unapplied, and the cell's config carries
+    # them as the reference's does
+    assert "plan_not_applied" not in rec
+    assert not hasattr(dryrun, "PLAN_NOT_APPLIED")
+    planned = dryrun._planned(cfg, rec["plan"])
+    assert planned.act_batch_axes == ("data",)
+    assert planned.act_model_axis == "model" and planned.seq_parallel
+    assert planned.remat_group == 2
 
 
 def test_remat_counts_the_layers_forward_again_at_full_width():
