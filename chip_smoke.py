@@ -242,6 +242,7 @@ no ``src/repro_torch``, it prints why to stderr and exits 3.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -3818,23 +3819,38 @@ def dist_placed_train(torch, steps, shd, mesh, pspecs, state, batch, inner,
                       ga, run, cfgs):
     """(f) the placed train step on the one-card mesh against (b)'s
     unplaced runs ``run[(name, n)]``: bit for bit, fp32 and bf16 at
-    grad_accum 1 and bf16 at ``ga``; then the bf16 step's seconds placed
-    and unplaced, each the second call of its kind in turns."""
+    grad_accum 1 and bf16 at ``ga``; the fp32 step again under the
+    collective recorder, bit for bit, with its counts by kind (none on a
+    world of one); then the bf16 step's seconds placed and unplaced, each
+    the second call of its kind in turns."""
+    from repro_torch.utils.collectives import (CollectiveRecorder,
+                                               collective_stats)
     out = {}
-    for name, n in (("fp32", 1), ("bf16", 1), ("bf16", ga)):
-        got, loss = steps.make_train_step(
-            dist_plan_cfg(cfgs[name]), inner, grad_accum=n,
-            param_pspecs=pspecs)(state, batch)
+    # the last case is the fp32 step once more under the collective
+    # recorder (the dry-run's count): a world of one runs none, every axis
+    # having one rank, and the recorder keeps the bits
+    rec = CollectiveRecorder()
+    for name, n, mode in (("fp32", 1, None), ("bf16", 1, None),
+                          ("bf16", ga, None), ("fp32", 1, rec)):
+        tag = f"{name}_grad_accum_{n}" + ("_recorded" if mode else "")
+        with mode or contextlib.nullcontext():
+            got, loss = steps.make_train_step(
+                dist_plan_cfg(cfgs[name]), inner, grad_accum=n,
+                param_pspecs=pspecs)(state, batch)
         want, wloss = run[name, n]
         assert all(shd.is_placed(v) for v in got.params.values())
-        assert torch.equal(shd.gather(loss), wloss), f"(f) {name} loss"
+        assert torch.equal(shd.gather(loss), wloss), f"(f) {tag} loss"
         for k, v in want.params.items():
             assert torch.equal(shd.gather(got.params[k]), v), \
-                f"(f) {name} grad_accum={n} parameter {k}"
+                f"(f) {tag} parameter {k}"
             assert torch.equal(shd.gather(got.opt.mu[k]), want.opt.mu[k]), \
-                f"(f) {name} grad_accum={n} first moment {k}"
-        out[f"{name}_grad_accum_{n}"] = "bit-equal"
+                f"(f) {tag} first moment {k}"
+        out[tag] = "bit-equal"
         del got
+    counts = {k: v["count"] for k, v in collective_stats(
+        rec.records).items()}
+    assert not rec.records, f"(f) collectives on the one-card mesh: {counts}"
+    out["recorded_collectives"] = counts
     secs = {"placed": [], "unplaced": []}
     placed = steps.make_train_step(dist_plan_cfg(cfgs["bf16"]), inner,
                                    param_pspecs=pspecs)

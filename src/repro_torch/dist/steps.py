@@ -305,8 +305,11 @@ def make_multipod_train_step(cfg: ModelConfig, inner: InnerOptConfig, mesh,
                  for name, tree in (("params", state.params),
                                     ("mu", state.opt.mu),
                                     ("nu", state.opt.nu))}
+        # a pod's batch specs from the shapes alone: indexing a pod-placed
+        # batch would gather it over ``pod``
         bspecs = shd.tree_leaves(shd.batch_specs(
-            {k: v[0] for k, v in batch.items()},
+            {k: torch.empty(v.shape[1:], device="meta")
+             for k, v in batch.items()},
             batch_axes=_batch_axes(cfg, sub)))
         lbatch = {k: _pod_local(v, bspecs[k], amb) for k, v in batch.items()}
         outs, losses = {"params": [], "mu": [], "nu": []}, []

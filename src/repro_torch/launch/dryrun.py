@@ -33,12 +33,33 @@ compiled program. The port compiles nothing; ``lower_cell`` instead:
     placements (``act_model_axis``, ``seq_parallel``): the steps apply
     them on a mesh of ranks, and on these abstract meshes they place
     nothing;
+  * records ``collectives`` (per kind: count, result bytes, wire bytes),
+    ``collective_group_sizes`` and ``wire_bytes_per_device``, the
+    reference's fields, from the program the port runs: inside
+    ``launch.mesh.abstract_world`` (a fake world of the mesh's 256 or 512
+    ranks in this process, as rank 0), the cell's step is built as
+    ``dist/steps.py`` builds it for a mesh of ranks, its arguments made
+    DTensors at their placements (meta shards, ``DTensor.from_local``: no
+    collective, as the reference's arguments arrive placed through
+    ``in_shardings``), and one whole step runs under
+    ``utils.collectives.CollectiveRecorder``: every microbatch's forward
+    and backward and the AdamW update (the multi-pod step as rank 0, on
+    its pod's ("data", "model") submesh); prefill on CPU fake tensors, as
+    for its flops. The per-kind wire estimates are the reference's
+    (``utils.collectives``). The count is of collectives executed, where
+    the reference counts HLO instructions, a while loop's body once
+    (``collectives_counted`` says so); where the step cannot run on
+    abstract tensors the fields are null and ``collectives_reason`` holds
+    why;
   * ``lower_outer_exchange`` records the pod-axis bytes per device of the
-    arriving pseudo-gradient (fp32, or int8 and a scale) and of the
-    look-ahead sent back.
+    arriving pseudo-gradient in its modelled wire format (fp32, or int8
+    and a scale), and of the look-ahead sent back; and the collectives of
+    the placed exchange, which broadcasts the pseudo-gradient's fp32
+    shards over ``pod``, as the reference's program moves them.
 
-The fields the reference reads from XLA's compiled program are not
-estimated: each is named under ``not_modelled`` with the reason.
+The fields the reference reads from XLA's compiled program that have no
+counterpart here (temporary and code bytes, XLA's cost and memory
+analyses) are named under ``not_modelled`` with the reason.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
         [--shape S] [--mesh single|multi|both] [--out results/torch_dryrun]
@@ -52,6 +73,7 @@ is refused. Nothing is set in the environment at import.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -65,13 +87,17 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs import ASSIGNED, SHAPES, get_config
-from repro_torch.configs.base import (HeLoCoConfig, ModelConfig,
-                                      ShapeConfig, shape_applicable)
+from repro_torch.configs.base import (HeLoCoConfig, InnerOptConfig,
+                                      ModelConfig, ShapeConfig,
+                                      shape_applicable)
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import Spec
 from repro_torch.launch.inputs import abstract_params, input_specs
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import (Mesh, abstract_world,
+                                     make_production_mesh, mesh_context)
 from repro_torch.models import build_model
+from repro_torch.optim.adamw import AdamState
+from repro_torch.utils import collectives as coll
 
 ROOT = Path(__file__).resolve().parents[3]
 DEFAULT_OUT = "results/torch_dryrun"
@@ -103,8 +129,7 @@ def plan_for(arch: str, shape: ShapeConfig, overrides: Optional[Dict] = None
 _HLO = "read from XLA's compiled program by the reference; the port " \
        "compiles no program"
 NOT_MODELLED = {
-    "collectives": _HLO, "collective_group_sizes": _HLO,
-    "wire_bytes_per_device": _HLO, "temp_bytes": _HLO, "code_bytes": _HLO,
+    "temp_bytes": _HLO, "code_bytes": _HLO,
     "bytes_per_device": "XLA's cost analysis in the reference",
     "output_bytes": "XLA's memory analysis in the reference",
     "alias_bytes": "XLA's memory analysis in the reference",
@@ -116,6 +141,12 @@ FLOPS_COUNTED = (
     "operations only; one microbatch of one pod counted, times grad_accum "
     "and the pods")
 FLOPS_SPLIT = "even: flops_total / n_devices"
+COLLECTIVES_COUNTED = (
+    "executed in one step by rank 0 of a fake world of {n} ranks; the "
+    "reference counts each HLO instruction once, a while loop's body "
+    "(scanned layers, the grad-accum loop) once. The world's mesh is a CPU "
+    "mesh, on which DTensor runs a Shard-to-Shard redistribution as an "
+    "all-gather and a chunk (one all-to-all on a CUDA mesh)")
 
 
 # --------------------------------------------------------------------------
@@ -266,6 +297,108 @@ def step_flops(cfg: ModelConfig, shape: ShapeConfig, plan: Dict[str, Any]):
 
 
 # --------------------------------------------------------------------------
+# Collectives counted on a fake world
+# --------------------------------------------------------------------------
+
+def _placed(x: torch.Tensor, spec: Spec, mesh: Mesh, device) -> Any:
+    """A tensor of ``x``'s shape and dtype at ``spec``'s placements on
+    ``mesh``: this rank's shard, fresh on ``device``, as a DTensor (no
+    collective)."""
+    from torch.distributed.tensor import DTensor
+    local = shd.shard_shape(x.shape, spec, mesh.axis_sizes)
+    return DTensor.from_local(
+        torch.empty(local, dtype=x.dtype, device=device), mesh.device_mesh,
+        shd.placements(spec, mesh), run_check=False,
+        shape=torch.Size(x.shape), stride=torch.empty(
+            x.shape, device="meta").stride())
+
+
+def abstract_placed(tree: Any, specs: Any, mesh: Mesh, device) -> Any:
+    """Every leaf of ``tree`` as ``_placed`` at its spec in ``specs``."""
+    flat = shd.tree_leaves(specs)
+    return shd.tree_map(lambda path, x: _placed(x, flat[path], mesh, device),
+                        tree)
+
+
+def _abstract_mode(fake: bool):
+    """(a context, the device of the abstract tensors made in it): CPU
+    fake tensors (``FakeTensorMode``) where the program takes the kernels'
+    plain versions, which run only for CPU tensors; else meta tensors."""
+    if not fake:
+        return contextlib.nullcontext(), "meta"
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return FakeTensorMode(), "cpu"
+
+
+def count_collectives(fn: Callable[[], Callable[[], Any]]):
+    """(records, None) of the step that ``fn()`` builds, run under
+    ``CollectiveRecorder`` (what ``fn`` itself runs, the placement of the
+    arguments, is not recorded), or (None, the reason) when it cannot
+    run on abstract tensors."""
+    try:
+        run = fn()
+        with coll.CollectiveRecorder() as rec:
+            run()
+    except Exception as e:   # the record keeps what stopped the count
+        return None, f"{type(e).__name__}: {e}"
+    return rec.records, None
+
+
+def step_collectives(cfg: ModelConfig, shape: ShapeConfig,
+                     plan: Dict[str, Any], mesh: Mesh, *, multi_pod: bool,
+                     attn_style: str = "tp"):
+    """(records, None) or (None, reason): the collectives of one whole step
+    of the cell's placed program on ``mesh``, as rank 0 of a fake world of
+    its size (``abstract_world``), its arguments at ``cell_arguments``'
+    placements before the count: a train step's every microbatch, forward,
+    backward and AdamW update (the multi-pod step on rank 0's pod), a
+    prefill (on CPU fake tensors), one decode step at the cache's last
+    position."""
+    from repro_torch.dist import steps
+    mode, device = _abstract_mode(fake=shape.kind == "prefill")
+    with abstract_world(mesh) as world, mesh_context(world), mode:
+        def build():
+            args = {name: abstract_placed(tree, specs, world, device)
+                    for name, (tree, specs) in cell_arguments(
+                        cfg, shape, world, multi_pod=multi_pod,
+                        attn_style=attn_style).items()}
+            if shape.kind == "prefill":
+                step = steps.make_prefill_step(cfg, cache_len=shape.seq_len)
+                return lambda: step(args["params"], args["batch"])
+            if shape.kind == "decode":
+                step = steps.make_decode_step(cfg)
+                return lambda: step(args["params"], args["token"],
+                                    args["caches"], shape.seq_len - 1)
+            pspecs = shd.param_specs(abstract_params(cfg),
+                                     axis_sizes=world.axis_sizes,
+                                     attn_style=attn_style)
+            kw = dict(grad_accum=int(plan["grad_accum"]),
+                      q_chunk=int(plan["q_chunk"]), param_pspecs=pspecs)
+            step = (steps.make_multipod_train_step(
+                cfg, InnerOptConfig(), world, **kw) if multi_pod else
+                steps.make_train_step(cfg, InnerOptConfig(), **kw))
+            state = steps.TrainState(args["params"], AdamState(
+                args["opt.mu"], args["opt.nu"], 0), 0)
+            return lambda: step(state, args["batch"])
+        return count_collectives(build)
+
+
+def collective_fields(records, n_devices: int) -> Dict[str, Any]:
+    """The reference's three fields from a count's records, and what was
+    counted."""
+    stats = coll.collective_stats(records)
+    return {"collectives": stats,
+            "collective_group_sizes": coll.group_size_histogram(records),
+            "wire_bytes_per_device": coll.total_wire_bytes(stats),
+            "collectives_counted": COLLECTIVES_COUNTED.format(n=n_devices)}
+
+
+def _uncounted_fields(why: str) -> Dict[str, Any]:
+    return {"collectives": None, "collective_group_sizes": None,
+            "wire_bytes_per_device": None, "collectives_reason": why}
+
+
+# --------------------------------------------------------------------------
 # Cells
 # --------------------------------------------------------------------------
 
@@ -293,20 +426,30 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, multi_pod: bool,
                cfg: Optional[ModelConfig] = None,
                memo: Optional[Dict] = None) -> Dict[str, Any]:
     """One cell's record on the abstract ``mesh`` (see the module's
-    docstring). ``memo`` keeps each (config, shape, plan)'s per-pod count,
-    so the multi-pod cell reuses its single-pod twin's."""
+    docstring). ``memo`` keeps each (config, shape, plan)'s per-pod flops,
+    so the multi-pod cell reuses its single-pod twin's. ``count_seconds``
+    holds the seconds of each group of fields."""
     shape = SHAPES[shape_name]
     plan = plan_for(arch, shape, overrides)
     cfg = _planned(cfg or get_config(arch), plan)
+    style = "dp" if plan.get("attn_dp") else "tp"
+    seconds = {}
     t0 = time.perf_counter()
     args = argument_bytes(cfg, shape, mesh, multi_pod=multi_pod,
-                          attn_style="dp" if plan.get("attn_dp") else "tp")
+                          attn_style=style)
+    seconds["argument_bytes"] = time.perf_counter() - t0
     key = json.dumps([dataclasses.asdict(cfg), shape_name, plan],
                      sort_keys=True, default=str)
     memo = {} if memo is None else memo
+    t0 = time.perf_counter()
     if key not in memo:
         memo[key] = step_flops(cfg, shape, plan)
     flops, why = memo[key]
+    seconds["flops"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records, cwhy = step_collectives(cfg, shape, plan, mesh,
+                                     multi_pod=multi_pod, attn_style=style)
+    seconds["collectives"] = time.perf_counter() - t0
     pods = 2 if multi_pod and shape.kind == "train" else 1
     total = None if flops is None else flops * pods
     rec = {
@@ -316,10 +459,12 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, multi_pod: bool,
         "flops_total": total,
         "flops_per_device": None if total is None else total / mesh.size,
         "flops_split": FLOPS_SPLIT,
+        **(_uncounted_fields(cwhy) if records is None
+           else collective_fields(records, mesh.size)),
         "memory": {"argument_bytes": sum(args.values()),
                    "argument_bytes_by_input": args},
         "not_modelled": NOT_MODELLED,
-        "count_seconds": time.perf_counter() - t0,
+        "count_seconds": seconds,
     }
     if total is None:
         rec["flops_reason"] = why
@@ -328,25 +473,56 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, multi_pod: bool,
     return rec
 
 
+def exchange_collectives(cfg: ModelConfig, mesh: Mesh, *,
+                         compress_int8: bool = False,
+                         method: str = "heloco"):
+    """(records, None) or (None, reason): the collectives of the placed
+    outer exchange (``dist.steps.make_outer_exchange`` with
+    ``param_pspecs``) on ``mesh``, as rank 0 of a fake world of its size,
+    on CPU fake tensors (the shards' reductions run on the kernels' route,
+    their plain versions for CPU tensors): the arriving pod's
+    pseudo-gradient shards broadcast over ``pod`` (fp32 with or without
+    ``compress_int8``: the round trip runs after the transfer), the block
+    sums and the int8 absmax all-reduced over the ranks that hold a leaf's
+    other shards."""
+    from repro_torch.dist import steps
+    params = abstract_params(cfg)
+    mode, device = _abstract_mode(fake=True)
+    with abstract_world(mesh) as world, mesh_context(world), mode:
+        def build():
+            pspecs = shd.param_specs(params, axis_sizes=world.axis_sizes)
+            mom = {k: torch.empty(x.shape, dtype=torch.float32,
+                                  device="meta") for k, x in params.items()}
+            p = abstract_placed(params, pspecs, world, device)
+            m = abstract_placed(mom, pspecs, world, device)
+            w = abstract_placed(*_pod(params, pspecs), world, device)
+            fn = steps.make_outer_exchange(
+                cfg, world, h=HeLoCoConfig(), outer_lr=0.7, mu=0.9,
+                method=method, arriving_pod=0,
+                stacked_axes=shd.stacked_axes_tree(params),
+                compress_int8=compress_int8, param_pspecs=pspecs)
+            return lambda: fn(p, m, w)
+        return count_collectives(build)
+
+
 def lower_outer_exchange(arch: str, mesh: Mesh, *,
                          compress_int8: bool = False,
                          method: str = "heloco") -> Dict[str, Any]:
     """The HeLoCo outer round on the multi-pod mesh: per-device argument
-    bytes (params, fp32 momentum, the worker trees with the pod axis), and
-    what crosses the pod axis per device: the arriving pod's
-    pseudo-gradient shard (fp32, or int8 and one fp32 scale a leaf) and
-    the look-ahead shard sent back (the params' dtype). It has no
+    bytes (params, fp32 momentum, the worker trees with the pod axis);
+    ``pod_axis_bytes_per_device``, what crosses the pod axis per device in
+    the modelled wire format: the arriving pod's pseudo-gradient shard
+    (``delta_in``: fp32, or with ``compress_int8`` int8 and one fp32 scale
+    a leaf) and the look-ahead shard sent back (the params' dtype); and
+    the collectives of the placed exchange (``exchange_collectives``),
+    what the program moves: the pseudo-gradient's shards cross in fp32,
+    int8 or not, as they do in the reference's program. It has no
     matmul-class operation, so no flops are counted."""
-    from repro_torch.dist.steps import make_outer_exchange
     cfg = get_config(arch)
     sizes = mesh.axis_sizes
     t0 = time.perf_counter()
     params = abstract_params(cfg)
     pspecs = shd.param_specs(params, axis_sizes=sizes)
-    make_outer_exchange(cfg, mesh, h=HeLoCoConfig(), outer_lr=0.7, mu=0.9,
-                        method=method, arriving_pod=0,
-                        stacked_axes=shd.stacked_axes_tree(params),
-                        compress_int8=compress_int8)
     mom = {k: torch.empty(x.shape, dtype=torch.float32, device="meta")
            for k, x in params.items()}
     args = {"params": tree_bytes(params, pspecs, sizes),
@@ -357,6 +533,12 @@ def lower_outer_exchange(arch: str, mesh: Mesh, *,
     delta_in = sum(n + 4 for n in shards.values()) if compress_int8 \
         else 4 * sum(shards.values())
     bar_out = sum(n * params[k].element_size() for k, n in shards.items())
+    seconds = {"argument_bytes": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    records, why = exchange_collectives(cfg, mesh,
+                                        compress_int8=compress_int8,
+                                        method=method)
+    seconds["collectives"] = time.perf_counter() - t0
     return {
         "arch": arch, "shape": "outer_exchange", "kind": "outer",
         "mesh": "multi", "plan": {"compress_int8": compress_int8,
@@ -365,12 +547,14 @@ def lower_outer_exchange(arch: str, mesh: Mesh, *,
         "flops_total": None,
         "flops_reason": "elementwise only: FlopCounterMode counts "
                         "matmul-class operations",
+        **(_uncounted_fields(why) if records is None
+           else collective_fields(records, mesh.size)),
         "memory": {"argument_bytes": sum(args.values()),
                    "argument_bytes_by_input": args},
         "pod_axis_bytes_per_device": {"delta_in": delta_in,
                                       "lookahead_out": bar_out},
         "not_modelled": NOT_MODELLED,
-        "count_seconds": time.perf_counter() - t0,
+        "count_seconds": seconds,
     }
 
 
@@ -389,6 +573,16 @@ def refused_out(out: str) -> bool:
 def _write(path: str, rec: Dict[str, Any]):
     with open(path, "w") as f:
         json.dump(rec, f, indent=1)
+
+
+def _wire_text(rec: Dict[str, Any]) -> str:
+    wire = rec["wire_bytes_per_device"]
+    return "null" if wire is None else f"{wire:.3e}B"
+
+
+def _uncounted_collectives(tag: str, rec: Dict[str, Any]):
+    why = rec.get("collectives_reason")
+    return [] if why is None else [(tag, "collectives: " + why)]
 
 
 def main(argv=None) -> int:
@@ -449,7 +643,9 @@ def main(argv=None) -> int:
                                      memo=memo)
                 except Exception as e:   # one cell's failure is its record
                     _write(path, {"arch": arch, "shape": shape_name,
-                                  "mesh": mesh_name, "error": repr(e)})
+                                  "mesh": mesh_name, "error": repr(e),
+                                  **_uncounted_fields(
+                                      "the cell failed before the count")})
                     uncounted.append((tag, repr(e)))
                     print(f"FAIL {tag}: {e!r}", flush=True)
                     traceback.print_exc()
@@ -458,10 +654,13 @@ def main(argv=None) -> int:
                 mem = rec["memory"]["argument_bytes"] / 2**30
                 flops = rec["flops_per_device"]
                 if flops is None:
-                    uncounted.append((tag, rec["flops_reason"]))
-                print(f"OK   {tag}: {rec['count_seconds']:.1f}s flops/dev="
+                    uncounted.append((tag, "flops: " + rec["flops_reason"]))
+                uncounted += _uncounted_collectives(tag, rec)
+                print(f"OK   {tag}: {sum(rec['count_seconds'].values()):.1f}s"
+                      " flops/dev="
                       + (f"{flops:.3e}" if flops is not None else "null")
-                      + f" args/dev={mem:.2f}GiB", flush=True)
+                      + f" args/dev={mem:.2f}GiB wire/dev="
+                      + _wire_text(rec), flush=True)
         if args.outer_exchange:
             tag = f"{arch}__outer_exchange__multi"
             try:
@@ -474,9 +673,11 @@ def main(argv=None) -> int:
                 traceback.print_exc()
                 continue
             _write(os.path.join(args.out, tag + ".json"), rec)
+            uncounted += _uncounted_collectives(tag, rec)
             pod = rec["pod_axis_bytes_per_device"]
             print(f"OK   {tag}: delta in {pod['delta_in']:.3e}B, look-ahead "
-                  f"out {pod['lookahead_out']:.3e}B per device", flush=True)
+                  f"out {pod['lookahead_out']:.3e}B per device, wire/dev="
+                  + _wire_text(rec), flush=True)
     print(f"\n{len(uncounted)} cells without a count on abstract tensors"
           + (":" if uncounted else ""))
     for tag, why in uncounted:

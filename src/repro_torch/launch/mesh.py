@@ -14,6 +14,9 @@ Port of ``repro/launch/mesh.py``:
                          ``device="cpu"``
   local_mesh             the multi-pod axis names, every size 1, on one
                          device (the card unless ``device="cpu"``)
+  abstract_world         an abstract mesh's ``DeviceMesh`` over a fake
+                         world of its size, as rank 0, in one process with
+                         no device (the dry-run's collective count)
   mesh_context           make a mesh the ambient one (``current_mesh``;
                          both from ``dist.sharding``, where the steps read
                          it)
@@ -139,3 +142,28 @@ def local_mesh(device="cuda") -> Iterator[Mesh]:
     finally:
         if own:
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def abstract_world(mesh: Mesh) -> Iterator[Mesh]:
+    """``mesh`` (a production or test mesh) with a CPU ``DeviceMesh`` over
+    a world of ``mesh.size`` ranks that exists only in this process, as
+    rank 0: a ``"fake"`` process group on ``FakeStore``, whose collectives
+    move nothing, so that a placed step runs its program (on meta tensors)
+    and its collectives can be recorded. The group is created on entry and
+    destroyed on exit; an existing group is refused, as ``local_mesh``
+    guards its own. ``fake_pg`` is a private module of PyTorch's testing
+    package (it registers the ``"fake"`` backend), imported here only."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("abstract_world needs no process group, but one "
+                           f"of {dist.get_world_size()} ranks exists")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield Mesh(mesh.axis_names, mesh.shape, init_device_mesh(
+            "cpu", mesh.shape, mesh_dim_names=mesh.axis_names))
+    finally:
+        dist.destroy_process_group()

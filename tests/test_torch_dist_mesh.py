@@ -430,12 +430,87 @@ def test_process_mesh_refuses_what_the_world_cannot_hold(runs):
             pass
 
 
+# ------------------------------------- the dry-run's count of each step
+
+@pytest.fixture(scope="module")
+def fake_counts():
+    """The dry-run's count (``launch.dryrun``: rank 0 of a fake world of 8
+    ranks, abstract tensors placed before the count) of each step the
+    worlds run, on the same meshes, with inputs of the same shapes,
+    dtypes and placements."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.inputs import abstract_caches
+    base = configs.reduced(configs.get_config("qwen2-7b"))
+    pods_cfg = dataclasses.replace(base, act_batch_axes=("data",))
+    plan_cfg = worlds.planned(base, seq_parallel=True)
+    train = configs.base.ShapeConfig("train", S, B, "train")
+    multi = tmesh.make_test_mesh(multi_pod=True)
+    out = {"multipod": dryrun.step_collectives(
+        pods_cfg, train, {"grad_accum": 1, "q_chunk": 16}, multi,
+        multi_pod=True)}
+    for int8 in (False, True):
+        out["int8" if int8 else "exchange"] = dryrun.exchange_collectives(
+            pods_cfg, multi, compress_int8=int8)
+    for ga in (1, 2):
+        out[f"train_{ga}"] = dryrun.step_collectives(
+            plan_cfg, train, {"grad_accum": ga, "q_chunk": 16},
+            tmesh.make_test_mesh(), multi_pod=False)
+    params = dryrun.abstract_params(plan_cfg)
+    prompt = {"tokens": torch.empty((2, S), dtype=torch.int32,
+                                    device="meta")}
+    token = torch.empty((2,), dtype=torch.int32, device="meta")
+    with tmesh.abstract_world(tmesh.make_test_mesh()) as world, \
+            tmesh.mesh_context(world):
+        pspecs = shd.param_specs(params, axis_sizes=world.axis_sizes)
+        with FakeTensorMode():
+            def prefill():
+                pp = dryrun.abstract_placed(params, pspecs, world, "cpu")
+                tok = dryrun.abstract_placed(prompt, shd.batch_specs(prompt),
+                                             world, "cpu")
+                step = steps.make_prefill_step(plan_cfg, cache_len=N_CACHE)
+                return lambda: step(pp, tok)
+            out["prefill"] = dryrun.count_collectives(prefill)
+        for bs in (True, False):
+            def decode(bs=bs):
+                pp = dryrun.abstract_placed(params, pspecs, world, "meta")
+                tok = dryrun.abstract_placed(token, shd.batch_specs(token),
+                                             world, "meta")
+                caches = shd.place_caches(abstract_caches(plan_cfg, 2,
+                                                          N_CACHE),
+                                          world, batch_sharded=bs)
+                step = steps.make_decode_step(plan_cfg)
+                return lambda: step(pp, tok, caches, S)
+            out[f"decode_{bs}"] = dryrun.count_collectives(decode)
+    assert not torch.distributed.is_initialized()
+    return out
+
+
+@pytest.mark.parametrize("case,world,key", [
+    ("multipod", 0, "multipod_records"), ("exchange", 0, "exchange_records"),
+    ("int8", 0, "int8_records"), ("train_1", 1, "train_1_records"),
+    ("train_2", 1, "train_2_records"), ("prefill", 1, "prefill_records"),
+    ("decode_True", 1, "decode_True_records"),
+    ("decode_False", 1, "decode_False_records")])
+def test_fake_world_count_is_the_gloo_worlds_record(runs, fake_counts, case,
+                                                    world, key):
+    """Rank 0's record of each step on 8 gloo ranks equals the dry-run's
+    count of the same step: kinds, ops, groups, order and bytes."""
+    records, why = fake_counts[case]
+    assert why is None, why
+    got = runs[world][key]
+    assert len(got) > 0, case
+    assert [tuple(r) for r in records] == [tuple(r) for r in got], case
+
+
 # ------------------------------------------------ the one-card mesh
 
 def test_one_card_mesh_places_every_step_bit_equal_to_the_unplaced():
     """chip_smoke.py's part (f) on the CPU: every placement and local_map
     site on a world of one, bit-equal to the unplaced steps (the exchange
-    through the kernels' structure, their plain versions here)."""
+    through the kernels' structure, their plain versions here); the placed
+    train step under the collective recorder runs no collective (every
+    axis has one rank) and keeps its bits."""
     x = _inputs()
     base = configs.reduced(configs.get_config("qwen2-7b"))
     cfg = worlds.planned(base, seq_parallel=True)
@@ -447,9 +522,11 @@ def test_one_card_mesh_places_every_step_bit_equal_to_the_unplaced():
     with tmesh.local_mesh("cpu") as lm, tmesh.mesh_context(lm):
         pspecs = shd.param_specs(params, axis_sizes=lm.axis_sizes)
         for ga in (1, 2):
-            placed, ploss = steps.make_train_step(
-                cfg, inner, grad_accum=ga, q_chunk=8, param_pspecs=pspecs)(
-                st0, batch)
+            with worlds.CollectiveLog() as log:
+                placed, ploss = steps.make_train_step(
+                    cfg, inner, grad_accum=ga, q_chunk=8,
+                    param_pspecs=pspecs)(st0, batch)
+            assert log.records == [], (ga, log.records)
             plain, loss = steps.make_train_step(
                 base, inner, grad_accum=ga, q_chunk=8)(st0, batch)
             assert torch.equal(shd.gather(ploss), loss)

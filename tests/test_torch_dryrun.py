@@ -137,8 +137,9 @@ def test_argument_bytes_equal_the_references_placements(arch):
 
 def test_a_cell_record_on_meta_tensors():
     """One cell at smoke width (the reference's ``lower_cell`` takes a cfg
-    the same way): its keys, the even split, the fields left unmodelled,
-    and the multi-pod twin reusing the count for two pods."""
+    the same way): its keys, the even split, the collective fields counted
+    and the fields left unmodelled, and the multi-pod twin reusing the
+    flops count for two pods."""
     cfg = configs.reduced(configs.get_config("qwen2-7b"))
     memo = {}
     single = dryrun.lower_cell("qwen2-7b", "train_4k",
@@ -152,10 +153,18 @@ def test_a_cell_record_on_meta_tensors():
         assert {"arch", "shape", "kind", "mesh", "plan", "n_devices",
                 "flops_total", "flops_per_device", "flops_split", "memory",
                 "not_modelled", "flops_counted", "count_seconds"} <= set(rec)
+        assert set(rec["not_modelled"]) == {
+            "temp_bytes", "code_bytes", "bytes_per_device", "output_bytes",
+            "alias_bytes", "peak_estimate_bytes"}
         assert {"collectives", "collective_group_sizes",
-                "wire_bytes_per_device", "temp_bytes", "code_bytes"} <= \
-            set(rec["not_modelled"])
-        assert not {"collectives", "wire_bytes_per_device"} & set(rec)
+                "wire_bytes_per_device", "collectives_counted"} <= set(rec)
+        assert "collectives_reason" not in rec
+        assert rec["collectives_counted"].startswith(
+            f"executed in one step by rank 0 of a fake world of "
+            f"{rec['n_devices']} ranks")
+        assert rec["wire_bytes_per_device"] > 0
+        assert set(rec["count_seconds"]) == {"argument_bytes", "flops",
+                                             "collectives"}
         assert "temp_bytes" not in rec["memory"]
         assert rec["flops_per_device"] == rec["flops_total"] / \
             rec["n_devices"]
@@ -200,7 +209,8 @@ def test_the_references_directory_is_refused(tmp_path):
 
 def test_cli_writes_skip_and_outer_exchange_records(tmp_path, capsys):
     """hubert-xlarge's decode cells are skipped (encoder-only) with the
-    reference's record; the outer exchange's pod-axis bytes."""
+    reference's record; the outer exchange's pod-axis bytes and the
+    collectives of its placed program."""
     out = tmp_path / "dr"
     assert dryrun.main(["--arch", "hubert-xlarge", "--shape", "decode_32k",
                         "--out", str(out), "--outer-exchange",
@@ -219,5 +229,29 @@ def test_cli_writes_skip_and_outer_exchange_records(tmp_path, capsys):
     assert n / 256 <= pod["delta_in"] < 4 * n / 256
     assert pod["lookahead_out"] == ex["memory"]["argument_bytes_by_input"][
         "params"]
+    # delta_in is the modelled int8 wire format (n + 4 bytes a leaf); the
+    # placed program broadcasts the fp32 shards over pod (4 n bytes)
+    n_shard = pod["delta_in"] - 4 * len(params)
+    assert ex["collectives"]["broadcast"] == {
+        "count": len(params), "result_bytes": 4 * n_shard,
+        "wire_bytes": 4 * n_shard}
+    assert ex["collective_group_sizes"]["2"] == len(params)
     assert "0 cells without a count" in capsys.readouterr().out
     assert os.listdir(out)
+
+
+def test_a_cell_that_fails_records_no_count(tmp_path, capsys):
+    """xlstm-125m's decode cell fails at its caches' specs (the reference's
+    ``cache_specs`` has no layout for recurrent states): its record holds
+    the error and the three collective fields null with the reason, and
+    the CLI lists it."""
+    out = tmp_path / "dr"
+    assert dryrun.main(["--arch", "xlstm-125m", "--shape", "decode_32k",
+                        "--mesh", "single", "--out", str(out)]) == 0
+    rec = json.loads((out / "xlstm-125m__decode_32k__single.json")
+                     .read_text())
+    assert "unpack" in rec["error"]
+    assert rec["collectives"] is rec["collective_group_sizes"] is \
+        rec["wire_bytes_per_device"] is None
+    assert rec["collectives_reason"] == "the cell failed before the count"
+    assert "1 cells without a count" in capsys.readouterr().out

@@ -9,10 +9,12 @@ returns rank 0's return value, and raises with the first failing rank's
 traceback. The rank functions below run one mesh shape each and loop over
 their cases inside it, because a world takes seconds to start.
 
-``CollectiveLog`` records the ranks of the group of every collective run
-while it is active: the functional collectives that DTensor's
-redistributions run, and the c10d ones that the exchange's ``local_map``
-function calls.
+``CollectiveLog`` is the package's ``CollectiveRecorder``: every collective
+run while it is active (the functional ones that DTensor's redistributions
+run, and the c10d ones that the exchange's ``local_map`` function calls),
+with its kind, group, and bytes on this rank. The worlds place each step's
+arguments before its log starts, as the dry-run's fake-world count takes
+them, and return rank 0's records of each step.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import traceback
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.utils.collectives import CollectiveRecorder
 
 TIMEOUT = 300
 
@@ -75,51 +78,13 @@ def spawn(fn, world: int, tmp, payload, timeout: float = TIMEOUT):
     return out
 
 
-class CollectiveLog(TorchDispatchMode):
-    """The group (its global ranks) of each collective run inside the
-    block, with the collective's name."""
+class CollectiveLog(CollectiveRecorder):
+    """The package's recorder (``utils.collectives``), with each
+    collective's kind and group (its global ranks) as ``calls``."""
 
-    def __enter__(self):
-        import torch.distributed as dist
-        self.calls = []
-        self._saved = {}
-        for name in ("all_reduce", "broadcast", "all_gather",
-                     "all_gather_into_tensor", "reduce_scatter_tensor",
-                     "all_to_all_single", "scatter", "reduce"):
-            orig = getattr(dist, name)
-            self._saved[name] = orig
-
-            def wrapped(*args, _orig=orig, _name=name, **kw):
-                group = kw.get("group")
-                self.calls.append((_name, tuple(
-                    dist.get_process_group_ranks(group) if group is not None
-                    else range(dist.get_world_size()))))
-                return _orig(*args, **kw)
-            setattr(dist, name, wrapped)
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-        for name, orig in self._saved.items():
-            setattr(dist, name, orig)
-        return super().__exit__(*exc)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func.namespace == "_c10d_functional" and \
-                not func.__name__.startswith("wait_tensor"):
-            from torch.distributed.distributed_c10d import (
-                _resolve_process_group, get_process_group_ranks)
-            names = [a.name for a in func._schema.arguments]
-            if "group_name" not in names:
-                return func(*args, **kwargs)
-            i = names.index("group_name")
-            group = kwargs["group_name"] if i >= len(args) else args[i]
-            if isinstance(group, str):
-                group = _resolve_process_group(group)
-            self.calls.append((func.__name__,
-                               tuple(get_process_group_ranks(group))))
-        return func(*args, **kwargs)
+    @property
+    def calls(self):
+        return [(r.kind, r.ranks) for r in self.records]
 
     def crossing(self, pods):
         """The calls whose group holds ranks of more than one of ``pods``
@@ -142,6 +107,28 @@ def pod_groups(mesh):
     """Each pod's global ranks, from the mesh's layout."""
     layout = mesh.device_mesh.mesh
     return [layout[i].flatten().tolist() for i in range(layout.shape[0])]
+
+
+def placed_state(state, pspecs, mesh, pod=False):
+    """A ``TrainState``'s tensors at their specs' placements (``pod`` ahead
+    of each with ``pod``), as the dry-run's count takes a step's
+    arguments: each rank cuts its shard, with no collective."""
+    from repro_torch.dist import sharding as shd
+    specs = {k: shd.Spec(("pod",) * pod + tuple(s))
+             for k, s in pspecs.items()}
+
+    def tree(t):
+        return {k: shd.place(v, specs[k], mesh, k) for k, v in t.items()}
+    return state._replace(params=tree(state.params), opt=state.opt._replace(
+        mu=tree(state.opt.mu), nu=tree(state.opt.nu)))
+
+
+def placed_batch(batch, mesh, pod=False):
+    """A batch's leading dim over ``data`` (after ``pod`` with ``pod``)."""
+    from repro_torch.dist import sharding as shd
+    lead = ("pod", "data") if pod else ("data",)
+    return {k: shd.place(v, shd.Spec(lead + (None,) * (v.dim() - len(lead))),
+                         mesh, k) for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------- worlds
@@ -169,13 +156,18 @@ def world_pods(rank, payload):
         step = steps.make_multipod_train_step(cfg, inner, mesh, q_chunk=16,
                                               param_pspecs=pspecs)
         st0 = steps.init_train_state(params)
+        pod_st = placed_state(steps.stack_pods([st0, st0]), pspecs, mesh,
+                              pod=True)
+        same_b, diff_b = (placed_batch(_t(payload[k]), mesh, pod=True)
+                          for k in ("batch_same", "batch_diff"))
         with CollectiveLog() as log:
-            ns, _ = step(steps.stack_pods([st0, st0]),
-                         _t(payload["batch_same"]))
-            nd, losses = step(steps.stack_pods([st0, st0]),
-                              _t(payload["batch_diff"]))
-        out["multipod_collectives"] = len(log.calls)
-        out["multipod_crossing"] = log.crossing(pods)
+            ns, _ = step(pod_st, same_b)
+        with CollectiveLog() as diff_log:
+            nd, losses = step(pod_st, diff_b)
+        out["multipod_records"] = diff_log.records
+        out["multipod_collectives"] = len(log.calls) + len(diff_log.calls)
+        out["multipod_crossing"] = (log.crossing(pods)
+                                    + diff_log.crossing(pods))
         out["same"] = _np(ns.params)
         out["diff"] = _np(nd.params)
         out["diff_mu"] = _np(nd.opt.mu)
@@ -209,6 +201,7 @@ def world_pods(rank, payload):
             out[tag] = (_np(p2), _np(m2), _np(bar))
             out[tag + "_crossing"] = log.crossing(pods)
             out[tag + "_collectives"] = len(log.calls)
+            out[tag + "_records"] = log.records
         # the int8 round trip and each block's branch, leaf by leaf, from
         # the placed shards (the statistics summed over a leaf's shards)
         rt, codes = {}, {False: {}, True: {}}
@@ -254,9 +247,13 @@ def world_plan(rank, payload):
             mesh_context(mesh):
         pspecs = shd.param_specs(params, axis_sizes=mesh.axis_sizes)
         for ga in (1, 2):
-            st, loss = steps.make_train_step(
-                cfg, inner, grad_accum=ga, q_chunk=16,
-                param_pspecs=pspecs)(steps.init_train_state(params), batch)
+            step = steps.make_train_step(cfg, inner, grad_accum=ga,
+                                         q_chunk=16, param_pspecs=pspecs)
+            st0 = placed_state(steps.init_train_state(params), pspecs, mesh)
+            pbatch = placed_batch(batch, mesh)
+            with CollectiveLog() as log:
+                st, loss = step(st0, pbatch)
+            out[f"train_{ga}_records"] = log.records
             out[f"train_{ga}"] = (float(shd.gather(loss)), _np(st.params),
                                   _np(st.opt.mu))
             out[f"placements_{ga}"] = sorted({
@@ -272,10 +269,14 @@ def world_plan(rank, payload):
         pre = steps.make_prefill_step(cfg, cache_len=n)
         dec = steps.make_decode_step(cfg)
         for bs in (True, False):
-            logits, caches = pre(pp, {"tokens": tok})
+            with CollectiveLog() as log:
+                logits, caches = pre(pp, {"tokens": tok})
+            out["prefill_records"] = log.records
             caches = shd.place_caches(caches, mesh, batch_sharded=bs)
             cache_pl = {k: str(v.placements) for k, v in caches.items()}
-            dlogits, caches = dec(pp, token, caches, s)
+            with CollectiveLog() as log:
+                dlogits, caches = dec(pp, token, caches, s)
+            out[f"decode_{bs}_records"] = log.records
             out[f"serve_{bs}"] = (shd.gather(logits).numpy(),
                                   shd.gather(dlogits).numpy(),
                                   _np(caches), cache_pl)
