@@ -214,7 +214,12 @@ phase; ``--only dist`` the dist phase; ``--only plan`` the plan phase):
      multi-pod step with two pods on the card (identical pods bit for bit
      equal, different batches part, pod 0 the single step's bits); the
      prefill and decode steps bit-equal to ``Model``'s on full-width
-     tinygpt-15m with 4 flash launches a prefill; the HeLoCo outer
+     tinygpt-15m with 4 flash launches a prefill, placed and unplaced;
+     zamba2-2.7b (12 of 54 layers) and xlstm-125m (whole) served through
+     the placed steps, prefill and 4 decode steps, bit-equal to the
+     unplaced ``Model`` with their states on the batch shard, the same
+     flash launches (2 and 0) and no collective, prefill and decode ms
+     beside the card's name and power limit; the HeLoCo outer
      exchange on granite-moe at full width and depth (1.33 B parameters),
      without and with int8: block_stats, correct_apply and outer_update_2d
      (and absmax, quantize_2d, dequantize_2d) once a leaf and nothing
@@ -3710,6 +3715,11 @@ DIST_INNER = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 # fewer: with the config's 2048-token groups a 512-token batch is one group
 # and four 128-token microbatches are four, with other capacity drops
 DIST_CHECK_GROUP = 128
+# part (f)'s recurrent families, served placed at full width: zamba2 cut to
+# two super blocks (two shared-block sites), xlstm whole; the greedy
+# decode steps after each prefill
+DIST_RECURRENT = (("zamba2-2.7b", 12), ("xlstm-125m", None))
+DIST_DECODES = 4
 TOL_DIST = 1e-5
 # the bf16 pair's band: this many times bf16's own distance from fp32 on
 # the grad_accum=1 step (loss, first moments), at least the fp32 pair's:
@@ -3906,6 +3916,155 @@ def dist_placed_serve(torch, kernels, steps, shd, scfg, sparams, batch, n,
     return got["flash_attention_fwd"]
 
 
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def serve_steps(torch, kernels, shd, prefill, decode, tokens, none,
+                want_prefill, feed=None, recorder=None):
+    """One prefill of ``tokens`` and DIST_DECODES greedy decode steps
+    through ``prefill(tokens)`` and ``decode(token, caches, pos)`` (each
+    step fed ``feed[i]`` where given, else the step before's greedy
+    token), with the counts set to 0 just before the prefill and before
+    the first decode step and read just after each: the prefill launches
+    ``want_prefill``, the decode steps nothing. Under ``recorder`` where
+    one is given. Returns the logits of each step, the caches after the
+    prefill and after the last step (gathered), the tokens fed, prefill ms
+    and decode ms a token (host clock to a synchronised end), and whether
+    every cache leaf came back placed."""
+    with recorder or contextlib.nullcontext():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, caches = prefill(tokens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        got = kernels.launch_counts()
+        assert got == want_prefill, f"(f) prefill launched {got}"
+        first = {k: shd.gather(v).clone()
+                 for k, v in shd.tree_leaves(caches).items()}
+        outs, fed = [shd.gather(logits)], []
+        kernels.reset_launch_counts()
+        decode_s = 0.0
+        for i in range(DIST_DECODES):
+            token = outs[-1].argmax(-1) if feed is None else feed[i]
+            fed.append(token)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(token, caches, SERVE["prompt"] + i)
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t0
+            outs.append(shd.gather(logits))
+        got = kernels.launch_counts()
+        assert got == none, f"(f) decode launched {got}"
+        leaves = shd.tree_leaves(caches)
+    return dict(logits=outs, prefill_caches=first,
+                caches={k: shd.gather(v) for k, v in leaves.items()},
+                fed=fed, prefill_ms=prefill_ms,
+                decode_ms_per_token=decode_s * 1e3 / DIST_DECODES,
+                placed=all(shd.is_placed(v) for v in leaves.values()))
+
+
+def dist_placed_serve_recurrent(torch, kernels, steps, shd, none, dev):
+    """(f) the recurrent families' serving through the placed steps on
+    the one-card mesh with the dry-run plan's activation placements:
+    zamba2-2.7b at full width cut to DIST_RECURRENT's 12 of 54 layers (two
+    shared-block sites) and xlstm-125m whole, bf16, SERVE's batch and
+    prompt, then DIST_DECODES greedy decode steps. The unplaced
+    ``Model.prefill``/``decode`` of the same parameters and tokens first;
+    then the placed steps under the collective recorder, fed the same
+    tokens: every step's logits and every cache leaf after the prefill
+    and after the last step, gathered, bit-equal to the unplaced run's;
+    the states come back as DTensors; the same flash_attention_fwd
+    launches a prefill (zamba2 one a site, xlstm none) and none in decode;
+    no collective (every axis has one rank). Then both paths once more,
+    timed: prefill ms and decode ms a token beside the card's name and
+    power limit. Returns (flash launches, prefills that launched it)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import local_mesh, mesh_context
+    from repro_torch.models import Model
+    from repro_torch.utils.collectives import (CollectiveRecorder,
+                                               collective_stats)
+    smi = card_line()
+    launches = prefills = 0
+    n = SERVE["prompt"] + DIST_DECODES
+    for arch, layers in DIST_RECURRENT:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        tokens = serve.make_inputs(cfg, SERVE["batch"], SERVE["prompt"], 0,
+                                   dev)["tokens"]
+        sites = flash_sites(cfg)
+        want_prefill = {**none, "flash_attention_fwd": sites}
+        times = {}
+
+        def unplaced(feed=None):
+            return serve_steps(
+                torch, kernels, shd,
+                lambda t: model.prefill(params, t, n),
+                lambda t, c, pos: model.decode(params, t, c, pos),
+                tokens, none, want_prefill, feed)
+
+        want = unplaced()
+        feed = want["fed"]
+        with local_mesh(dev) as mesh, mesh_context(mesh):
+            pp = shd.place_tree(params, shd.param_specs(
+                params, axis_sizes=mesh.axis_sizes), mesh)
+            pre = steps.make_prefill_step(dist_plan_cfg(cfg), cache_len=n)
+            dec = steps.make_decode_step(dist_plan_cfg(cfg))
+
+            def place(t):
+                return shd.place_tree(t, shd.batch_specs(t), mesh)
+
+            def placed(recorder=None):
+                return serve_steps(
+                    torch, kernels, shd, lambda t: pre(pp, place(t)),
+                    lambda t, c, pos: dec(pp, place(t), c, pos),
+                    tokens, none, want_prefill, feed, recorder)
+
+            rec = CollectiveRecorder()
+            got = placed(rec)
+            assert got["placed"], f"(f) {arch}: a cache leaf came back whole"
+            for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+                assert torch.equal(g, w), f"(f) {arch} logits of step {i}"
+            for tree in ("prefill_caches", "caches"):
+                g, w = got[tree], want[tree]
+                assert g.keys() == w.keys(), f"(f) {arch} cache tree"
+                for k, v in w.items():
+                    assert g[k].dtype == v.dtype and torch.equal(g[k], v), \
+                        f"(f) {arch} {tree} {k}"
+            counts = {k: v["count"] for k, v in collective_stats(
+                rec.records).items() if v["count"]}
+            assert not rec.records, f"(f) {arch}: collectives {counts}"
+            for kind, run in (("unplaced", lambda: unplaced(feed)),
+                              ("placed", placed)):
+                r = run()
+                times[kind] = {k: r[k] for k in ("prefill_ms",
+                                                 "decode_ms_per_token")}
+        launches += 4 * sites
+        prefills += 4 if sites else 0
+        assert all(torch.isfinite(x).all() for x in want["logits"]), arch
+        print(json.dumps({
+            "dist_placed_serve": arch, "layers": f"{cfg.n_layers} of "
+            f"{get_config(arch).n_layers}", "compute_dtype": cfg.compute_dtype,
+            "batch": SERVE["batch"], "prompt": SERVE["prompt"],
+            "decode_steps": DIST_DECODES,
+            "flash_launches_per_prefill": sites, "bit_equal": True,
+            "states_placed": True, "collectives": counts, **times,
+            "card": smi}))
+        del params, want, got, pp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, prefills
+
+
 def dist_placed_exchange(torch, kernels, steps, shd, xcfg, h, none, dev):
     """(f) the exchange through the placed path on the one-card mesh
     (granite-moe at full width and depth, HeLoCo, arriving pod 1 of 2,
@@ -3997,6 +4156,10 @@ def dist_phase(torch, kernels, dev):
     moments, parameters), its seconds beside the unplaced step's (the
     host cost of DTensor dispatch); tinygpt-15m's prefill and decode
     bit-equal to (d)'s with the same flash_attention_fwd launches; the
+    recurrent families (zamba2-2.7b at 12 of 54 layers, xlstm-125m whole)
+    served placed, their states on the batch shard, bit-equal to the
+    unplaced ``Model`` with the same launches and no collective, and
+    timed beside it (``dist_placed_serve_recurrent``); the
     exchange bit-equal leaf by leaf to (e)'s kernel path with the same
     launches a leaf.
     (b), (d) and (e) run unplaced (whole tensors).
@@ -4181,6 +4344,8 @@ def dist_phase(torch, kernels, dev):
     del sparams, caches, want_caches, logits, logits2, want_logits, want2
     gc.collect()
     torch.cuda.empty_cache()
+    recurrent_flash, recurrent_prefills = dist_placed_serve_recurrent(
+        torch, kernels, steps, shd, none, dev)
 
     # (e) the exchange at full width and depth
     h = HeLoCoConfig()
@@ -4274,7 +4439,8 @@ def dist_phase(torch, kernels, dev):
             **{k: (counts[k], 2 * n_leaves)
                for k in ("absmax", "quantize_2d", "dequantize_2d")},
             "flash_attention_fwd": (at_prefill["flash_attention_fwd"]
-                                    + placed_prefill, 2)}
+                                    + placed_prefill + recurrent_flash,
+                                    2 + recurrent_prefills)}
 
 
 def dist_only(torch, kernels, specs, dev, bound, log, lib):
@@ -4579,9 +4745,7 @@ def plan_phase(torch, kernels, dev, smi):
 
 def plan_only(torch, kernels, specs, dev, bound, log, lib):
     """``--only plan``: the plan phase alone (packed.cu built)."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(json.dumps({"plan_launches": plan_phase(torch, kernels, dev,
                                                   smi)}))
 
@@ -4629,9 +4793,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     bw, flops, bf16_flops, tf32_flops = peaks_for(name)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
     t0 = time.perf_counter()

@@ -312,7 +312,8 @@ def place_caches(caches: Any, mesh, *, batch_sharded: bool,
     reference's caller places them before decode: the stacked (L, B, S,
     KV, D) leaves by the rule itself, a model's unstacked (B, S, KV, D)
     ones as one layer of it. The recurrent families' states have no layout
-    there and raise, as the rule does."""
+    there and raise, as the rule does: their decode takes the caches as
+    the placed prefill returned them, the states on the batch shard."""
     kw = dict(batch_sharded=batch_sharded, axis_sizes=mesh.axis_sizes,
               data_axis=data_axis)
 

@@ -349,7 +349,9 @@ def make_prefill_step(cfg: ModelConfig, *, cache_len: int):
     """``step(params, batch) -> (logits, caches)``: ``Model.prefill`` (one
     flash-attention launch an attention layer on the card). It runs on the
     placements its inputs carry: the caller places the parameters (and the
-    batch) on the ambient mesh, as the reference's caller does."""
+    batch) on the ambient mesh, as the reference's caller does. Placed, the
+    attention caches come back replicated and a recurrent family's states
+    as DTensors on the batch's shard."""
     model = build_model(cfg)
 
     def step(params, batch):
@@ -363,8 +365,11 @@ def make_prefill_step(cfg: ModelConfig, *, cache_len: int):
 
 def make_decode_step(cfg: ModelConfig):
     """``step(params, token, caches, pos) -> (logits, caches)``:
-    ``Model.decode``, on the placements its inputs carry (the caller
-    places the caches, ``sharding.place_caches``)."""
+    ``Model.decode``, on the placements its inputs carry: the caller
+    places attention caches (``sharding.place_caches``); a recurrent
+    family's caches go in as the placed prefill returned them, its states
+    on the batch shard (``cache_specs`` has no layout for them, as the
+    reference's has none)."""
     model = build_model(cfg)
 
     def step(params, token, caches, pos):

@@ -159,17 +159,40 @@ def tp_product(fn, x: torch.Tensor, w: torch.Tensor, *, axis: str,
 
 
 def mixer_on_batch_shard(fn, p: Params, x: torch.Tensor, cfg: ModelConfig,
-                         state=None, return_state: bool = False):
-    """A recurrent mixer ``fn(p, x, cfg)`` of a placed ``x`` on each rank's
-    batch shard, its weights gathered (``sharding.on_batch_shard``):
-    (output, None). Training only: a placed serving state is refused, as
-    ``cache_specs`` has no layout for the recurrent states."""
-    from repro_torch.dist.sharding import on_batch_shard
-    if state is not None or return_state:
-        raise NotImplementedError("placed serving states of the recurrent "
-                                  "blocks: cache_specs has no layout for "
-                                  "them, as the reference's has none")
-    return on_batch_shard(lambda xl, w: fn(w, xl, cfg)[0], x, p), None
+                         state=None, return_state: bool = False, *,
+                         like=None):
+    """A recurrent mixer ``fn(p, x, cfg, state, return_state)`` of a
+    placed ``x`` on each rank's batch shard, its weights gathered whole
+    (``sharding.on_batch_shard``, as training runs it): (output, the
+    mixer's state or None). A serving state is a tree of ``like``'s
+    structure (the mixer's zero state; dicts and tuples kept) whose leaves
+    are DTensors with their batch dim (0) over ``x``'s batch axes: each
+    rank reads its shard of every leaf, and the state ``fn`` returns comes
+    back as DTensors at that placement, one ``local_map`` output a leaf.
+    No leaf is gathered."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    from repro_torch.dist.sharding import (batch_axes_of, on_batch_shard,
+                                           on_shards, placements_by_axis)
+    if state is None and not return_state:
+        return on_batch_shard(lambda xl, w: fn(w, xl, cfg)[0], x, p), None
+    dm = x.device_mesh
+    rows = placements_by_axis(dm, {a: 0 for a in batch_axes_of(x)})
+    whole = placements_by_axis(dm)
+    names = list(p)
+    leaves, tree = tree_flatten(like if state is None else state)
+    ins = [] if state is None else leaves
+
+    def local(xl, *ts):
+        st = (None if state is None else
+              tree_unflatten(list(ts[len(names):]), tree))
+        y, new = fn(dict(zip(names, ts[:len(names)])), xl, cfg, state=st,
+                    return_state=return_state)
+        return (y, *tree_flatten(new)[0])
+
+    out = on_shards(local, (x, *p.values(), *ins),
+                    (rows,) + (whole,) * len(names) + (rows,) * len(ins),
+                    (rows,) * (1 + len(leaves)), device_mesh=dm)
+    return out[0], tree_unflatten(list(out[1:]), tree)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

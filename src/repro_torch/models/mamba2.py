@@ -10,10 +10,11 @@ and at its rounding points (the conv state is rounded to bf16 after a
 prefill and after every decode step, whatever the compute dtype).
 
 Placed (DTensor) activations: ``apply_mamba2`` is the ``local_map`` site
-(``sharding.on_batch_shard``): the causal conv's window over the sequence
-and the SSD chunk loop's carried state have no DTensor sharding strategy,
-so the mixer runs on each rank's batch shard, the whole sequence and its
-weights gathered.
+(``layers.mixer_on_batch_shard``): the causal conv's window over the
+sequence and the SSD chunk loop's carried state have no DTensor sharding
+strategy, so the mixer runs on each rank's batch shard, the whole sequence
+and its weights gathered. In serving, its state (both leaves) lies on the
+same batch shard: read there in decode, returned there as DTensors.
 """
 from __future__ import annotations
 
@@ -163,10 +164,12 @@ def apply_mamba2(p: Params, x: torch.Tensor, cfg: ModelConfig,
     exact one-step recurrence from it; with ``return_state`` (prefill) the
     end-of-sequence state. Either returns {"ssm": (B,H,P,N) fp32, "conv":
     (B,K-1,C) bf16} beside the output; None otherwise. A placed ``x`` runs
-    on each rank's batch shard (training only)."""
+    on each rank's batch shard, a state's leaves on it too
+    (``layers.mixer_on_batch_shard``)."""
     if placed(x):
         return mixer_on_batch_shard(apply_mamba2, p, x, cfg, state,
-                                    return_state)
+                                    return_state,
+                                    like=init_mamba2_state(cfg, 1, "meta"))
     dm = ssm_dims(cfg)
     dt_ = x.dtype
     bsz, s = x.shape[0], x.shape[1]

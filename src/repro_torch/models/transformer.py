@@ -431,6 +431,37 @@ class Model:
             cfg, batch, cache_len, dtype_of(cfg), device)
             for i in range(cfg.n_layers)}
 
+    def _zero_caches(self, x: torch.Tensor, cache_len: int) -> Caches:
+        """``init_caches``' zeros for the prompt's activations ``x`` (B, S,
+        d); an ssm model's prefill returns each layer's state, so it takes
+        none. For a placed ``x``, DTensors on its mesh: a hybrid model's
+        Mamba2 states with their batch dim (2) over ``x``'s batch axes,
+        each rank making only its shard; the attention caches replicated,
+        the same zeros on every rank, until the step places them by
+        ``cache_specs``."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return {}
+        if not placed(x):
+            return self.init_caches(x.shape[0], cache_len, x.device)
+        from torch.distributed.tensor import zeros
+        from repro_torch.dist.sharding import (batch_axes_of,
+                                               placements_by_axis,
+                                               replicated, tree_map)
+        dm = x.device_mesh
+        shapes = self.init_caches(x.shape[0], cache_len, "meta")
+
+        def whole(_, t):
+            return replicated(torch.zeros(t.shape, dtype=t.dtype,
+                                          device=x.device), dm)
+        if cfg.family != "hybrid":
+            return tree_map(whole, shapes)
+        sts, kvs = shapes
+        rows = placements_by_axis(dm, {a: 2 for a in batch_axes_of(x)})
+        return ({k: zeros(v.shape, dtype=v.dtype, device_mesh=dm,
+                          placements=rows) for k, v in sts.items()},
+                tree_map(whole, kvs))
+
     def _layer_caches(self, caches: Caches) -> Iterator[Cache]:
         """Each attention layer's cache, a view into the stacked tensors."""
         if self._stacked:
@@ -446,7 +477,8 @@ class Model:
         shared block's k and v at every site written into ``caches``) or
         one decode step at ``pos`` from the states in ``caches``, written
         back in place: the conv window into its bf16 tensor, as the
-        reference rounds it."""
+        reference rounds it. Placed states are written the same way: a
+        unit's slot of a DTensor is a view of each rank's batch shard."""
         cfg = self.cfg
         sts, kvs = caches
         shared = _split(self._part(params, "shared"))
@@ -476,19 +508,14 @@ class Model:
         prefix included), filled). Each attention layer, and a hybrid
         model's shared block at each site, is one launch of the
         flash-attention kernel on the card; the recurrent blocks are plain
-        PyTorch."""
+        PyTorch. A placed prompt (DTensors) gives placed caches: the
+        recurrent states on its batch shard, the attention caches
+        replicated (``_zero_caches``)."""
         cfg = self.cfg
         if isinstance(batch, torch.Tensor):
             batch = {"tokens": batch}
         x, positions = self._embed(params, batch)
-        caches = self.init_caches(x.shape[0], cache_len or x.shape[1],
-                                  x.device)
-        if placed(x):
-            # zeros, the same on every rank: replicated until the step
-            # places them by cache_specs
-            from repro_torch.dist.sharding import replicated, tree_map
-            caches = tree_map(lambda _, t: replicated(t, x.device_mesh),
-                              caches)
+        caches = self._zero_caches(x, cache_len or x.shape[1])
         if cfg.family == "hybrid":
             x = self._hybrid_serve(params, x, caches, positions, None)
         elif cfg.family == "ssm":
@@ -510,7 +537,8 @@ class Model:
         at (the same for every row). Returns (logits (B, V) in the compute
         dtype, the caches): the attention caches and a hybrid model's
         states are written in place; an ssm model's come back as new
-        tensors, the conv windows in the compute dtype, as the reference's.
+        tensors, the conv windows in the compute dtype, as the reference's
+        (placed states stay on their batch shard).
         Plain PyTorch: no kernel launches. An encoder-only model has no
         decode step."""
         cfg = self.cfg

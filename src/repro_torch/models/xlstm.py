@@ -14,10 +14,12 @@ in the compute dtype.
 
 Placed (DTensor) activations: ``apply_mlstm_block`` and
 ``apply_slstm_block`` are the ``local_map`` sites
-(``sharding.on_batch_shard``): the conv window, the mLSTM chunk loop and
-the sLSTM loop over time have no DTensor sharding strategy, so each mixer
-runs on each rank's batch shard, the whole sequence and its weights
-gathered.
+(``layers.mixer_on_batch_shard``): the conv window, the mLSTM chunk loop
+and the sLSTM loop over time have no DTensor sharding strategy, so each
+mixer runs on each rank's batch shard, the whole sequence and its weights
+gathered. In serving, its state (every leaf of the (C, n, m) or (c, n, m,
+h) tuple and the conv window) lies on the same batch shard: read there in
+decode, returned there as DTensors.
 """
 from __future__ import annotations
 
@@ -208,10 +210,12 @@ def apply_mlstm_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     With ``state`` (decode, S = 1): {"mlstm": (C, n, m), "conv"} in and
     out, the conv in x's dtype; with ``return_state`` (prefill) the
     end-of-sequence state, the conv in bf16. A placed ``x`` runs on each
-    rank's batch shard (training only)."""
+    rank's batch shard, a state's leaves on it too
+    (``layers.mixer_on_batch_shard``)."""
     if placed(x):
         return mixer_on_batch_shard(apply_mlstm_block, p, x, cfg, state,
-                                    return_state)
+                                    return_state,
+                                    like=init_mlstm_state(cfg, 1, "meta"))
     dm = mlstm_dims(cfg)
     h, hd = dm["n_heads"], dm["head_dim"]
     dt = x.dtype
@@ -277,10 +281,12 @@ def apply_slstm_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     ``state`` (decode, S = 1): {"slstm": (c, n, m, h), "conv"} in and out,
     the conv in x's dtype; with ``return_state`` (prefill) the
     end-of-sequence state, the conv in bf16. A placed ``x`` runs on each
-    rank's batch shard (training only)."""
+    rank's batch shard, a state's leaves on it too
+    (``layers.mixer_on_batch_shard``)."""
     if placed(x):
         return mixer_on_batch_shard(apply_slstm_block, p, x, cfg, state,
-                                    return_state)
+                                    return_state,
+                                    like=init_slstm_state(cfg, 1, "meta"))
     dt = x.dtype
     b, s, d = x.shape
     xc, new_conv = causal_conv(x, p["conv_w"], p["conv_b"],

@@ -7,9 +7,12 @@ process, so it is never imported here: its plan (``GRAD_ACCUM``,
 ``Q_CHUNK``, ``plan_for``) is read from its source with ``ast``. The
 per-device argument bytes are held to bytes computed here from the
 reference's own PartitionSpecs (``repro.dist.sharding``) over its
-``jax.eval_shape`` structs, for two archs on both production meshes.
+``jax.eval_shape`` structs, for two archs on both production meshes. The
+reference's own record of one smoke cell is read from a subprocess that
+imports its dry-run module after fixing the device count at 8.
 """
 import ast
+import dataclasses
 import json
 import math
 import os
@@ -255,3 +258,74 @@ def test_a_cell_that_fails_records_no_count(tmp_path, capsys):
         rec["wire_bytes_per_device"] is None
     assert rec["collectives_reason"] == "the cell failed before the count"
     assert "1 cells without a count" in capsys.readouterr().out
+
+
+# the reference's dry-run of one smoke cell on 8 fake devices (its module
+# fixes the device count when imported, so it runs in a subprocess): the
+# group-size histogram of its compiled collectives
+_REFERENCE_CELL = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+jax.devices()   # the device count is fixed before the dry-run module
+from repro.configs import get_config
+from repro.launch import dryrun as jd
+from repro.launch.mesh import make_test_mesh
+arch, shape = sys.argv[1], sys.argv[2]
+rec = jd.lower_cell(arch, shape, make_test_mesh(), multi_pod=False,
+                    cfg=get_config(arch + "-smoke"))
+print("HIST " + json.dumps(rec["collective_group_sizes"]))
+"""
+
+
+def test_a_recurrent_prefill_cell_records_counted_collectives(monkeypatch):
+    """zamba2-2.7b's prefill_32k on the single-pod production mesh at full
+    width, cut to one super block (6 Mamba2 units and one shared-block
+    site): the placed prefill runs on the fake world, its states on the
+    batch shard, and the record holds the three collective fields. Each
+    group lies along the data axis, the model axis or both; taken to the
+    test mesh (data 2, model 4) by the axes it spans, the group sizes are
+    the set of the reference's HLO histogram for the smoke cell there
+    (the counts differ by design: the port counts what one step executes,
+    the reference each instruction)."""
+    import subprocess
+    import sys
+    ref = subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE_CELL, "zamba2-2.7b",
+         "prefill_32k"], env=dict(os.environ, PYTHONPATH="src",
+                                  OMP_NUM_THREADS="1"),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        full = configs.get_config("zamba2-2.7b")
+        cfg = dataclasses.replace(full, n_layers=full.shared_attn_every)
+        seen = []
+        count = dryrun.step_collectives
+        monkeypatch.setattr(dryrun, "step_collectives", lambda *a, **k:
+                            seen.append(count(*a, **k)) or seen[-1])
+        mesh = tmesh.make_production_mesh()
+        rec = dryrun.lower_cell("zamba2-2.7b", "prefill_32k", mesh,
+                                multi_pod=False, cfg=cfg)
+        stdout, stderr = ref.communicate(timeout=600)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    lines = [line for line in stdout.splitlines() if line.startswith("HIST ")]
+    assert lines, stdout + stderr
+    want = {int(k) for k in json.loads(lines[0][5:])}
+    assert "collectives_reason" not in rec and "error" not in rec, rec
+    assert rec["wire_bytes_per_device"] > 0
+    assert sum(rec["collective_group_sizes"].values()) == sum(
+        v["count"] for v in rec["collectives"].values()) > 0
+    records, why = seen[0]
+    assert why is None, why
+    layout = np.arange(mesh.size).reshape(mesh.shape)
+    test_sizes = tmesh.make_test_mesh().axis_sizes
+    sizes = set()
+    for r in records:
+        coords = np.argwhere(np.isin(layout, r.ranks))
+        spans = [a for i, a in enumerate(mesh.axis_names)
+                 if len(set(coords[:, i])) > 1]
+        assert len(coords) == math.prod(mesh.axis_sizes[a] for a in spans)
+        sizes.add(math.prod(test_sizes[a] for a in spans))
+    assert sizes == want, (sizes, want)

@@ -326,6 +326,62 @@ def world_families(rank, payload):
     return out if rank == 0 else None
 
 
+def world_recurrent(rank, payload):
+    """The recurrent families' placed serving on (data 2, model 4) with
+    head_tp: for each case, the parameters at their specs and the tokens
+    over data, the prefill step and then each decode step, each under its
+    own log. Returns rank 0's logits of each step, every cache leaf
+    gathered after the prefill and after the last step, each leaf's
+    placements after the prefill and after each step, and the records of
+    each step."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import steps
+    from repro_torch.launch.mesh import mesh_context, process_mesh
+
+    def placements(caches):
+        return {k: str(v.placements) if shd.is_placed(v) else "whole"
+                for k, v in shd.tree_leaves(caches).items()}
+
+    def gathered(caches):
+        # a copy: a replicated cache's whole tensor is its local one, which
+        # the decode steps write in place
+        return {k: np.array(shd.gather(v).float().numpy(), copy=True)
+                for k, v in shd.tree_leaves(caches).items()}
+
+    out = {}
+    with process_mesh((2, 4), ("data", "model"), "cpu") as mesh, \
+            mesh_context(mesh):
+        for arch, (cfg, params, prompt, tokens) in payload.items():
+            params = _t(params)
+            pp = shd.place_tree(params, shd.param_specs(
+                params, axis_sizes=mesh.axis_sizes), mesh)
+
+            def place(t):
+                t = torch.from_numpy(t)
+                return shd.place_tree(t, shd.batch_specs(t), mesh)
+            ptok, ptokens = place(prompt), [place(t) for t in tokens]
+            s = prompt.shape[1]
+            records, logits, pls = [], [], []
+            with CollectiveLog() as log:
+                lg, caches = steps.make_prefill_step(
+                    cfg, cache_len=s + len(tokens))(pp, {"tokens": ptok})
+            records.append(log.records)
+            logits.append(shd.gather(lg).numpy())
+            pls.append(placements(caches))
+            first = gathered(caches)
+            dec = steps.make_decode_step(cfg)
+            for i, t in enumerate(ptokens):
+                with CollectiveLog() as log:
+                    lg, caches = dec(pp, t, caches, s + i)
+                records.append(log.records)
+                logits.append(shd.gather(lg).numpy())
+                pls.append(placements(caches))
+            out[arch] = dict(logits=logits, prefill_caches=first,
+                             caches=gathered(caches), placements=pls,
+                             records=records)
+    return out if rank == 0 else None
+
+
 def planned(cfg, *, head_tp=True, seq_parallel=False):
     """The dry-run's per-plan activation hints on a smoke config."""
     return dataclasses.replace(cfg, act_batch_axes=("data",),
